@@ -1,0 +1,171 @@
+"""MPC locomotion orchestration: reference trajectory, foot kinematics, QP
+build and solve, force/moment extraction (port of ``hector/mpc.py``, after
+``ConvexMPC/ConvexMPCLocomotion.cpp``).
+
+Quirks kept (behavior, not accidents): the solver's foot rotations use the
+joint angles with the knee-chain offset applied THREE times; the yaw target
+is 0 when yaw_rate == 0; the x/y reference switches on the exact float
+comparison v_des_world == 0; f_ff = [-rBody GRF; -rBody GRM]; the MPC model
+mass is 9.0 and mu is 2.0 (config.MPCConfig).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .config import HectorConfig, DEFAULT_CONFIG, JOINT_OFFSETS
+from . import math as hm
+from .kinematics import foot_rotation, hip_yaw_locations
+from .qp.builder import build_stage_parts
+from .qp import fused_riccati
+
+
+class PlannerState(NamedTuple):
+    """Per-scenario planner carry (ConvexMPCLocomotion member state)."""
+
+    world_position_desired: torch.Tensor  # (B, 3)
+    f_ff: torch.Tensor                    # (B, 2, 6) latest stance wrench (body)
+
+
+def init_planner_state(position, dtype=torch.float32) -> PlannerState:
+    return PlannerState(
+        world_position_desired=position.to(dtype),
+        f_ff=torch.zeros((position.shape[0], 2, 6), dtype=dtype,
+                         device=position.device))
+
+
+def foot_positions_world(est, leg_data_p, cfg: HectorConfig):
+    """pFoot[i] = p + rBody^T (hipYaw_i + p_leg_i)
+    (ConvexMPCLocomotion.cpp:58-62); (B, 2, 3)."""
+    return est.position[:, None, :] + (hip_yaw_locations(cfg, leg_data_p)
+                                       + leg_data_p) @ est.r_body
+
+
+def integrate_position_setpoint(state: PlannerState, est, v_des_robot, cfg):
+    """Every-tick world_position_desired integration
+    (ConvexMPCLocomotion.cpp:47-55)."""
+    v_des_world = hm.rmatvec(est.r_body, v_des_robot)
+    wpd = state.world_position_desired
+    wpd = torch.stack([wpd[:, 0] + cfg.mpc.dt * v_des_world[:, 0],
+                       wpd[:, 1] + cfg.mpc.dt * v_des_world[:, 1],
+                       torch.full_like(wpd[:, 2], cfg.mpc.body_height)], -1)
+    return state._replace(world_position_desired=wpd), v_des_world
+
+
+def build_reference_trajectory(est, v_des_world, yaw_rate, roll_des,
+                               pitch_des, wpd_xy, cfg: HectorConfig):
+    """(B, h, 12) reference rollout (ConvexMPCLocomotion.cpp:351-406).
+    Row layout: [roll, pitch, yaw, x, y, z, wx, wy, wz, vx, vy, vz]."""
+    h = cfg.mpc.horizon
+    dtype, dev = est.position.dtype, est.position.device
+    dt_mpc = torch.tensor(cfg.mpc.dt_mpc, dtype=dtype, device=dev)
+    yaw = est.rpy[:, 2]
+    zero = torch.zeros_like(yaw)
+    i = torch.arange(h, dtype=dtype, device=dev)[None, :]        # (1, h)
+    step = i * dt_mpc
+
+    def lane(x):
+        return x[:, None].expand(-1, h)
+
+    # x/y: integrate from wpd when v_des == 0 else extrapolate from p
+    vx, vy = v_des_world[:, 0:1], v_des_world[:, 1:2]
+    x_row = torch.where(vx == 0, wpd_xy[:, 0:1] + step * vx,
+                        est.position[:, 0:1] + step * vx)
+    y_row = torch.where(vy == 0, wpd_xy[:, 1:2] + step * vy,
+                        est.position[:, 1:2] + step * vy)
+    # yaw: 0 target unless commanded, then integrate from current yaw
+    yr = yaw_rate[:, None]
+    yaw_row = torch.where(yr == 0, torch.zeros_like(step.expand_as(x_row)),
+                          yaw[:, None] + step * yr)
+    traj = torch.stack([
+        lane(roll_des), lane(pitch_des), yaw_row, x_row, y_row,
+        lane(torch.full_like(yaw, cfg.mpc.body_height)),
+        lane(zero), lane(zero), lane(yaw_rate),
+        lane(v_des_world[:, 0]), lane(v_des_world[:, 1]), lane(zero)],
+        dim=-1)
+    # row 0 = current state (ConvexMPCLocomotion.cpp:369-377)
+    traj = traj.clone()
+    traj[:, 0, 0:3] = est.rpy
+    traj[:, 0, 3:6] = est.position
+    return traj
+
+
+def build_parts(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
+                yaw_rate, roll_des, pitch_des, gait_table,
+                cfg: HectorConfig = DEFAULT_CONFIG, i_body=None):
+    """Everything of one MPC solve up to the QP: the drift-clamped desired
+    position (B, 3) and the compact ``StageQPParts`` of the batch."""
+    dtype, dev = est.position.dtype, est.position.device
+    offsets = torch.tensor(JOINT_OFFSETS, dtype=dtype, device=dev)
+    if i_body is None:
+        i_body = torch.diag(torch.tensor(cfg.robot.inertia_body, dtype=dtype,
+                                         device=dev))
+    v_des_world = hm.rmatvec(est.r_body, v_des_robot)
+
+    # drift clamp on the desired xy (ConvexMPCLocomotion.cpp:335-346)
+    wpd = state.world_position_desired
+    p = est.position
+    wpd_xy = torch.minimum(torch.maximum(wpd[:, :2],
+                                         p[:, :2] - cfg.mpc.max_pos_error),
+                           p[:, :2] + cfg.mpc.max_pos_error)
+    wpd = torch.cat([wpd_xy, wpd[:, 2:]], dim=-1)
+
+    traj = build_reference_trajectory(
+        est, v_des_world, yaw_rate, roll_des, pitch_des, wpd_xy, cfg)
+    r_feet = p_foot_w - p[:, None, :]
+    x0 = torch.cat([est.rpy, p, est.omega_world, est.v_world,
+                    torch.full_like(p[:, :1], cfg.mpc.gravity)], dim=-1)
+    # triple-offset foot rotation quirk: leg_q is data.q = raw + 1x offsets;
+    # two more applications follow in the reference call chain (mpc.py:156)
+    r_foot = foot_rotation(leg_q + 2.0 * offsets)
+    r_body_world = est.r_body.transpose(-1, -2)
+    parts = build_stage_parts(x0, traj, r_body_world, r_foot, r_feet, i_body,
+                              gait_table, cfg.mpc)
+    return wpd, parts
+
+
+def solve(parts, cfg: HectorConfig = DEFAULT_CONFIG):
+    """The backend switch (mpc.py:159-209): 'auto' and 'riccati_pallas' run
+    the fused Riccati interior point -- the CUDA kernel for CUDA tensors,
+    its plain version for CPU tensors."""
+    backend = cfg.solver.backend
+    if backend not in ('auto', 'riccati_pallas'):
+        raise NotImplementedError(
+            f'solver backend {backend!r} is not ported yet: the Mehrotra '
+            f'stage solver is ROADMAP.md queue A item 6, the dense PDIP and '
+            f'qpOASES paths queue A item 14')
+    # the kernel is built for the reference's fixed problem shape; a config
+    # change must fail loudly here, not deep inside the kernel
+    if cfg.mpc.horizon != fused_riccati.H:
+        raise ValueError(
+            f'the fused Riccati solver is built for horizon '
+            f'{fused_riccati.H}, config has {cfg.mpc.horizon}')
+    return fused_riccati.solve_parts(
+        parts, cfg.solver, q_diag=tuple(cfg.mpc.weights) + (0.0,),
+        r_diag=tuple(cfg.mpc.alpha))
+
+
+def mpc_update(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
+               yaw_rate, roll_des, pitch_des, gait_table,
+               cfg: HectorConfig = DEFAULT_CONFIG, i_body=None):
+    """One 200 Hz MPC solve for the batch (updateMPCIfNeeded,
+    ConvexMPCLocomotion.cpp:274-441).
+
+    leg_q: (B, 2, 5) the offset-corrected data.q.  Returns (new
+    PlannerState, per-leg world GRF/GRM (B, 2, 6), QPSolution).
+    """
+    wpd, parts = build_parts(state, est, leg_q, p_foot_w, v_des_robot,
+                             yaw_rate, roll_des, pitch_des, gait_table, cfg,
+                             i_body)
+    sol = solve(parts, cfg)
+    u0 = sol.u[:, :12]
+    bsz = u0.shape[0]
+    grf = u0[:, 0:6].reshape(bsz, 2, 3)   # world-frame ground reaction forces
+    grm = u0[:, 6:12].reshape(bsz, 2, 3)  # world-frame reaction moments
+    # f_ff = [-rBody GRF; -rBody GRM] (ConvexMPCLocomotion.cpp:428-439)
+    r_t = est.r_body.transpose(-1, -2)
+    f_ff = torch.cat([-(grf @ r_t), -(grm @ r_t)], dim=-1)
+    new_state = PlannerState(world_position_desired=wpd, f_ff=f_ff)
+    return new_state, torch.cat([grf, grm], dim=-1), sol
