@@ -264,10 +264,17 @@ class SolverConfig:
     #   'auto' | 'riccati_pallas' -> the fused Riccati interior point
     #                         (hector_torch/qp/fused_riccati.py): the CUDA
     #                         kernel for CUDA tensors, its plain PyTorch
-    #                         version for CPU tensors
-    #   every other backend of the JAX package ('riccati', 'dense_auto',
-    #   'xla', 'pallas', 'pallas_interpret', 'qpoases') is not ported yet
-    #   and raises NotImplementedError
+    #                         version for CPU tensors; with polish_rounds > 0
+    #                         the kernel that carries the polish
+    #   the condensed dense interior point (hector_torch/qp/pdip.py):
+    #   'dense_auto' | 'pallas' -> the CUDA Cholesky factor and solve kernels
+    #                         (hector_torch/qp/chol.py) for CUDA tensors,
+    #                         their plain versions for CPU tensors
+    #   'pallas_interpret'    -> the plain versions on any device, in the
+    #                         batch-minor layout of the TPU kernels
+    #   'xla'                 -> torch.linalg on (B, n, n); only by name
+    #   'riccati' (the Mehrotra stage solver) and 'qpoases' are not ported
+    #   yet and raise NotImplementedError
     backend: str = 'auto'
 
 

@@ -2,11 +2,12 @@
 
 This system has no weights; what crosses between ``hector`` and
 ``hector_torch`` is state: ``PlantState``, ``ControllerCarry``,
-``ScenarioCommand`` and ``StageQPParts``.  A caller flattens a JAX pytree
-into a dict of numpy arrays keyed by the JAX field names (nested
+``ScenarioCommand``, ``StageQPParts`` and ``QPData``.  A caller flattens a
+JAX pytree into a dict of numpy arrays keyed by the JAX field names (nested
 NamedTuples as nested dicts); ``from_numpy(cls, arrays, dtype, device)``
 builds the port's NamedTuple ``cls`` from it (e.g. ``srb.PlantState``,
-``runtime.ControllerCarry``).  Nothing here touches JAX.
+``runtime.ControllerCarry``, ``qp.builder.QPData``).  Nothing here touches
+JAX.
 """
 
 from __future__ import annotations

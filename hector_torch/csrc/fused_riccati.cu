@@ -4,11 +4,22 @@
 //
 // Replaces the Pallas TPU kernel hector/qp/pallas_riccati.py:_kernel (:63),
 // whose body is _solve_tile (:73-631), launched by pl.pallas_call at :668.
-// It computes what _solve_tile computes with polish_rounds = 0: the
-// fixed-sigma interior point (rollout, barrier weights on the 12 lower and
-// 8 upper one-sided rows, backward Riccati sweep with a 12x12 Cholesky that
-// keeps only K and kff, forward rollout, fraction-to-boundary steps,
-// clipped updates), then the final residuals mu, r_dual and r_prim.
+// It computes what _solve_tile computes: the fixed-sigma interior point
+// (rollout, barrier weights on the 12 lower and 8 upper one-sided rows,
+// backward Riccati sweep with a 12x12 Cholesky that keeps only K and kff,
+// forward rollout, fraction-to-boundary steps, clipped updates), then, when
+// polish_rounds > 0, the primal-dual active-set polish (:542-610), then the
+// final residuals mu, r_dual and r_prim.
+//
+// The body is a template on POLISH and is compiled twice.  The kernel
+// without the polish is the one the default configuration launches: it holds
+// no polish code, so its registers, spills and time are those of the
+// interior point alone.  The kernel with the polish runs the interior point
+// and then polish_rounds * polish_iters more Riccati solves through THE SAME
+// loop and the same newton_dir call site (a second site would inline the
+// unrolled sweep twice): the loop body prepares d_row, q_lin and r_lin by
+// phase.  The polish state (u_p, u_b over 120 inputs; nu, nu_b, a_l, a_u
+// over 160 rows) is thread-local and lives in local memory.
 //
 // What bounds it on the card: arithmetic.  A solve reads ~3.3 KB and writes
 // ~0.5 KB per scenario but does ~2 MFLOP of dependent scalar FP32 work (the
@@ -49,6 +60,10 @@ struct FusedRiccatiParams {
   float init_slack;
   float init_dual;
   int iters;
+  int pol_rounds;    // polish: rounds of active-set estimation (0 = off)
+  int pol_iters;     // polish: augmented-Lagrangian solves per round
+  float pol_rho;     // polish: penalty
+  float pol_tol;     // polish: a lane is accepted at merit <= 10 * pol_tol
 };
 
 namespace {
@@ -177,6 +192,46 @@ __device__ __forceinline__ void rollout_qlin(const Dyn& d, const Params& prm,
     for (int i = 0; i < NX; ++i)
       q_lin[k * NX + i] = (x[i] - AT(xd, k * NX + i)) * prm.q2[i];
   }
+}
+
+// Bound data of one constraint row for the polish: float masks of the finite
+// sides, the equality flag (lb == ub: the swing legs' zero rows) and the
+// bounds with the absent sides set to 0.
+struct PolRow {
+  float fl, fu, feq, lb_c, ub_c;
+};
+
+__device__ __forceinline__ PolRow pol_row(const float* lb, const float* ub,
+                                          size_t B, int e, float big) {
+  const float lbv = AT(lb, e), ubv = AT(ub, e);
+  PolRow w;
+  w.fl = (lbv > -big) ? 1.f : 0.f;
+  w.fu = (ubv < big) ? 1.f : 0.f;
+  w.lb_c = (lbv > -big) ? lbv : 0.f;
+  w.ub_c = (ubv < big) ? ubv : 0.f;
+  w.feq = w.fl * w.fu * ((w.ub_c - w.lb_c < 1e-12f) ? 1.f : 0.f);
+  return w;
+}
+
+// Active-set estimate of one row from the sign of nu + rho (C u - bound)
+// (estimate, pallas_riccati.py:554-560).
+__device__ __forceinline__ void pol_estimate(const PolRow& w, float rho,
+                                             float nu, float cu, float* al,
+                                             float* au) {
+  const float t_u = nu + rho * (cu - w.ub_c);
+  const float t_l = -nu + rho * (w.lb_c - cu);
+  *au = jmax(w.fu * ((t_u > 0.f) ? 1.f : 0.f), w.feq);
+  *al = jmax(w.fl * ((t_l > 0.f) ? 1.f : 0.f) * (1.f - *au), w.feq);
+}
+
+// The row's active flag, and the bound it is held to: lower-active (and
+// equality) rows target lb, upper-active rows ub.
+__device__ __forceinline__ void pol_target(const PolRow& w, float al, float au,
+                                           float* act, float* low,
+                                           float* bnd) {
+  *act = jmax(al, au);
+  *low = jmax(al * (1.f - au), w.feq);
+  *bnd = *low * w.lb_c + (1.f - *low) * au * w.ub_c;
 }
 
 // One LQR solve: backward Riccati sweep (storing only K, kff) and forward
@@ -394,6 +449,7 @@ __device__ __forceinline__ void newton_dir(
   }
 }
 
+template <bool POLISH>
 __global__ void __launch_bounds__(THREADS) fused_riccati_kernel(
     const float* __restrict__ s69_in, const float* __restrict__ scal_in,
     const float* __restrict__ b69_in, const float* __restrict__ umask,
@@ -422,7 +478,9 @@ __global__ void __launch_bounds__(THREADS) fused_riccati_kernel(
 
   const float big = prm.big;
   const float kInf = __int_as_float(0x7f800000);
-  const float mu_floor = 10.0f * FLT_EPSILON;
+  // with the polish the interior point runs to its clamp-limited stall
+  // point (the active set is identified there): no complementarity freeze
+  const float mu_floor = POLISH ? 0.0f : 10.0f * FLT_EPSILON;
   const float s_floor = 10.0f * FLT_EPSILON;
   const float d_cap = static_cast<float>(0.1 / static_cast<double>(FLT_EPSILON));
   const float sl_cap = 1e8f;
@@ -447,18 +505,89 @@ __global__ void __launch_bounds__(THREADS) fused_riccati_kernel(
 #pragma unroll 1
   for (int e = 0; e < H * NU; ++e) u[e] = 0.f;
 
+  // polish state: the polished iterate and its row multipliers, the active
+  // sets as float masks, and the best round so far by the KKT merit
+  constexpr int PU = POLISH ? H * NU : 1, PR = POLISH ? H * NC : 1;
+  float u_p[PU], u_b[PU], nu_p[PR], nu_b[PR], a_l[PR], a_u[PR];
+  float bad_b = kInf;
+  const int n_pol = POLISH ? prm.pol_rounds * prm.pol_iters : 0;
+
   // Iteration -1 is the unconstrained start (D = 0, r_lin = 0); iterations
-  // 0..iters-1 are the interior-point steps.  One call site keeps
-  // newton_dir inlined once.
+  // 0..iters-1 are the interior-point steps; iterations iters.. are the
+  // polish steps (POLISH only).  One call site keeps newton_dir inlined
+  // once.
 #pragma unroll 1
-  for (int it = -1; it < prm.iters; ++it) {
-    rollout_qlin(d, prm, x0, xd, umask, B, u, q_lin);
+  for (int it = -1; it < prm.iters + n_pol; ++it) {
+    const bool pol = POLISH && it >= prm.iters;
+    const float* ucur = u;
+    if constexpr (POLISH) {
+      if (it == prm.iters) {
+        // start of the polish: multipliers of the interior point as signed
+        // full rows, the first active-set estimate, u_p = u_b = u
+#pragma unroll 1
+        for (int k = 0; k < H; ++k) {
+          float cu[NC], lam_row[NC];
+          c_mul(cm, B, u + k * NU, cu);
+#pragma unroll
+          for (int i = 0; i < NL; ++i) lam_row[lr_row(i)] = -ll[k * NL + i];
+#pragma unroll
+          for (int i = 0; i < NP; ++i) {
+            const int r = ur_row(i);
+            lam_row[r] = ur_is_lr(i) ? lam_row[r] + lu[k * NP + i] : lu[k * NP + i];
+          }
+#pragma unroll
+          for (int r = 0; r < NC; ++r) {
+            const int e = k * NC + r;
+            const PolRow w = pol_row(lb, ub, B, e, big);
+            float al, au;
+            pol_estimate(w, prm.pol_rho, lam_row[r], cu[r], &al, &au);
+            a_l[e] = al;
+            a_u[e] = au;
+            nu_p[e] = jmax(al, au) * lam_row[r];
+            nu_b[e] = nu_p[e];
+          }
+        }
+#pragma unroll 1
+        for (int e = 0; e < H * NU; ++e) {
+          u_p[e] = u[e];
+          u_b[e] = u[e];
+        }
+      }
+      if (pol) ucur = u_p;
+    }
+    rollout_qlin(d, prm, x0, xd, umask, B, ucur, q_lin);
     float mu = 0.f, smu = 0.f;
     if (it < 0) {
 #pragma unroll 1
       for (int e = 0; e < H * NC; ++e) d_row[e] = 0.f;
 #pragma unroll 1
       for (int e = 0; e < H * NU; ++e) r_lin[e] = 0.f;
+    } else if (pol) {
+      if constexpr (POLISH) {
+        // augmented-Lagrangian step on the active rows: d = rho act,
+        // r_lin = r2 u_p + C^T (nu + rho act (C u_p - bnd))
+#pragma unroll 1
+        for (int k = 0; k < H; ++k) {
+          float cu[NC], arg[NC];
+          c_mul(cm, B, u_p + k * NU, cu);
+#pragma unroll
+          for (int r = 0; r < NC; ++r) {
+            const int e = k * NC + r;
+            const PolRow w = pol_row(lb, ub, B, e, big);
+            float act, low, bnd;
+            pol_target(w, a_l[e], a_u[e], &act, &low, &bnd);
+            arg[r] = nu_p[e] + prm.pol_rho * (act * (cu[r] - bnd));
+            d_row[e] = prm.pol_rho * act;
+          }
+#pragma unroll
+          for (int j = 0; j < NU; ++j) {
+            float acc = 0.f;
+#pragma unroll
+            for (int r = 0; r < NC; ++r) acc += arg[r] * AT(cm, r * NU + j);
+            r_lin[k * NU + j] = prm.r2[j] * u_p[k * NU + j] + acc;
+          }
+        }
+      }
     } else {
       float acc_l = 0.f, acc_u = 0.f;
 #pragma unroll 1
@@ -572,6 +701,61 @@ __global__ void __launch_bounds__(THREADS) fused_riccati_kernel(
       continue;
     }
 
+    if constexpr (POLISH) {
+      if (pol) {
+        // full Newton step unless the direction is not finite
+        bool fin = true;
+#pragma unroll 1
+        for (int e = 0; e < H * NU; ++e) fin = fin && isfinite(du[e]);
+        if (fin) {
+#pragma unroll 1
+          for (int e = 0; e < H * NU; ++e) u_p[e] += du[e];
+        }
+        // multiplier update; on the last step of a round the KKT merit
+        // (primal violation, wrong-sign multiplier / 10), best of rounds,
+        // and the next active set
+        const bool round_end = ((it - prm.iters + 1) % prm.pol_iters) == 0;
+        float bad_p = -kInf, wrong = -kInf;
+#pragma unroll 1
+        for (int k = 0; k < H; ++k) {
+          float cu[NC];
+          c_mul(cm, B, u_p + k * NU, cu);
+#pragma unroll
+          for (int r = 0; r < NC; ++r) {
+            const int e = k * NC + r;
+            const PolRow w = pol_row(lb, ub, B, e, big);
+            const float au = a_u[e];
+            float act, low, bnd;
+            pol_target(w, a_l[e], au, &act, &low, &bnd);
+            const float nu_n = act * (nu_p[e] + prm.pol_rho * (cu[r] - bnd));
+            nu_p[e] = nu_n;
+            if (round_end) {
+              bad_p = jmax(bad_p, jmax(w.fl * (w.lb_c - cu[r]),
+                                       w.fu * (cu[r] - w.ub_c)));
+              wrong = jmax(wrong,
+                           jmax(au * (1.f - w.feq) * jmax(-nu_n, 0.f),
+                                low * (1.f - w.feq) * jmax(nu_n, 0.f)));
+              pol_estimate(w, prm.pol_rho, nu_n, cu[r], &a_l[e], &a_u[e]);
+            }
+          }
+        }
+        if (round_end) {
+          bool ufin = true;
+#pragma unroll 1
+          for (int e = 0; e < H * NU; ++e) ufin = ufin && isfinite(u_p[e]);
+          const float bad_r = ufin ? jmax(bad_p, 0.1f * wrong) : kInf;
+          if (bad_r < bad_b) {
+#pragma unroll 1
+            for (int e = 0; e < H * NU; ++e) u_b[e] = u_p[e];
+#pragma unroll 1
+            for (int e = 0; e < H * NC; ++e) nu_b[e] = nu_p[e];
+          }
+          bad_b = jmin(bad_r, bad_b);
+        }
+        continue;
+      }
+    }
+
     // slack/dual directions, step sizes, finiteness
     bool finite = true;
 #pragma unroll 1
@@ -639,6 +823,19 @@ __global__ void __launch_bounds__(THREADS) fused_riccati_kernel(
     }
   }
 
+  // accept the polished lane only at a small KKT merit, else keep the
+  // interior-point iterate (pallas_riccati.py:605-610)
+  bool pol_ok = false;
+  if constexpr (POLISH) {
+    pol_ok = bad_b <= 10.0f * prm.pol_tol;
+#pragma unroll 1
+    for (int e = 0; e < H * NU; ++e) pol_ok = pol_ok && isfinite(u_b[e]);
+    if (pol_ok) {
+#pragma unroll 1
+      for (int e = 0; e < H * NU; ++e) u[e] = u_b[e];
+    }
+  }
+
   // ---- final residuals (pallas_riccati.py:612-631) ----
   rollout_qlin(d, prm, x0, xd, umask, B, u, q_lin);
   float nu[NX];
@@ -656,6 +853,12 @@ __global__ void __launch_bounds__(THREADS) fused_riccati_kernel(
     for (int i = 0; i < NP; ++i) {
       const int r = ur_row(i);
       lam_row[r] = ur_is_lr(i) ? lam_row[r] + lu[k * NP + i] : lu[k * NP + i];
+    }
+    if constexpr (POLISH) {
+      if (pol_ok) {
+#pragma unroll
+        for (int r = 0; r < NC; ++r) lam_row[r] = nu_b[k * NC + r];
+      }
     }
     float bnu[NU];
     bt_mul(d, mk, nu, bnu);
@@ -702,7 +905,8 @@ __global__ void __launch_bounds__(THREADS) fused_riccati_kernel(
 
 extern "C" {
 
-// Launches one solve of `batch` scenarios on `stream` (a cudaStream_t) and
+// Launches one solve of `batch` scenarios on `stream` (a cudaStream_t), with
+// the kernel that carries the polish if params->pol_rounds > 0, and
 // returns cudaGetLastError() as an int (0 = launched).  Every array is
 // batch-minor float32: element e of scenario b at [e * batch + b].
 int fused_riccati_solve(const float* s69, const float* scal, const float* b69,
@@ -712,9 +916,17 @@ int fused_riccati_solve(const float* s69, const float* scal, const float* b69,
                         const FusedRiccatiParams* params, void* stream) {
   if (batch <= 0) return 0;
   const int grid = (batch + THREADS - 1) / THREADS;
-  fused_riccati_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      s69, scal, b69, umask, x0, xd, cm, lb, ub, u_out, stats_out, kscr, batch,
-      *params);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (params->pol_rounds > 0) {
+    if (params->pol_iters < 1) return static_cast<int>(cudaErrorInvalidValue);
+    fused_riccati_kernel<true><<<grid, THREADS, 0, st>>>(
+        s69, scal, b69, umask, x0, xd, cm, lb, ub, u_out, stats_out, kscr,
+        batch, *params);
+  } else {
+    fused_riccati_kernel<false><<<grid, THREADS, 0, st>>>(
+        s69, scal, b69, umask, x0, xd, cm, lb, ub, u_out, stats_out, kscr,
+        batch, *params);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -723,10 +935,14 @@ const char* fused_riccati_error_string(int code) {
 }
 
 // Registers per thread, local (spill + array) bytes per thread and the
-// largest block size the compiled kernel can launch with.
-int fused_riccati_attributes(int* num_regs, int* local_bytes, int* max_threads) {
+// largest block size the compiled kernel can launch with: of the kernel
+// with the polish if `polish` is not 0, else of the interior point alone.
+int fused_riccati_attributes(int polish, int* num_regs, int* local_bytes,
+                             int* max_threads) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, fused_riccati_kernel);
+  const cudaError_t err =
+      polish ? cudaFuncGetAttributes(&a, fused_riccati_kernel<true>)
+             : cudaFuncGetAttributes(&a, fused_riccati_kernel<false>);
   if (err != cudaSuccess) return static_cast<int>(err);
   *num_regs = a.numRegs;
   *local_bytes = static_cast<int>(a.localSizeBytes);

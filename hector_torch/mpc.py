@@ -11,6 +11,7 @@ mass is 9.0 and mu is 2.0 (config.MPCConfig).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -18,8 +19,12 @@ import torch
 from .config import HectorConfig, DEFAULT_CONFIG, JOINT_OFFSETS
 from . import math as hm
 from .kinematics import foot_rotation, hip_yaw_locations
-from .qp.builder import build_stage_parts
-from .qp import fused_riccati
+from .qp.builder import QPData, StageQPParts, build_qp, build_stage_parts
+from .qp import fused_riccati, pdip
+
+# SolverConfig.backend values by the problem form they solve
+RICCATI_BACKENDS = ('auto', 'riccati_pallas')
+DENSE_BACKENDS = ('dense_auto', 'pallas', 'pallas_interpret', 'xla')
 
 
 class PlannerState(NamedTuple):
@@ -92,11 +97,10 @@ def build_reference_trajectory(est, v_des_world, yaw_rate, roll_des,
     return traj
 
 
-def build_parts(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
-                yaw_rate, roll_des, pitch_des, gait_table,
-                cfg: HectorConfig = DEFAULT_CONFIG, i_body=None):
-    """Everything of one MPC solve up to the QP: the drift-clamped desired
-    position (B, 3) and the compact ``StageQPParts`` of the batch."""
+def _qp_inputs(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
+               yaw_rate, roll_des, pitch_des, gait_table, cfg, i_body):
+    """Everything of one MPC solve up to the QP build: the drift-clamped
+    desired position (B, 3) and the arguments both builders take."""
     dtype, dev = est.position.dtype, est.position.device
     offsets = torch.tensor(JOINT_OFFSETS, dtype=dtype, device=dev)
     if i_body is None:
@@ -121,21 +125,61 @@ def build_parts(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
     # two more applications follow in the reference call chain (mpc.py:156)
     r_foot = foot_rotation(leg_q + 2.0 * offsets)
     r_body_world = est.r_body.transpose(-1, -2)
-    parts = build_stage_parts(x0, traj, r_body_world, r_foot, r_feet, i_body,
-                              gait_table, cfg.mpc)
-    return wpd, parts
+    return wpd, (x0, traj, r_body_world, r_foot, r_feet, i_body, gait_table,
+                 cfg.mpc)
 
 
-def solve(parts, cfg: HectorConfig = DEFAULT_CONFIG):
-    """The backend switch (mpc.py:159-209): 'auto' and 'riccati_pallas' run
-    the fused Riccati interior point -- the CUDA kernel for CUDA tensors,
-    its plain version for CPU tensors."""
+def build_parts(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
+                yaw_rate, roll_des, pitch_des, gait_table,
+                cfg: HectorConfig = DEFAULT_CONFIG, i_body=None):
+    """One MPC solve up to the QP, in the production form: the
+    drift-clamped desired position (B, 3) and the compact ``StageQPParts``
+    of the batch (the fused Riccati backends)."""
+    wpd, args = _qp_inputs(state, est, leg_q, p_foot_w, v_des_robot,
+                           yaw_rate, roll_des, pitch_des, gait_table, cfg,
+                           i_body)
+    return wpd, build_stage_parts(*args)
+
+
+def build_dense(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
+                yaw_rate, roll_des, pitch_des, gait_table,
+                cfg: HectorConfig = DEFAULT_CONFIG, i_body=None):
+    """One MPC solve up to the QP, in the condensed form: the drift-clamped
+    desired position (B, 3) and the dense ``QPData`` of the batch (the
+    dense interior-point backends)."""
+    wpd, args = _qp_inputs(state, est, leg_q, p_foot_w, v_des_robot,
+                           yaw_rate, roll_des, pitch_des, gait_table, cfg,
+                           i_body)
+    return wpd, build_qp(*args)
+
+
+def solve(problem, cfg: HectorConfig = DEFAULT_CONFIG):
+    """The backend switch (mpc.py:159-209).
+
+    'auto' and 'riccati_pallas' run the fused Riccati interior point on
+    ``StageQPParts``: the CUDA kernel for CUDA tensors, its plain version
+    for CPU tensors, with the active-set polish when
+    ``cfg.solver.polish_rounds > 0``.  'dense_auto', 'pallas',
+    'pallas_interpret' and 'xla' run the dense interior point
+    (hector_torch/qp/pdip.py) on ``QPData``; 'dense_auto' stands for the
+    solver's own 'auto'."""
     backend = cfg.solver.backend
-    if backend not in ('auto', 'riccati_pallas'):
+    if backend in DENSE_BACKENDS:
+        if not isinstance(problem, QPData):
+            raise TypeError(f'backend {backend!r} solves QPData (build_dense)'
+                            f', got {type(problem).__name__}')
+        scfg = cfg.solver
+        if backend == 'dense_auto':
+            scfg = dataclasses.replace(scfg, backend='auto')
+        return pdip.solve_batched(problem, scfg)
+    if backend not in RICCATI_BACKENDS:
         raise NotImplementedError(
-            f'solver backend {backend!r} is not ported yet: the Mehrotra '
-            f'stage solver is ROADMAP.md queue A item 6, the dense PDIP and '
-            f'qpOASES paths queue A item 14')
+            f"solver backend {backend!r} is not ported yet: the Mehrotra "
+            f"stage solver ('riccati') is ROADMAP.md queue A item 6, the "
+            f"qpOASES path ('qpoases') queue A item 14")
+    if not isinstance(problem, StageQPParts):
+        raise TypeError(f'backend {backend!r} solves StageQPParts '
+                        f'(build_parts), got {type(problem).__name__}')
     # the kernel is built for the reference's fixed problem shape; a config
     # change must fail loudly here, not deep inside the kernel
     if cfg.mpc.horizon != fused_riccati.H:
@@ -143,7 +187,7 @@ def solve(parts, cfg: HectorConfig = DEFAULT_CONFIG):
             f'the fused Riccati solver is built for horizon '
             f'{fused_riccati.H}, config has {cfg.mpc.horizon}')
     return fused_riccati.solve_parts(
-        parts, cfg.solver, q_diag=tuple(cfg.mpc.weights) + (0.0,),
+        problem, cfg.solver, q_diag=tuple(cfg.mpc.weights) + (0.0,),
         r_diag=tuple(cfg.mpc.alpha))
 
 
@@ -156,10 +200,11 @@ def mpc_update(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
     leg_q: (B, 2, 5) the offset-corrected data.q.  Returns (new
     PlannerState, per-leg world GRF/GRM (B, 2, 6), QPSolution).
     """
-    wpd, parts = build_parts(state, est, leg_q, p_foot_w, v_des_robot,
-                             yaw_rate, roll_des, pitch_des, gait_table, cfg,
-                             i_body)
-    sol = solve(parts, cfg)
+    build = (build_dense if cfg.solver.backend in DENSE_BACKENDS
+             else build_parts)
+    wpd, problem = build(state, est, leg_q, p_foot_w, v_des_robot, yaw_rate,
+                         roll_des, pitch_des, gait_table, cfg, i_body)
+    sol = solve(problem, cfg)
     u0 = sol.u[:, :12]
     bsz = u0.shape[0]
     grf = u0[:, 0:6].reshape(bsz, 2, 3)   # world-frame ground reaction forces

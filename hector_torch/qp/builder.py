@@ -1,15 +1,26 @@
-"""Compact assembly of the stage-form MPC QP (port of
-``hector/qp/builder.py``: ``StageQPParts`` and ``build_stage_parts``).
+"""Batched assembly of the MPC QP (port of ``hector/qp/builder.py``), in
+its two forms.
 
-The production path builds only the slices of the discrete dynamics that the
-fused Riccati solver reads (hector_torch/qp/fused_riccati.py):
+The production path (``StageQPParts``, ``build_stage_parts``) builds only
+the slices of the discrete dynamics that the fused Riccati solver reads
+(hector_torch/qp/fused_riccati.py):
 
   s69  = a_dt[0:3, 6:9]          = dt * euler_rate
   scal = [a_dt[3,9], a_dt[11,12], b_dt[9,0]] = [dt, -dt, dt/mass]
   b69  = b_dt[6:9, :] = dt * [I^-1 [r0]x | I^-1 [r1]x | I^-1 | I^-1]
 
-The condensed ``build_qp`` and the full ``build_stage_qp`` serve oracle paths
-that are not ported yet (ROADMAP.md queue A item 5).
+The condensed path (``QPData``, ``build_qp``) rebuilds ``solve_mpc``'s matrix
+pipeline (SolverMPC.cpp:371-586) for the dense interior point
+(hector_torch/qp/pdip.py):
+
+  H = 2 (B~^T S B~ + Alpha_rep)        (SolverMPC.cpp:569)
+  g = 2 B~^T S (A_qp x0 - X_d)         (SolverMPC.cpp:570)
+
+where B~ is B_qp with the swing-leg columns zeroed, the static-shape
+equivalent of the reference's variable elimination (SolverMPC.cpp:589-697).
+
+The full stage form ``build_stage_qp`` serves the general stage solver,
+which is not ported yet (ROADMAP.md queue A item 6).
 """
 
 from __future__ import annotations
@@ -20,7 +31,62 @@ import torch
 
 from ..config import MPCConfig
 from ..math import euler_rate_matrix, skew, inv3
+from ..srbd import ct_dynamics, condense
 from ..constraints import constraint_block, constraint_bounds, input_mask
+
+
+class QPData(NamedTuple):
+    """A batch of condensed MPC QPs:
+
+    min 1/2 u^T H u + g^T u  s.t.  lb <= C_step u_step <= ub per step,
+
+    with C_step shared across the horizon (fmat is block-diagonal with one
+    repeated block, SolverMPC.cpp:552-555)."""
+
+    h_mat: torch.Tensor    # (B, 12h, 12h)
+    g_vec: torch.Tensor    # (B, 12h)
+    c_block: torch.Tensor  # (B, 16, 12)
+    lb: torch.Tensor       # (B, h, 16)
+    ub: torch.Tensor       # (B, h, 16)
+
+
+def build_qp(x0, traj, r_body, r_foot, r_feet, i_body, gait_table,
+             cfg: MPCConfig) -> QPData:
+    """Assemble the condensed QP for a batch of scenarios.  Inputs as in
+    :func:`build_stage_parts`."""
+    h = cfg.horizon
+    dtype, dev = x0.dtype, x0.device
+    bsz = x0.shape[0]
+
+    i_world = r_body @ i_body @ r_body.transpose(-1, -2)
+    erate = euler_rate_matrix(x0[:, 0:3])
+    a_ct, b_ct = ct_dynamics(
+        i_world, torch.tensor(cfg.mass, dtype=dtype, device=dev), r_feet,
+        erate)
+    a_qp, b_qp = condense(
+        a_ct, b_ct, torch.tensor(cfg.dt_mpc, dtype=dtype, device=dev), h)
+
+    # swing-leg variable masking == the reference's elimination
+    u_mask = input_mask(gait_table).reshape(bsz, 12 * h).to(dtype)
+    b_masked = b_qp * u_mask[:, None, :]
+
+    weights13 = torch.tensor(tuple(cfg.weights) + (0.0,), dtype=dtype,
+                             device=dev)
+    s_diag = weights13.repeat(h)                        # (13h,)
+    alpha_rep = torch.tensor(cfg.alpha, dtype=dtype, device=dev).repeat(h)
+
+    bs = b_masked * s_diag[:, None]                     # S B~
+    h_mat = 2.0 * (b_masked.transpose(-1, -2) @ bs + torch.diag(alpha_rep))
+
+    x_d = torch.cat([traj, torch.zeros(traj.shape[:-1] + (1,), dtype=dtype,
+                                       device=dev)], dim=-1)
+    x_d = x_d.reshape(bsz, 13 * h)
+    resid = (a_qp @ x0[..., None])[..., 0] - x_d
+    g_vec = 2.0 * (bs.transpose(-1, -2) @ resid[..., None])[..., 0]
+
+    c_block = constraint_block(r_body, r_foot, cfg).to(dtype)
+    lb, ub = constraint_bounds(gait_table.to(dtype), cfg)
+    return QPData(h_mat, g_vec, c_block, lb, ub)
 
 
 class StageQPParts(NamedTuple):

@@ -3,8 +3,9 @@ PyTorch version.
 
 Replaces the Pallas TPU kernel ``hector/qp/pallas_riccati.py:_kernel``
 (body ``_solve_tile``, launched at ``:668``).  Both versions here run the
-fixed-sigma interior point of that kernel with ``polish_rounds = 0`` on the
-compact ``StageQPParts`` (h=10, nx=13, nu=12, nc=16):
+fixed-sigma interior point of that kernel on the compact ``StageQPParts``
+(h=10, nx=13, nu=12, nc=16) and, when ``polish_rounds > 0``, its primal-dual
+active-set polish (``:542-610``):
 
 - :func:`solve_parts` is the entry point.  A CUDA tensor goes to the kernel
   (``hector_torch/csrc/fused_riccati.cu``, built with nvcc at first use into
@@ -16,24 +17,25 @@ compact ``StageQPParts`` (h=10, nx=13, nu=12, nc=16):
   the skip rule.  It runs in float32 and float64.  Its one departure: the
   complementarity freeze ``mu_floor`` is max(1e-14, 10 eps), which is the
   kernel's 10 eps in float32 and the JAX Riccati solver's 1e-14 in float64.
+  With the polish on there is no freeze, as in the kernel: the interior
+  point runs to its clamp-limited stall point, where the active set shows.
 
-``launches`` counts kernel launches (the plain version never touches it).
+The source holds two kernels of one body: the interior point alone, which
+the default configuration launches, and the interior point with the polish.
+``launches`` counts launches of the first and ``polish_launches`` of the
+second (the plain version touches neither).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from ..config import SolverConfig
+from . import _nvcc
 
 H = 10      # horizon / gait segments
 NX = 13     # state dim  [rpy, p, omega, v, g]
@@ -50,10 +52,11 @@ SCRATCH_PER_SCENARIO = H * NU * (NX + 1)
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / 'csrc' / 'fused_riccati.cu'
 BUILD_ROOT = _PKG / '_build'
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+NVCC_FLAGS = _nvcc.NVCC_FLAGS
 
-launches = 0            # kernel launches since import (or the caller's reset)
+launches = 0            # launches of the polish_rounds = 0 kernel since import
+                        # (or the caller's reset)
+polish_launches = 0     # launches of the kernel with the polish, likewise
 build_info = {}         # nvcc command, seconds and ptxas report of this process
 _lib = None
 
@@ -70,6 +73,9 @@ class QPSolution(NamedTuple):
 def _weights(scfg: SolverConfig, q_diag, r_diag):
     """The objective's factor 2 (H = 2(B'SB + alpha), SolverMPC.cpp:569)
     folded into the weights, in double precision as the JAX kernel does."""
+    if scfg.polish_rounds > 0 and scfg.polish_iters < 1:
+        raise ValueError('polish_rounds > 0 needs polish_iters >= 1, got '
+                         f'{scfg.polish_iters}')
     q2 = [2.0 * float(v) for v in q_diag]
     r2 = [2.0 * float(v) for v in r_diag]
     r2reg = [v + float(scfg.kkt_reg) for v in r2]
@@ -79,18 +85,10 @@ def _weights(scfg: SolverConfig, q_diag, r_diag):
     return q2, r2, r2reg
 
 
-def _check_polish(scfg: SolverConfig):
-    if scfg.polish_rounds > 0:
-        raise NotImplementedError(
-            'polish_rounds > 0: the PDAS polish of the fused solver is not '
-            'ported yet (ROADMAP.md queue B item 1(b))')
-
-
 def solve_parts(parts, scfg: SolverConfig, q_diag, r_diag) -> QPSolution:
     """Solve a batch of stage QPs given as ``StageQPParts`` (leading batch
     dim B on every field).  CUDA tensors launch the kernel; CPU tensors run
     the plain version."""
-    _check_polish(scfg)
     dev = parts.x0.device
     if dev.type == 'cuda':
         return solve_parts_cuda(parts, scfg, q_diag, r_diag)
@@ -167,7 +165,6 @@ def _back_sub(ell, rinv, x):
 def solve_parts_plain(parts, scfg: SolverConfig, q_diag, r_diag
                       ) -> QPSolution:
     """The kernel's algorithm in batched PyTorch ops (float32 or float64)."""
-    _check_polish(scfg)
     s69, scal, b69, umask, x0, xd, cm, lb, ub = parts
     dtype, dev = x0.dtype, x0.device
     bsz = x0.shape[0]
@@ -180,7 +177,8 @@ def solve_parts_plain(parts, scfg: SolverConfig, q_diag, r_diag
     q2_mat = torch.diag(q2)
     r2reg_mat = torch.diag(r2reg)
     eps = torch.finfo(dtype).eps
-    mu_floor = max(1e-14, 10.0 * eps)
+    polish = scfg.polish_rounds > 0
+    mu_floor = 0.0 if polish else max(1e-14, 10.0 * eps)
     s_floor = 10.0 * eps
     d_cap = 0.1 / eps
     sl_cap = 1e8
@@ -328,10 +326,72 @@ def solve_parts_plain(parts, scfg: SolverConfig, q_diag, r_diag
         lam_l = torch.where(skip | ~mlr, lam_l, clip(lam_l + a_d * dl_l))
         lam_u = torch.where(skip | ~mur, lam_u, clip(lam_u + a_d * dl_u))
 
+    # side -> full-row signed multipliers for the polish and the residuals
+    lam_row = full_rows(-lam_l, lam_u)
+
+    if polish:
+        # ---- primal-dual active-set polish (pallas_riccati.py:542-610) ----
+        # The interior point's d_cap/s_floor clamps stall it a few mN from
+        # the optimum.  Each round estimates the active set from the sign of
+        # nu + rho (Cu - b), solves the equality-constrained problem by an
+        # augmented Lagrangian (polish_iters Newton solves at penalty rho,
+        # the same newton_dir with d = rho * act), and re-estimates; the
+        # best round by a KKT merit is kept, and a lane is accepted only at
+        # a small merit, else it keeps the interior-point iterate.  Rows with
+        # lb == ub (the swing legs' zero rows) stay active always.
+        rho = scfg.polish_rho
+        fl, fu = mask_l.to(dtype), mask_u.to(dtype)
+        feq = fl * fu * (ub_c - lb_c < 1e-12).to(dtype)
+
+        def estimate(nu_e, cu_e):
+            t_u = nu_e + rho * (cu_e - ub_c)
+            t_l = -nu_e + rho * (lb_c - cu_e)
+            a_u = torch.maximum(fu * (t_u > 0).to(dtype), feq)
+            a_l = torch.maximum(fl * (t_l > 0).to(dtype) * (1.0 - a_u), feq)
+            return a_l, a_u
+
+        a_l, a_u = estimate(lam_row, apply_c(u))
+        nu = torch.maximum(a_l, a_u) * lam_row
+        u_p, u_b, nu_b = u, u, nu
+        bad_b = inf.expand(bsz)
+        for t in range(scfg.polish_rounds * scfg.polish_iters):
+            act = torch.maximum(a_l, a_u)
+            # lower-active (and eq) rows target lb, upper-active rows ub
+            low = torch.maximum(a_l * (1.0 - a_u), feq)
+            bnd = low * lb_c + (1.0 - low) * a_u * ub_c
+            q_lin = (rollout(u_p) - xd) * q2
+            viol = act * (apply_c(u_p) - bnd)
+            r_lin = r2 * u_p + apply_ct(nu + rho * viol)
+            du = newton_dir(rho * act, q_lin, r_lin)
+            fin = torch.isfinite(du).all(2).all(1)[:, None, None]
+            u_p = torch.where(fin, u_p + du, u_p)
+            cu_p = apply_c(u_p)
+            nu = act * (nu + rho * (cu_p - bnd))
+            if (t + 1) % scfg.polish_iters:
+                continue
+            # round end: merit = max(primal violation, wrong-sign
+            # multiplier / 10), best of rounds, then the next active set
+            bad_p = torch.maximum(fl * (lb_c - cu_p),
+                                  fu * (cu_p - ub_c)).amax((1, 2))
+            wrong = torch.maximum(
+                a_u * (1.0 - feq) * torch.clamp(-nu, min=0.0),
+                low * (1.0 - feq) * torch.clamp(nu, min=0.0)).amax((1, 2))
+            bad_r = torch.where(torch.isfinite(u_p).all(2).all(1),
+                                torch.maximum(bad_p, 0.1 * wrong), inf)
+            better = (bad_r < bad_b)[:, None, None]
+            u_b = torch.where(better, u_p, u_b)
+            nu_b = torch.where(better, nu, nu_b)
+            bad_b = torch.minimum(bad_r, bad_b)
+            a_l, a_u = estimate(nu, cu_p)
+        ok = ((bad_b <= 10.0 * scfg.polish_tol)
+              & torch.isfinite(u_b).all(2).all(1))[:, None, None]
+        u = torch.where(ok, u_b, u)
+        lam_row = torch.where(ok, nu_b, lam_row)
+
     # ---- final residuals ----
     cu = apply_c(u)
     q_lin = (rollout(u) - xd) * q2
-    ct_dl = apply_ct(full_rows(-lam_l, lam_u))
+    ct_dl = apply_ct(lam_row)
     nu = q_lin[:, H - 1]
     r_d_max = torch.zeros(bsz, dtype=dtype, device=dev)
     for k in range(H - 1, -1, -1):
@@ -360,46 +420,18 @@ class _Params(ctypes.Structure):
                 ('r2reg', ctypes.c_float * NU), ('sigma', ctypes.c_float),
                 ('frac', ctypes.c_float), ('big', ctypes.c_float),
                 ('init_slack', ctypes.c_float), ('init_dual', ctypes.c_float),
-                ('iters', ctypes.c_int)]
-
-
-def _find_nvcc():
-    nvcc = shutil.which('nvcc')
-    if nvcc is None:
-        home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
-        cand = Path(home) / 'bin' / 'nvcc'
-        nvcc = str(cand) if cand.exists() else None
-    if nvcc is None:
-        raise RuntimeError('nvcc not found (PATH, $CUDA_HOME/bin, '
-                           '/usr/local/cuda/bin): the fused Riccati kernel '
-                           'is built from source at first use')
-    return nvcc
+                ('iters', ctypes.c_int), ('polish_rounds', ctypes.c_int),
+                ('polish_iters', ctypes.c_int), ('polish_rho', ctypes.c_float),
+                ('polish_tol', ctypes.c_float)]
 
 
 def build():
-    """Compile csrc/fused_riccati.cu for sm_90a into
-    ``_build/<hash of source and flags>/`` (once) and load it."""
+    """Compile csrc/fused_riccati.cu for sm_90a (once) and load it."""
     global _lib
     if _lib is not None:
         return _lib
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / tag
-    so = out_dir / 'libfused_riccati.so'
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f'libfused_riccati.{os.getpid()}.so'
-        cmd = [_find_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(SOURCE)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                               f'{proc.stdout}\n{proc.stderr}')
-        os.replace(tmp, so)
-        (out_dir / 'ptxas.txt').write_text(proc.stdout + proc.stderr)
-        build_info.update(command=cmd, seconds=seconds,
-                          ptxas=proc.stdout + proc.stderr)
+    so, info = _nvcc.compile_shared(SOURCE, BUILD_ROOT, NVCC_FLAGS)
+    build_info.update(info)
     lib = ctypes.CDLL(str(so))
     fn = lib.fused_riccati_solve
     fn.argtypes = ([ctypes.c_void_p] * 12
@@ -407,18 +439,21 @@ def build():
     fn.restype = ctypes.c_int
     lib.fused_riccati_error_string.argtypes = [ctypes.c_int]
     lib.fused_riccati_error_string.restype = ctypes.c_char_p
-    lib.fused_riccati_attributes.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.fused_riccati_attributes.argtypes = (
+        [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3)
     lib.fused_riccati_attributes.restype = ctypes.c_int
     _lib = lib
     return lib
 
 
-def kernel_attributes():
+def kernel_attributes(polish: bool = False):
     """(registers per thread, local bytes per thread, max threads/block)
-    of the compiled kernel, from cudaFuncGetAttributes."""
+    of the compiled kernel, from cudaFuncGetAttributes: the interior point
+    alone, or with ``polish`` the kernel that carries the polish."""
     lib = build()
     vals = [ctypes.c_int() for _ in range(3)]
-    rc = lib.fused_riccati_attributes(*[ctypes.byref(v) for v in vals])
+    rc = lib.fused_riccati_attributes(int(polish),
+                                      *[ctypes.byref(v) for v in vals])
     if rc != 0:
         raise RuntimeError('cudaFuncGetAttributes failed: '
                            + lib.fused_riccati_error_string(rc).decode())
@@ -455,14 +490,15 @@ def check_parts(parts):
 def solve_parts_cuda(parts, scfg: SolverConfig, q_diag, r_diag
                      ) -> QPSolution:
     """Launch the kernel on the current stream; no synchronisation."""
-    global launches
-    _check_polish(scfg)
+    global launches, polish_launches
     check_parts(parts)
     q2, r2, r2reg = _weights(scfg, q_diag, r_diag)
     prm = _Params((ctypes.c_float * NX)(*q2), (ctypes.c_float * NU)(*r2),
                   (ctypes.c_float * NU)(*r2reg), scfg.sigma_fixed,
                   scfg.frac_to_boundary, scfg.big_threshold,
-                  scfg.init_slack, scfg.init_dual, int(scfg.iterations))
+                  scfg.init_slack, scfg.init_dual, int(scfg.iterations),
+                  int(scfg.polish_rounds), int(scfg.polish_iters),
+                  scfg.polish_rho, scfg.polish_tol)
     bsz = parts.x0.shape[0]
     dev = parts.x0.device
     # batch-minor copies: element-major, scenario-minor
@@ -483,7 +519,10 @@ def solve_parts_cuda(parts, scfg: SolverConfig, q_diag, r_diag
     if rc != 0:
         raise RuntimeError('fused_riccati launch failed: CUDA error '
                            f'{rc} ({lib.fused_riccati_error_string(rc).decode()})')
-    launches += 1
+    if scfg.polish_rounds > 0:
+        polish_launches += 1
+    else:
+        launches += 1
     stats = stats_t.t()
     return QPSolution(u=u_t.t().contiguous(), mu=stats[:, 0],
                       r_dual=stats[:, 1], r_prim=stats[:, 2])
@@ -501,12 +540,16 @@ def bytes_per_scenario():
     return 4 * (n_in + H * NU + 3)
 
 
-def op_count(iterations: int):
+def op_count(iterations: int, polish_steps: int = 0):
     """FP32 operations of one solve, per scenario, counted from the kernel
     source: 'flop' counts each multiply and each add (an FMA is 2),
     divides and square roots are counted apart.  The dual-step ratio
     divides, taken only on rows whose dual direction is negative, are left
-    out, so the count is a lower bound of the kernel's work."""
+    out, so the count is a lower bound of the kernel's work.
+    ``polish_steps`` = polish_rounds * polish_iters more Riccati solves,
+    each with its rollout, two C u products, the row targets (7 operations
+    a row), C^T, the step and the multiplier update (4 a row); the merit
+    and set estimate at the round ends are left out."""
     a_mul = 3 * 6 + 3 * 2 + 2                  # A x, sparse
     b_mul_add = NU + 3 * 2 * NU + 3 * 3        # B diag(m) u added to x
     bt_mul = 6 * 8 + 6 * 6                     # diag(m) B^T p
@@ -536,7 +579,10 @@ def op_count(iterations: int):
                 + H * NU * 2 + rows * 4 * 2)
     start = rollout + newton + H * c_mul + rows * 3
     final = rollout + H * (bt_mul + ct_mul + NX + c_mul + 2 * NC) + rows * 3
+    per_polish = (rollout + 2 * H * c_mul + H * NC * 7 + H * ct_mul + newton
+                  + H * NU + H * NC * 4)
     return dict(
-        flop=start + iterations * per_iter + final,
-        div=(iterations + 1) * H * NU + rows + iterations * (rows + 1) + 1,
-        sqrt=(iterations + 1) * H * NU)
+        flop=start + iterations * per_iter + polish_steps * per_polish + final,
+        div=((iterations + 1 + polish_steps) * H * NU + rows
+             + iterations * (rows + 1) + 1),
+        sqrt=(iterations + 1 + polish_steps) * H * NU)

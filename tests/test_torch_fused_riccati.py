@@ -4,8 +4,9 @@ the JAX stage solver, and its wrapper's contract.
 The CUDA kernel itself runs only on the card (chip_smoke.py holds it to this
 plain version there at 2e-4 N).  Here the plain version, which the wrapper
 uses for CPU tensors, is held to ``hector.qp.riccati.solve_batched`` with
-``mehrotra=False`` (the fixed-sigma interior point the TPU kernel mirrors)
-and to the certified optima of tests/golden/solver.npz.
+``mehrotra=False`` (the fixed-sigma interior point the TPU kernel mirrors),
+without and with the active-set polish, and to the certified optima of
+tests/golden/solver.npz.
 """
 
 import dataclasses
@@ -134,6 +135,46 @@ def test_plain_meets_certified_optima(dtype, iters, bar):
         assert float(sol.r_prim[k]) < 1e-4
 
 
+def test_plain_polish_matches_jax_f64():
+    """The polish of the plain version (the kernel's form: float masks, one
+    rolled loop) against the pure-JAX stage solver's polish block: the same
+    lanes accept it, and on those the forces agree to 1e-8 N (measured
+    ~1e-13).  A lane is known to have accepted when its answer differs from
+    the run in which nothing can be accepted (polish_tol < 0)."""
+    inputs = _both_cases()
+    parts = _port_parts(inputs, torch.float64)
+    kw = dict(mehrotra=False, polish_rounds=8)
+    sol_j = _jax_solve(inputs, SolverConfig(**kw), jnp.float64)
+    off_j = _jax_solve(inputs, SolverConfig(polish_tol=-1.0, **kw),
+                       jnp.float64)
+    sol_t = FR.solve_parts_plain(parts, _tcfg(polish_rounds=8), Q_DIAG,
+                                 R_DIAG)
+    off_t = FR.solve_parts_plain(parts, _tcfg(polish_rounds=8,
+                                              polish_tol=-1.0),
+                                 Q_DIAG, R_DIAG)
+    acc_j = (np.asarray(sol_j.u) != np.asarray(off_j.u)).any(axis=1)
+    acc_t = (sol_t.u != off_t.u).any(dim=1).numpy()
+    np.testing.assert_array_equal(acc_t, acc_j)
+    assert acc_t.sum() >= 3
+    np.testing.assert_allclose(sol_t.u.numpy()[acc_t],
+                               np.asarray(sol_j.u)[acc_j], atol=1e-8, rtol=0)
+    np.testing.assert_allclose(sol_t.r_prim.numpy(), np.asarray(sol_j.r_prim),
+                               atol=1e-12, rtol=0)
+
+
+def test_plain_polish_meets_qpoases_bar_f32():
+    """The bar tests/test_pallas_riccati.py holds the TPU kernel body with
+    polish to: within 1e-3 N of the certified optima in pure float32, with a
+    polished primal residual below 1e-6."""
+    sol = FR.solve_parts_plain(_port_parts(_golden_inputs(), torch.float32),
+                               _tcfg(polish_rounds=8), Q_DIAG, R_DIAG)
+    assert sol.u.dtype == torch.float32
+    for k in range(3):
+        err = np.abs(sol.u[k].double().numpy() - GOLD[f's{k}_q_soln']).max()
+        assert err < 1e-3, f'scenario {k}: {err}'
+        assert float(sol.r_prim[k]) < 1e-6
+
+
 def test_plain_nan_lane_is_skipped_and_isolated():
     """A non-finite lane never steps (u stays 0), as in the JAX solver, and
     leaves the other lanes bit-identical."""
@@ -158,9 +199,18 @@ def test_wrapper_routes_cpu_to_plain_without_launch():
 
 
 def test_wrapper_rejects_polish_and_foreign_devices():
+    """The polish is part of the solver now: the wrapper takes it (a CPU
+    tensor goes to the plain version, no launch) and rejects only a polish
+    without inner iterations; tensors on a device that is neither the card
+    nor the CPU are still refused."""
     parts = _port_parts(_golden_inputs(), torch.float32)
-    with pytest.raises(NotImplementedError, match='B item 1'):
-        FR.solve_parts(parts, _tcfg(polish_rounds=2), Q_DIAG, R_DIAG)
+    before = (FR.launches, FR.polish_launches)
+    sol = FR.solve_parts(parts, _tcfg(polish_rounds=2), Q_DIAG, R_DIAG)
+    assert (FR.launches, FR.polish_launches) == before
+    assert torch.isfinite(sol.u).all() and float(sol.r_prim.max()) < 1e-6
+    with pytest.raises(ValueError, match='polish_iters'):
+        FR.solve_parts(parts, _tcfg(polish_rounds=2, polish_iters=0),
+                       Q_DIAG, R_DIAG)
     meta = type(parts)(*[x.to('meta') for x in parts])
     with pytest.raises(ValueError, match='cuda or cpu'):
         FR.solve_parts(meta, _tcfg(), Q_DIAG, R_DIAG)
@@ -206,6 +256,21 @@ def test_kernel_source_and_flags():
     assert 'hector/qp/pallas_riccati.py:_kernel' in src
     assert 'What bounds it on the card' in src
     assert 'extern "C"' in src
+    # the polish is a second instantiation of the one body
+    assert 'template <bool POLISH>' in src
+    assert 'fused_riccati_kernel<true>' in src
+    assert 'fused_riccati_kernel<false>' in src
+    assert src.count('newton_dir(d, prm,') == 1      # one call site
+
+
+def test_params_mirror_the_kernel_struct():
+    """_Params must list the fields of FusedRiccatiParams in order."""
+    src = FR.SOURCE.read_text()
+    body = src.split('struct FusedRiccatiParams {')[1].split('};')[0]
+    names = [line.split(';')[0].split()[-1].split('[')[0]
+             for line in body.splitlines() if ';' in line]
+    mine = [n.replace('polish_', 'pol_') for n, _ in FR._Params._fields_]
+    assert mine == names
 
 
 def test_work_counts():
@@ -214,12 +279,18 @@ def test_work_counts():
     c14, c0 = FR.op_count(14), FR.op_count(0)
     assert c14['flop'] > c0['flop'] > 0
     assert c14['sqrt'] == 15 * 10 * 12
+    # 32 polish steps are 32 more Riccati solves: more work than 14
+    # interior-point iterations
+    cp = FR.op_count(14, polish_steps=32)
+    assert cp['sqrt'] == (15 + 32) * 10 * 12
+    assert cp['flop'] - c14['flop'] > c14['flop'] - c0['flop']
 
 
 @pytest.mark.slow
-def test_plain_matches_tpu_kernel_body():
+@pytest.mark.parametrize('polish_rounds', [0, 8], ids=['ip', 'polish'])
+def test_plain_matches_tpu_kernel_body(polish_rounds):
     """Against the Pallas kernel body run under XLA (traces for minutes on
-    a CPU, hence slow)."""
+    a CPU, hence slow), without and with the polish."""
     from hector.qp import pallas_riccati as PR
     inputs = _golden_inputs()
     sqps = [build_stage_qp(*[jnp.asarray(a[k], jnp.float32)
@@ -233,7 +304,7 @@ def test_plain_matches_tpu_kernel_body():
     def pack(x):
         return jnp.moveaxis(x.astype(jnp.float32), 0, -1)[..., None, :]
 
-    scfg = SolverConfig(mehrotra=False)
+    scfg = SolverConfig(mehrotra=False, polish_rounds=polish_rounds)
     scfg_s = (scfg.iterations, scfg.sigma_fixed, scfg.frac_to_boundary,
               scfg.big_threshold, scfg.init_slack, scfg.init_dual,
               scfg.polish_rounds, scfg.polish_iters, scfg.polish_rho,
@@ -247,5 +318,6 @@ def test_plain_matches_tpu_kernel_body():
                pack(xd), pack(lb), pack(ub))
     u_tile = np.moveaxis(np.asarray(u_t)[..., 0, :], -1, 0).reshape(3, -1)
     sol_t = FR.solve_parts_plain(_port_parts(inputs, torch.float32),
-                                 _tcfg(), Q_DIAG, R_DIAG)
+                                 _tcfg(polish_rounds=polish_rounds), Q_DIAG,
+                                 R_DIAG)
     assert np.abs(sol_t.u.numpy() - u_tile).max() < TOL_F32

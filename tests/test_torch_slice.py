@@ -1,9 +1,11 @@
-"""The port's main path against the JAX package: chained planning steps,
-a short tier-1 closed loop, and the port importing without JAX.
+"""The port's paths against the JAX package: chained planning steps, a
+short tier-1 closed loop, and the port importing without JAX.
 
-JAX runs ``backend='riccati'`` with ``mehrotra=False``: the fixed-sigma
-interior point that the fused kernel (and so the port's solver) computes.
-JAX's own CPU default would pick the Mehrotra solver (mpc.py:163-164).
+Main path: JAX runs ``backend='riccati'`` with ``mehrotra=False``, the
+fixed-sigma interior point that the fused kernel (and so the port's solver)
+computes.  JAX's own CPU default would pick the Mehrotra solver
+(mpc.py:163-164).  Dense path: both sides run the condensed dense interior
+point under the same backend name, ``'xla'`` or ``'pallas_interpret'``.
 """
 
 import dataclasses
@@ -17,14 +19,23 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from hector import control as JC
+from hector import gait as JG
+from hector import kinematics as JK
+from hector import mpc as JM
 from hector import runtime as JRT
 from hector.plant import srb as JSRB
-from hector.config import DEFAULT_CONFIG as JCFG
+from hector.config import DEFAULT_CONFIG as JCFG, JOINT_OFFSETS
 
+from hector_torch import control as TC
 from hector_torch import convert
+from hector_torch import gait as TG
+from hector_torch import kinematics as TK
+from hector_torch import mpc as TM
 from hector_torch import runtime as TRT
 from hector_torch.plant import srb as TSRB
 from hector_torch.config import DEFAULT_CONFIG as TCFG
+from hector_torch.qp import builder as TB
 
 # the batches here are tiny; one intra-op thread per test worker keeps
 # parallel test workers from oversubscribing the CPU
@@ -33,6 +44,11 @@ torch.set_num_threads(1)
 JCFG_FS = dataclasses.replace(JCFG, solver=dataclasses.replace(
     JCFG.solver, backend='riccati', mehrotra=False))
 REPO = Path(__file__).resolve().parent.parent
+
+
+def _with_solver(cfg, **kw):
+    return dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver,
+                                                               **kw))
 
 
 def todict(tree):
@@ -128,6 +144,130 @@ def test_plan_step_chain_matches_jax(jdtype, tdtype, tol):
         assert_tree_close(todict(carry), convert.to_numpy(t_carry), tol)
 
 
+# The dense path in float64: both sides build the same condensed QP and run
+# the same Mehrotra iteration under the same backend name; measured
+# differences after three chained steps are ~1e-11 N.
+@pytest.mark.parametrize('backend', ['xla', 'pallas_interpret'])
+def test_dense_plan_step_chain_matches_jax(backend):
+    carry, plant, cmd = _jax_batch(4, jnp.float64, seed=4)
+    t_carry, t_plant, t_cmd = _to_port(carry, plant, cmd, torch.float64)
+    j_step = jax.jit(jax.vmap(JRT.plan_step_fn(
+        _with_solver(JCFG, backend=backend))))
+    t_step = TRT.plan_step_fn(_with_solver(TCFG, backend=backend))
+    for _ in range(3):
+        carry, j_wrench, j_motor = j_step(carry, plant, cmd)
+        t_carry, t_wrench, t_motor = t_step(t_carry, t_plant, t_cmd)
+        assert float(np.abs(np.asarray(j_wrench)).max()) > 10.0
+        np.testing.assert_allclose(t_wrench.numpy(), np.asarray(j_wrench),
+                                   atol=1e-9, rtol=0)
+        assert_tree_close(todict(j_motor), convert.to_numpy(t_motor), 1e-9,
+                          overrides={'q_des': JIT_IK_TOL})
+        plant = plant._replace(
+            position=plant.position + 1e-3 * j_wrench[:, 0, :3])
+        t_plant = t_plant._replace(
+            position=t_plant.position + 1e-3 * t_wrench[:, 0, :3])
+    assert_tree_close(todict(carry), convert.to_numpy(t_carry), 1e-9)
+
+
+def _jax_mpc_args(carry, plant, cmd):
+    """The arguments controller_tick hands mpc_update, for one JAX lane."""
+    est = JC.estimate_state(plant.position, plant.v_world, plant.quat,
+                            plant.omega_world)
+    v_des = jnp.stack([cmd.vx, cmd.vy, jnp.zeros_like(cmd.vx)])
+    planner, _ = JM.integrate_position_setpoint(carry.planner, est, v_des,
+                                                JCFG)
+    p_foot_w = JM.foot_positions_world(est, JK.foot_position(plant.q, JCFG),
+                                       JCFG)
+    iteration, _ = JG.phase_state(carry.tick,
+                                  JCFG.mpc.iterations_between_mpc,
+                                  JRT.N_SEGMENTS)
+    gait = JG.mpc_gait_table(iteration, cmd.gait_offsets, cmd.gait_durations,
+                             JRT.N_SEGMENTS).astype(plant.position.dtype)
+    return (planner, est, plant.q + jnp.asarray(JOINT_OFFSETS), p_foot_w,
+            v_des, cmd.yaw_rate, cmd.roll, cmd.pitch, gait)
+
+
+def _port_mpc_args(carry, plant, cmd):
+    est = TC.estimate_state(plant.position, plant.v_world, plant.quat,
+                            plant.omega_world)
+    v_des = torch.stack([cmd.vx, cmd.vy, torch.zeros_like(cmd.vx)], -1)
+    planner, _ = TM.integrate_position_setpoint(carry.planner, est, v_des,
+                                                TCFG)
+    p_foot_w = TM.foot_positions_world(est, TK.foot_position(plant.q, TCFG),
+                                       TCFG)
+    iteration, _ = TG.phase_state(carry.tick,
+                                  TCFG.mpc.iterations_between_mpc,
+                                  TRT.N_SEGMENTS)
+    gait = TG.mpc_gait_table(iteration, cmd.gait_offsets, cmd.gait_durations,
+                             TRT.N_SEGMENTS).to(plant.position.dtype)
+    q_data = plant.q + torch.tensor(JOINT_OFFSETS, dtype=plant.q.dtype)
+    return (planner, est, q_data, p_foot_w, v_des, cmd.yaw_rate, cmd.roll,
+            cmd.pitch, gait)
+
+
+def test_dense_mpc_update_matches_jax():
+    """mpc_update itself under the dense backend: planner state, wrench and
+    the whole QPSolution."""
+    carry, plant, cmd = _jax_batch(4, jnp.float64, seed=5)
+    t_args = _port_mpc_args(*_to_port(carry, plant, cmd, torch.float64))
+    j_cfg = _with_solver(JCFG, backend='xla')
+    j_state, j_wrench, j_sol = jax.vmap(
+        lambda c, p, m: JM.mpc_update(*_jax_mpc_args(c, p, m), j_cfg))(
+            carry, plant, cmd)
+    t_state, t_wrench, t_sol = TM.mpc_update(
+        *t_args, _with_solver(TCFG, backend='xla'))
+    np.testing.assert_allclose(t_wrench.numpy(), np.asarray(j_wrench),
+                               atol=1e-9, rtol=0)
+    assert_tree_close(todict(j_state), convert.to_numpy(t_state), 1e-9)
+    np.testing.assert_allclose(t_sol.u.numpy(), np.asarray(j_sol.u),
+                               atol=1e-9, rtol=0)
+    for name in ('mu', 'r_dual', 'r_prim'):
+        np.testing.assert_allclose(getattr(t_sol, name).numpy(),
+                                   np.asarray(getattr(j_sol, name)),
+                                   atol=1e-12, rtol=1e-6, err_msg=name)
+
+
+def test_dense_matches_fused_riccati_in_closed_loop():
+    """Inside the port, the dense interior point against the fused Riccati
+    solver on the same closed-loop states: the stance wrench f_ff within
+    2e-3 N, the bar tests/test_riccati.py::test_mpc_update_riccati_backend_
+    matches_dense holds JAX's two solvers to."""
+    plant = TSRB.init_plant_state(2, TCFG, dtype=torch.float64, device='cpu')
+    cmd = TRT.walking_command(2, vx=0.4, dtype=torch.float64, device='cpu')
+    cfg_d = _with_solver(TCFG, backend='dense_auto')
+    cfg_r = TCFG
+    c_d = c_r = TRT.init_controller_carry(plant, TCFG)
+    for tick in range(6):
+        do = tick % TCFG.mpc.mpc_cadence == 0
+        c_d, motor_d, w_d, s_d, _ = TRT.controller_tick(c_d, plant, cmd, do,
+                                                        cfg_d)
+        c_r, _, _, _, _ = TRT.controller_tick(c_r, plant, cmd, do, cfg_r)
+        assert float(c_d.planner.f_ff.abs().max()) > 10.0
+        np.testing.assert_allclose(c_r.planner.f_ff.numpy(),
+                                   c_d.planner.f_ff.numpy(), atol=2e-3,
+                                   rtol=0)
+        plant = TSRB.step(plant, motor_d, w_d, s_d, cfg=TCFG)
+
+
+@pytest.mark.parametrize('backend', ['dense_auto', 'pallas', 'auto',
+                                     'riccati_pallas'])
+def test_solve_checks_its_problem_form(backend):
+    """mpc.solve takes QPData under the dense backends and StageQPParts
+    under the fused Riccati backends, and says so when handed the other."""
+    carry, plant, cmd = _to_port(*_jax_batch(2, jnp.float64, 6),
+                                 torch.float64)
+    args = _port_mpc_args(carry, plant, cmd)
+    cfg = _with_solver(TCFG, backend=backend)
+    dense = backend in TM.DENSE_BACKENDS
+    _, right = (TM.build_dense if dense else TM.build_parts)(*args, cfg)
+    _, wrong = (TM.build_parts if dense else TM.build_dense)(*args, cfg)
+    assert isinstance(right, TB.QPData if dense else TB.StageQPParts)
+    sol = TM.solve(right, cfg)
+    assert sol.u.shape == (2, 120) and torch.isfinite(sol.u).all()
+    with pytest.raises(TypeError, match='QPData' if dense else 'StageQPParts'):
+        TM.solve(wrong, cfg)
+
+
 def test_rollout_matches_jax_period_by_period():
     n_periods = 4
     carry, plant, cmd = _jax_batch(4, jnp.float64, seed=1)
@@ -178,6 +318,9 @@ def test_unported_paths_raise():
                                  torch.float64)
     with pytest.raises(NotImplementedError, match='item 6'):
         TRT.plan_step_fn(cfg)(carry, plant, cmd)
+    with pytest.raises(NotImplementedError, match='item 14'):
+        TRT.plan_step_fn(_with_solver(TCFG, backend='qpoases'))(
+            carry, plant, cmd)
     cfg = dataclasses.replace(TCFG, mpc=dataclasses.replace(TCFG.mpc,
                                                             horizon=8))
     with pytest.raises(ValueError, match='horizon'):
@@ -189,8 +332,11 @@ import sys
 for name in ('jax', 'jaxlib', 'hector'):
     sys.modules[name] = None          # any import of these now fails
 sys.path.insert(0, {repo!r})
+import dataclasses
 import torch
 from hector_torch import runtime as RT
+from hector_torch import srbd, convert
+from hector_torch.qp import builder, chol, pdip, fused_riccati
 from hector_torch.plant import srb
 from hector_torch.config import DEFAULT_CONFIG as CFG
 
@@ -200,6 +346,13 @@ cmd = RT.walking_command(2, vx=0.5, device='cpu')
 carry, wrench, motor = RT.plan_step_fn(CFG)(carry, plant, cmd)
 carry, wrench, motor = RT.plan_step_fn(CFG)(carry, plant, cmd)
 assert torch.isfinite(wrench).all() and torch.isfinite(motor.tau).all()
+for kw in (dict(backend='dense_auto'), dict(backend='xla'),
+           dict(polish_rounds=2)):
+    cfg = dataclasses.replace(CFG, solver=dataclasses.replace(CFG.solver,
+                                                              **kw))
+    _, w2, _ = RT.plan_step_fn(cfg)(carry, plant, cmd)
+    assert torch.isfinite(w2).all()
+    assert float((w2 - wrench).abs().max()) < 1.0
 assert not any(m == 'jax' or m.startswith(('jax.', 'hector.'))
                or m == 'hector' for m in sys.modules if sys.modules[m])
 print('ok')
