@@ -13,9 +13,10 @@
 // root of the pivot), and x with L L^T x = rhs by forward then back
 // substitution in the column (axpy) order of the TPU kernel.
 //
-// What bounds them on the card: bytes.  A factor reads and writes a 57.6 KB
-// matrix once each for n^3/3 = 576 K operations, 5 a byte where the card
-// can do 20; a solve reads the same 57.6 KB for 2 n^2 = 29 K operations.
+// What bounds them on the card: bytes.  A factor reads the 29 KB lower
+// triangle and writes the whole 57.6 KB matrix (L and the zeros above it)
+// for n^3/3 = 576 K operations, 6.6 a byte where the card can do 20; a
+// solve reads the 29 KB triangle of L for 2 n^2 = 29 K operations.
 // What stands between these kernels and that bound is the chain of n
 // (factor) or 2n (solve) dependent steps, each ended by a block barrier, and
 // in the factor the shared-memory traffic of the rank-1 updates (a load, a
@@ -70,6 +71,24 @@ __host__ __device__ inline int tri(int r, int c) { return r * (r + 1) / 2 + c; }
 // (factor) or broadcast slot (solve)
 inline size_t smem_bytes(int n) {
   return (static_cast<size_t>(tri(n, 0)) + n) * sizeof(float);
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// Raise `kernel`'s limit of dynamic shared memory to `smem` bytes on the
+// current device.  `have` remembers the limit set on each device, so the
+// attribute is set once per device and size, not once per launch.
+template <class Kernel>
+cudaError_t ensure_smem(Kernel kernel, int (&have)[MAX_DEVICES], size_t smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool known = dev >= 0 && dev < MAX_DEVICES;
+  if (known && have[dev] >= static_cast<int>(smem)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess && known) have[dev] = static_cast<int>(smem);
+  return err;
 }
 
 // One block factors one matrix.  m and l may alias.
@@ -171,6 +190,7 @@ __global__ void chol_solve_kernel(const float* l, const float* rhs, float* x,
 extern "C" {
 
 // Largest n the kernels take: the matrix must fit a block's shared memory.
+// Asked once, when the library is loaded.
 int chol_max_n() {
   int n = 1;
   while (smem_bytes(n + 1) <= 232448) ++n;
@@ -185,9 +205,8 @@ int chol_factor(const float* m, float* l, int n, int batch, long long m_sr,
                 long long l_sb, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
   const size_t smem = smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(
-      chol_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static int have[MAX_DEVICES] = {};
+  cudaError_t err = ensure_smem(chol_factor_kernel, have, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   chol_factor_kernel<<<batch, FACTOR_THREADS, smem,
                        static_cast<cudaStream_t>(stream)>>>(
@@ -202,9 +221,8 @@ int chol_solve(const float* l, const float* rhs, float* x, int n, int batch,
                long long r_sb, long long x_sn, long long x_sb, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
   const size_t smem = smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(
-      chol_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static int have[MAX_DEVICES] = {};
+  cudaError_t err = ensure_smem(chol_solve_kernel, have, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = ((n + 31) / 32) * 32;
   chol_solve_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(

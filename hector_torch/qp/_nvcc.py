@@ -35,14 +35,17 @@ def find_nvcc():
 def compile_shared(source: Path, build_root: Path, flags=NVCC_FLAGS):
     """Compile ``source`` into ``build_root/<hash of source and flags>/
     lib<stem>.so`` unless it is there already.  Returns (path of the
-    library, build record); the record (command, seconds, ptxas report) is
-    empty when the library was found built."""
+    library, build record); the record holds the ptxas report, and the nvcc
+    command and its seconds when this call ran it (the report of a library
+    found built is the one kept beside it)."""
     src = source.read_bytes()
     tag = hashlib.sha256(src + ' '.join(flags).encode()).hexdigest()[:16]
     out_dir = build_root / tag
     so = out_dir / f'lib{source.stem}.so'
-    info = {}
-    if not so.exists():
+    log = out_dir / 'ptxas.txt'
+    if so.exists():
+        info = dict(ptxas=log.read_text() if log.exists() else '')
+    else:
         nvcc = find_nvcc()
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = out_dir / f'lib{source.stem}.{os.getpid()}.so'
@@ -53,8 +56,8 @@ def compile_shared(source: Path, build_root: Path, flags=NVCC_FLAGS):
         if proc.returncode != 0:
             raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
                                f'{proc.stdout}\n{proc.stderr}')
-        os.replace(tmp, so)
         report = proc.stdout + proc.stderr
-        (out_dir / 'ptxas.txt').write_text(report)
+        log.write_text(report)
+        os.replace(tmp, so)
         info = dict(command=cmd, seconds=seconds, ptxas=report)
     return so, info

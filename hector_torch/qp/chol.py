@@ -40,7 +40,7 @@ NVCC_FLAGS = _nvcc.NVCC_FLAGS
 
 factor_launches = 0     # launches of the factor kernel since import or reset
 solve_launches = 0      # launches of the solve kernel since import or reset
-build_info = {}         # nvcc command, seconds and ptxas report of this process
+build_info = {}         # ptxas report; nvcc command and seconds if built here
 _lib = None
 _max_n = None
 
@@ -247,14 +247,16 @@ def cholesky_solve_nnb(l, rhs):
 
 
 def factor_bytes(n: int):
-    """Bytes one factorization must move: the matrix read once, L written
-    once (float32)."""
-    return 2 * 4 * n * n
+    """Bytes one factorization must move (float32): the lower triangle of
+    the matrix read once, the whole n x n result written once (L below the
+    diagonal, the zeros above it)."""
+    return 4 * (n * (n + 1) // 2 + n * n)
 
 
 def solve_bytes(n: int):
-    """Bytes one solve must move: L and rhs read once, x written once."""
-    return 4 * (n * n + 2 * n)
+    """Bytes one solve must move (float32): the lower triangle of L and rhs
+    read once, x written once."""
+    return 4 * (n * (n + 1) // 2 + 2 * n)
 
 
 def factor_op_count(n: int):

@@ -57,7 +57,7 @@ NVCC_FLAGS = _nvcc.NVCC_FLAGS
 launches = 0            # launches of the polish_rounds = 0 kernel since import
                         # (or the caller's reset)
 polish_launches = 0     # launches of the kernel with the polish, likewise
-build_info = {}         # nvcc command, seconds and ptxas report of this process
+build_info = {}         # ptxas report; nvcc command and seconds if built here
 _lib = None
 
 

@@ -293,8 +293,10 @@ def test_kernel_source_and_flags():
 
 
 def test_work_counts():
-    assert chol.factor_bytes(120) == 115200
-    assert chol.solve_bytes(120) == 4 * (14400 + 240)
+    # the lower triangle (7,260 entries at n = 120) is what is read; the
+    # factor writes all n^2 entries (the zeros above the diagonal too)
+    assert chol.factor_bytes(120) == 4 * (7260 + 14400) == 86640
+    assert chol.solve_bytes(120) == 4 * (7260 + 240) == 30000
     f = chol.factor_op_count(120)
     # n^3/3 operations (n^3/6 multiply-adds) to leading order
     assert abs(f['flop'] - 120 ** 3 / 3) < 0.02 * 120 ** 3
