@@ -3,13 +3,22 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each:
-  build       compile hector_torch/csrc/fused_riccati.cu and chol.cu for
-              sm_90a (one nvcc each, started together) and report each
-              kernel's registers and spills;
-  kernel      the fused Riccati kernel against its plain PyTorch version on
-              the same QPs (closed-loop walking/standing states from a numpy
-              seed, a ragged batch and the full 32,768-lane batch), max |du|
-              <= 2e-4 N, and both timed at 32,768 lanes;
+  build       compile hector_torch/csrc/fused_riccati_warp.cu,
+              fused_riccati.cu and chol.cu for sm_90a (one nvcc each, all
+              started together) and report each kernel's registers, spills,
+              shared memory and (warp kernel) resident warps an SM; the warp
+              kernel must use no local memory, and the one-thread kernel
+              without polish must not have grown;
+  kernel      the warp kernel (the fused Riccati interior point, one warp a
+              scenario) against its plain PyTorch version on the same QPs
+              (closed-loop walking/standing states from a numpy seed, a
+              ragged batch and the full 32,768-lane batch), max |du| <= 2e-4 N
+              on every lane: both stopped after the same iterations where the
+              freeze test (mu < 10 eps) flips on rounding, see hold_to_plain;
+              the share of lanes frozen at each iteration;
+  kernel_time the warp kernel, the one-thread kernel without polish
+              (fused_riccati_kernel<false>) on the same QPs, in turns, and
+              the plain version, at 32,768 lanes, beside the bound;
   check       one planning step on the card against the same step on the CPU
               (the plain solver) on 256 closed-loop lanes;
   main        runtime.plan_step_fn at 32,768 lanes, 16 chained steps as
@@ -33,9 +42,8 @@ Phases, one JSON line each:
   polish      the fused kernel with polish_rounds=8 against its plain
               version at 4,096 and 4,099 lanes and on the main path's
               32,768 QPs, timed at 32,768 lanes beside
-              the kernel without polish (whose registers and spills must not
-              have grown), and plan_step_fn with the polish on at 32,768
-              lanes, 4 chained steps;
+              the warp kernel, and plan_step_fn with the polish on at 32,768
+              lanes, 4 chained steps (fused_riccati_kernel<true> only);
 then the kernels line, the card's name and power limit, and the result
 line.  Any failure raises, so the exit code is not 0 and no result line is
 printed.  Needs one CUDA device; imports nothing of JAX or of hector/.
@@ -53,6 +61,21 @@ import numpy as np
 import torch
 
 KERNEL_TOL = 2e-4     # N, the bar tests/test_pallas_riccati.py holds the TPU kernel body to
+# The freeze test mu < 10 eps is a threshold on a float32 sum: a lane whose
+# mu lands within rounding of it may freeze one iteration earlier in one
+# version than in the other (1 lane of 32,768 on closed-loop QPs, the
+# one-thread kernel the same lane), and one more interior-point step moves u
+# by up to ~5e-3 N.  Such a lane is held to the plain version stopped after
+# the same iterations, and its mu at the flip must sit within this share of
+# the floor on both sides; at most FLIP_SHARE_MAX of the lanes may flip.
+FLIP_MU_REL = 1e-4
+FLIP_SHARE_MAX = 1e-3
+# The same QPs stopped after n = 1..13 iterations, on lanes still running in
+# both: the fixed point forgives a wrong Newton direction (a kernel with
+# slightly wrong pivot reciprocals can still meet KERNEL_TOL at the end while
+# its first iterates are far off), so the iterates are held too; an early
+# iterate is one float32 Newton step from a cold start, hence 1e-3.
+ITERATE_TOL = 1e-3
 STEP_TOL = 1e-2       # N, card vs CPU planning step (f32 IP accuracy floor, tests/test_riccati.py)
 MAIN_BATCH = 32768    # bench.py:54
 MAIN_CHAIN = 16
@@ -84,7 +107,7 @@ POLISH_CHAIN = 4
 POLISH_SAME_SET = 0.99    # share of lanes on which kernel and plain agree to accept
 POLISH_ACCEPTED_TOL = 2e-4    # N, lanes both accept
 POLISH_ANY_TOL = 1e-2     # N, every lane (a flipped lane keeps the IP iterate)
-# the kernel without polish must stay what it was before the polish was added
+# the one-thread kernel without polish (kept for the A/B) must stay as it was
 BASE_REGISTERS, BASE_SPILL_STORES, BASE_SPILL_LOADS = 255, 9280, 14156
 
 
@@ -216,15 +239,16 @@ def chain(plan, carry, plant, cmd, n, wrenches=None):
     return carry, plant, wrench, motor
 
 
-KERNEL_NAMES = (('fused_riccati_kernelILb1E', 'fused_riccati_polish'),
-                ('fused_riccati_kernelILb0E', 'fused_riccati'),
+KERNEL_NAMES = (('fused_riccati_warp_kernel', 'fused_riccati'),
+                ('fused_riccati_kernelILb1E', 'fused_riccati_polish'),
+                ('fused_riccati_kernelILb0E', 'fused_riccati_thread'),
                 ('chol_factor_kernel', 'chol_factor'),
                 ('chol_solve_kernel', 'chol_solve'))
 
 
 def parse_ptxas(text):
-    """Registers, stack frame and spill bytes of each kernel from
-    nvcc -Xptxas -v, keyed by the kernel's name in this script."""
+    """Registers, stack frame, spill bytes and shared memory of each kernel
+    from nvcc -Xptxas -v, keyed by the kernel's name in this script."""
     out = {}
     cur = None
     for line in text.splitlines():
@@ -242,6 +266,9 @@ def parse_ptxas(text):
                             spill_load_bytes=int(fields[2]))
         elif 'Used ' in line and 'registers' not in out[cur]:
             out[cur]['registers'] = int(line.split('Used ')[1].split()[0])
+            smem = [f for f in line.split(',') if f.strip().endswith('smem')]
+            out[cur]['smem_bytes'] = (int(smem[0].split()[0]) if smem
+                                      else 0)
     return out
 
 
@@ -249,6 +276,91 @@ def all_finite(**named):
     for name, x in named.items():
         if not bool(torch.isfinite(x).all()):
             raise RuntimeError(f'{name} not finite')
+
+
+def freeze_iterations(solve, parts, scfg, q_diag, r_diag):
+    """The solutions after n = 0..scfg.iterations interior-point iterations,
+    and per lane the first iteration that skipped it (its u after n + 1
+    iterations is its u after n bit for bit), or scfg.iterations if none."""
+    sols = [solve(parts, dataclasses.replace(scfg, iterations=n), q_diag,
+                  r_diag) for n in range(scfg.iterations + 1)]
+    frozen = torch.full((parts.x0.shape[0],), scfg.iterations,
+                        dtype=torch.long, device=parts.x0.device)
+    for n in range(scfg.iterations - 1, -1, -1):
+        frozen = torch.where((sols[n + 1].u == sols[n].u).all(1),
+                             torch.full_like(frozen, n), frozen)
+    return sols, frozen
+
+
+def hold_to_plain(FR, parts, scfg, q_diag, r_diag):
+    """The warp kernel against the plain version on the same QPs.  Lanes
+    that freeze at the same iteration in both must agree to KERNEL_TOL.  A
+    lane that freezes at iteration n in one and later in the other must
+    have mu within FLIP_MU_REL of the floor at n in both (the test flipped
+    on rounding), and agree to KERNEL_TOL with both stopped after n
+    iterations.  The iterates after n = 1..iterations-1 iterations, on
+    lanes neither version has frozen by then, must agree to ITERATE_TOL.
+    Raises on a fault; returns the phase's record and the kernel's freeze
+    iteration of each lane."""
+    sols_k, fz_k = freeze_iterations(FR.solve_parts_cuda, parts, scfg,
+                                     q_diag, r_diag)
+    sols_p, fz_p = freeze_iterations(FR.solve_parts_plain, parts, scfg,
+                                     q_diag, r_diag)
+    torch.cuda.synchronize()
+    sol_k, sol_p = sols_k[-1], sols_p[-1]
+    batch = parts.x0.shape[0]
+    stats = torch.stack([sol_k.mu, sol_k.r_dual, sol_k.r_prim])
+    if not bool(torch.isfinite(sol_k.u).all() and torch.isfinite(stats).all()):
+        raise RuntimeError(f'kernel output not finite at batch {batch}')
+    du = (sol_k.u - sol_p.u).abs().amax(1)
+    same = fz_k == fz_p
+    err = float(du[same].max()) if bool(same.any()) else 0.0
+    floor = 10.0 * torch.finfo(torch.float32).eps
+    flips = []
+    for lane in torch.nonzero(~same).flatten().tolist():
+        n = int(min(fz_k[lane], fz_p[lane]))
+        mus = (float(sols_k[n].mu[lane]), float(sols_p[n].mu[lane]))
+        d_n = float((sols_k[n].u[lane] - sols_p[n].u[lane]).abs().max())
+        flips.append(dict(lane=lane, iteration=n, mu_kernel=mus[0],
+                          mu_plain=mus[1], max_abs_du_stopped=d_n,
+                          max_abs_du_run_on=float(du[lane])))
+        if not max(abs(m - floor) for m in mus) <= FLIP_MU_REL * floor:
+            raise RuntimeError(f'lane {lane} freezes at {int(fz_k[lane])} '
+                               f'in the kernel, {int(fz_p[lane])} in the '
+                               f'plain version, mu {mus} not at the floor')
+        err = max(err, d_n)
+    # every earlier iterate, on the lanes neither version has frozen yet
+    running = torch.minimum(fz_k, fz_p)
+    by_iter = []
+    for n in range(1, scfg.iterations):
+        live = running >= n
+        by_iter.append(float((sols_k[n].u[live] - sols_p[n].u[live]).abs()
+                             .max()) if bool(live.any()) else 0.0)
+    rec = dict(phase='kernel', batch=batch, max_abs_du=err,
+               max_abs_du_by_iteration=by_iter,
+               max_abs_du_without_flips=float(du[same].max())
+               if bool(same.any()) else 0.0,
+               max_abs_du_run_on=float(du.max()), flipped_lanes=flips,
+               frozen_share_by_iteration=dict(
+                   kernel=[float((fz_k <= n).float().mean())
+                           for n in range(scfg.iterations)],
+                   plain=[float((fz_p <= n).float().mean())
+                          for n in range(scfg.iterations)]),
+               max_mu=float(sol_k.mu.max()),
+               max_r_prim=float(sol_k.r_prim.max()),
+               u_scale=float(sol_p.u.abs().max()))
+    emit(rec)
+    if not math.isfinite(err) or err > KERNEL_TOL:
+        raise RuntimeError(f'kernel vs plain max |du| {err} N > '
+                           f'{KERNEL_TOL} N at batch {batch}')
+    if not max(by_iter, default=0.0) <= ITERATE_TOL:
+        raise RuntimeError(f'kernel vs plain iterates differ by up to '
+                           f'{max(by_iter)} N > {ITERATE_TOL} N at batch '
+                           f'{batch}: {by_iter}')
+    if len(flips) > FLIP_SHARE_MAX * batch:
+        raise RuntimeError(f'{len(flips)} lanes freeze at another iteration '
+                           f'than in the plain version at batch {batch}')
+    return rec, fz_k
 
 
 def main():
@@ -270,55 +382,91 @@ def main():
     q_diag = tuple(CFG.mpc.weights) + (0.0,)
     r_diag = tuple(CFG.mpc.alpha)
 
-    # ---- build: one nvcc per source, started together ----
+    # ---- build: one nvcc per source, all started together ----
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
         for fut in [pool.submit(FR.build), pool.submit(CH.build)]:
             fut.result()
     build_s = time.perf_counter() - t0
     ptxas = {}
-    for mod in (FR, CH):
-        ptxas.update(parse_ptxas(mod.build_info.get('ptxas', '')))
+    nvcc_seconds = {}
+    for info in (*FR.build_info.values(), CH.build_info):
+        ptxas.update(parse_ptxas(info.get('ptxas', '')))
+    for name, info in (*FR.build_info.items(), ('chol.cu', CH.build_info)):
+        nvcc_seconds[name] = info.get('seconds')
+    warp_attr = FR.kernel_attributes('warp')
     emit(dict(phase='build', seconds=build_s, card=card,
-              nvcc_seconds={'fused_riccati.cu': FR.build_info.get('seconds'),
-                            'chol.cu': CH.build_info.get('seconds')},
-              ptxas=ptxas,
-              attributes={'fused_riccati': FR.kernel_attributes(),
-                          'fused_riccati_polish': FR.kernel_attributes(True)}))
+              nvcc_seconds=nvcc_seconds, ptxas=ptxas,
+              attributes={'fused_riccati': warp_attr,
+                          'fused_riccati_thread': FR.kernel_attributes(
+                              'thread'),
+                          'fused_riccati_polish': FR.kernel_attributes(
+                              'polish')}))
+    warp_ptx = ptxas.get('fused_riccati', {})
+    if not (warp_ptx and warp_ptx['spill_store_bytes'] == 0
+            and warp_ptx['spill_load_bytes'] == 0
+            and warp_ptx['stack_frame_bytes'] == 0
+            and warp_attr['local_bytes'] == 0):
+        raise RuntimeError(f'the warp kernel uses local memory: {warp_ptx}, '
+                           f'{warp_attr}')
+    base = ptxas.get('fused_riccati_thread', {})
+    if not (base and base['registers'] <= BASE_REGISTERS
+            and base['spill_store_bytes'] <= BASE_SPILL_STORES
+            and base['spill_load_bytes'] <= BASE_SPILL_LOADS):
+        raise RuntimeError(f'the one-thread kernel without polish grew: '
+                           f'{base}, was {BASE_REGISTERS} registers, '
+                           f'{BASE_SPILL_STORES}/{BASE_SPILL_LOADS} spill '
+                           f'bytes')
 
-    # ---- kernel vs plain version ----
+    # ---- warp kernel vs plain version ----
     max_err = 0.0
     for batch, seed in ((4096, 1), (RAGGED_BATCH, 2), (MAIN_BATCH, 3)):
         parts = scenario_parts(batch, seed, dev)
-        sol_k = FR.solve_parts_cuda(parts, scfg, q_diag, r_diag)
-        sol_p = FR.solve_parts_plain(parts, scfg, q_diag, r_diag)
-        torch.cuda.synchronize()
-        err = float((sol_k.u - sol_p.u).abs().max())
-        stats = torch.stack([sol_k.mu, sol_k.r_dual, sol_k.r_prim])
-        emit(dict(phase='kernel', batch=batch, max_abs_du=err,
-                  max_mu=float(sol_k.mu.max()),
-                  max_r_prim=float(sol_k.r_prim.max()),
-                  u_scale=float(sol_p.u.abs().max())))
-        if not (math.isfinite(err) and bool(torch.isfinite(stats).all())):
-            raise RuntimeError(f'kernel output not finite at batch {batch}')
-        if err > KERNEL_TOL:
-            raise RuntimeError(f'kernel vs plain max |du| {err} N > '
-                               f'{KERNEL_TOL} N at batch {batch}')
-        max_err = max(max_err, err)
+        rec, frozen = hold_to_plain(FR, parts, scfg, q_diag, r_diag)
+        max_err = max(max_err, rec['max_abs_du'])
     main_parts = parts                  # 32,768 lanes, reused by the polish
-    kernel_ms = cuda_ms(
-        lambda: FR.solve_parts_cuda(parts, scfg, q_diag, r_diag), 10)
+
+    # ---- warp kernel and one-thread kernel, in turns, on the same QPs ----
+    def warp_run():
+        return FR.solve_parts_cuda(parts, scfg, q_diag, r_diag)
+
+    def thread_run():
+        return FR.solve_parts_thread(parts, scfg, q_diag, r_diag)
+
+    turns = [('warp', warp_run), ('thread', thread_run),
+             ('thread', thread_run), ('warp', warp_run)]
+    times = {'warp': [], 'thread': []}
+    for name, fn in turns:
+        times[name].append(cuda_ms(fn, 10))
+    kernel_ms = sum(times['warp']) / 2
+    thread_ms = sum(times['thread']) / 2
+    sol_w, sol_t = warp_run(), thread_run()
+    torch.cuda.synchronize()
     plain_ms = cuda_ms(
         lambda: FR.solve_parts_plain(parts, scfg, q_diag, r_diag), 2)
-    ops = FR.op_count(scfg.iterations)
+    # the work these QPs need: a lane that freezes at iteration f needs the
+    # start and f iterations (the f-th's test before its solve is left out)
+    counts = torch.bincount(frozen, minlength=scfg.iterations + 1).tolist()
+    ops = {key: sum(c * FR.op_count(f)[key] for f, c in enumerate(counts))
+           / MAIN_BATCH for key in ('flop', 'div', 'sqrt')}
     n_ops = ops['flop'] + ops['div'] + ops['sqrt']
     ip_bound_ms, ip_bound_by, ops_ms, bytes_ms = bound_ms(
         MAIN_BATCH * FR.bytes_per_scenario(), MAIN_BATCH * n_ops)
+    all_ops = FR.op_count(scfg.iterations)
     emit(dict(phase='kernel_time', batch=MAIN_BATCH, ms=kernel_ms,
+              ms_turns=times['warp'], thread_ms=thread_ms,
+              thread_ms_turns=times['thread'],
+              max_abs_du_warp_vs_thread=float(
+                  (sol_w.u - sol_t.u).abs().max()),
               plain_ms=plain_ms, bound_ms=ip_bound_ms, ops_ms=ops_ms,
               bytes_ms=bytes_ms, ops_per_scenario=ops,
+              lanes_by_freeze_iteration=counts,
+              bound_ms_all_iterations=bound_ms(
+                  MAIN_BATCH * FR.bytes_per_scenario(),
+                  MAIN_BATCH * sum(all_ops.values()))[0],
               bytes_per_scenario=FR.bytes_per_scenario(),
-              share_of_bound=ip_bound_ms / kernel_ms, card=card))
+              share_of_bound=ip_bound_ms / kernel_ms,
+              thread_share_of_bound=ip_bound_ms / thread_ms, card=card))
 
     # ---- card vs CPU on one planning step ----
     carry, plant, cmd = scenarios(256, 4, dev)
@@ -342,16 +490,17 @@ def main():
     main_state = (carry, plant, cmd)    # reused by the polish path
 
     chain(plan, carry, plant, cmd, 2)   # warm-up, not counted
-    FR.launches = FR.polish_launches = 0
+    FR.launches = FR.polish_launches = FR.thread_launches = 0
     CH.factor_launches = CH.solve_launches = 0
     total_ms, (c, p, wrench, motor) = cuda_timed(
         lambda: chain(plan, carry, plant, cmd, MAIN_CHAIN))
     main_launches = FR.launches
     step_ms = total_ms / MAIN_CHAIN
     if main_launches != MAIN_CHAIN:
-        raise RuntimeError(f'main path launched the kernel {main_launches} '
-                           f'times, expected {MAIN_CHAIN}')
-    if FR.polish_launches or CH.factor_launches or CH.solve_launches:
+        raise RuntimeError(f'main path launched the warp kernel '
+                           f'{main_launches} times, expected {MAIN_CHAIN}')
+    if (FR.polish_launches or FR.thread_launches or CH.factor_launches
+            or CH.solve_launches):
         raise RuntimeError('main path launched a kernel that is not its own')
     for name, x in (('wrench', wrench), ('tau', motor.tau),
                     ('f_ff', c.planner.f_ff), ('position', p.position)):
@@ -359,6 +508,7 @@ def main():
             raise RuntimeError(f'main path output {name} not finite')
     emit(dict(phase='main', batch=MAIN_BATCH, chain=MAIN_CHAIN,
               launches=main_launches, ms_per_step=step_ms,
+              warp_kernel_share_of_step=kernel_ms / step_ms,
               solves_per_s=MAIN_BATCH / step_ms * 1e3, card=card))
 
     # ---- tier-1 closed loop ----
@@ -548,7 +698,7 @@ def main():
     carry, plant, cmd = scenarios(DENSE_BATCH, 7, dev)
     plan_dense = RT.plan_step_fn(with_solver(CFG, backend='dense_auto'))
     chain(plan_dense, carry, plant, cmd, 1)         # warm-up, not counted
-    FR.launches = FR.polish_launches = 0
+    FR.launches = FR.polish_launches = FR.thread_launches = 0
     CH.factor_launches = CH.solve_launches = 0
     w_dense = []
     total_ms, (c, p, wrench, motor) = cuda_timed(
@@ -558,7 +708,8 @@ def main():
     dense_step_ms = total_ms / DENSE_CHAIN
     want = (DENSE_CHAIN * (scfg.iterations + 1),
             DENSE_CHAIN * (2 * scfg.iterations + 1))
-    if (dense_factor_launches, dense_solve_launches) != want or FR.launches:
+    if ((dense_factor_launches, dense_solve_launches) != want
+            or FR.launches or FR.thread_launches):
         raise RuntimeError(
             f'dense path launched factor/solve {dense_factor_launches}/'
             f'{dense_solve_launches} times (and the Riccati kernel '
@@ -690,37 +841,33 @@ def main():
     pops = FR.op_count(scfg.iterations, pol_steps)
     pol_bound = bound_ms(MAIN_BATCH * FR.bytes_per_scenario(),
                          MAIN_BATCH * sum(pops.values()))
-    base = ptxas.get('fused_riccati', {})
     emit(dict(phase='polish_time', batch=MAIN_BATCH, polish_steps=pol_steps,
-              ms=polish_ms, ms_without_polish=kernel_ms_again,
-              ms_without_polish_first=kernel_ms, plain_ms=polish_plain_ms,
+              ms=polish_ms, warp_ms_without_polish=kernel_ms_again,
+              warp_ms_without_polish_first=kernel_ms,
+              plain_ms=polish_plain_ms,
               bound_ms=pol_bound[0], bound_by=pol_bound[1],
               share_of_bound=pol_bound[0] / polish_ms,
-              ops_per_scenario=pops, ptxas_without_polish=base,
+              ops_per_scenario=pops,
               ptxas_with_polish=ptxas.get('fused_riccati_polish', {}),
               card=card))
-    if not (base and base['registers'] <= BASE_REGISTERS
-            and base['spill_store_bytes'] <= BASE_SPILL_STORES
-            and base['spill_load_bytes'] <= BASE_SPILL_LOADS):
-        raise RuntimeError(f'the kernel without polish grew: {base}, was '
-                           f'{BASE_REGISTERS} registers, {BASE_SPILL_STORES}/'
-                           f'{BASE_SPILL_LOADS} spill bytes')
 
     # ---- polish path: chained planning steps with the polish on ----
     carry, plant, cmd = main_state
     plan_polish = RT.plan_step_fn(with_solver(CFG,
                                               polish_rounds=POLISH_ROUNDS))
     chain(plan_polish, carry, plant, cmd, 1)        # warm-up, not counted
-    FR.launches = FR.polish_launches = 0
+    FR.launches = FR.polish_launches = FR.thread_launches = 0
     total_ms, (c, p, wrench, motor) = cuda_timed(
         lambda: chain(plan_polish, carry, plant, cmd, POLISH_CHAIN))
     polish_path_launches = FR.polish_launches
     polish_step_ms = total_ms / POLISH_CHAIN
-    if polish_path_launches != POLISH_CHAIN or FR.launches:
+    if (polish_path_launches != POLISH_CHAIN or FR.launches
+            or FR.thread_launches):
         raise RuntimeError(
             f'polish path launched the polish kernel {polish_path_launches} '
-            f'times and the plain-IP kernel {FR.launches} times, expected '
-            f'{POLISH_CHAIN} and 0')
+            f'times, the warp kernel {FR.launches} and the one-thread '
+            f'interior point {FR.thread_launches} times, expected '
+            f'{POLISH_CHAIN}, 0 and 0')
     all_finite(polish_wrench=wrench, polish_tau=motor.tau,
                polish_f_ff=c.planner.f_ff)
     emit(dict(phase='polish_path', batch=MAIN_BATCH, chain=POLISH_CHAIN,
@@ -729,7 +876,7 @@ def main():
 
     emit({'kernels': [
         dict(name='fused_riccati', route='cuda',
-             source='hector_torch/csrc/fused_riccati.cu',
+             source='hector_torch/csrc/fused_riccati_warp.cu',
              replaces='hector/qp/pallas_riccati.py:63',
              launches=main_launches, max_abs_err=max_err, ms=kernel_ms,
              plain_ms=plain_ms, bound_ms=ip_bound_ms, bound_by=ip_bound_by,

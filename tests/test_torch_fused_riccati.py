@@ -9,8 +9,10 @@ without and with the active-set polish, and to the certified optima of
 tests/golden/solver.npz.
 """
 
+import ctypes
 import dataclasses
 import functools
+import inspect
 import os
 
 import numpy as np
@@ -175,6 +177,34 @@ def test_plain_polish_meets_qpoases_bar_f32():
         assert float(sol.r_prim[k]) < 1e-6
 
 
+@pytest.mark.parametrize('dtype,short,long', [
+    (torch.float32, 14, 24),
+    # float64's floor is 1e-14: these lanes reach it after ~16 iterations
+    (torch.float64, 24, 34),
+], ids=['f32', 'f64'])
+def test_plain_frozen_lane_stays_bit_identical(dtype, short, long):
+    """The invariant the warp kernel's early exit rests on: a lane whose mu
+    after ``short`` iterations is below mu_floor (the mu the next iteration
+    tests), or whose iterate is not finite, is skipped by every later
+    iteration, so ``long`` iterations give the same u and stats bit for
+    bit."""
+    parts = _port_parts(_both_cases(), dtype)
+    x0 = parts.x0.clone()
+    x0[4, 2] = float('nan')           # a lane that is never finite
+    parts = parts._replace(x0=x0)
+    a = FR.solve_parts_plain(parts, _tcfg(iterations=short), Q_DIAG, R_DIAG)
+    b = FR.solve_parts_plain(parts, _tcfg(iterations=long), Q_DIAG, R_DIAG)
+    floor = max(1e-14, 10.0 * torch.finfo(dtype).eps)
+    by_mu = a.mu < floor
+    not_finite = ~torch.isfinite(a.mu) | ~torch.isfinite(a.u).all(1)
+    frozen = by_mu | not_finite
+    assert int(by_mu.sum()) >= 1 and bool(not_finite[4])
+    for x, y in ((a.u, b.u), (a.mu, b.mu), (a.r_dual, b.r_dual),
+                 (a.r_prim, b.r_prim)):
+        torch.testing.assert_close(x[frozen], y[frozen], rtol=0, atol=0,
+                                   equal_nan=True)
+
+
 def test_plain_nan_lane_is_skipped_and_isolated():
     """A non-finite lane never steps (u stays 0), as in the JAX solver, and
     leaves the other lanes bit-identical."""
@@ -237,14 +267,18 @@ def test_kernel_input_checks(fault):
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    """Both libraries are built from source at first use: without nvcc each
+    build raises (no fallback), and so does a launch's lazy build."""
     monkeypatch.setattr(FR, '_lib', None)
+    monkeypatch.setattr(FR, '_warp_lib', None)
     monkeypatch.setattr(FR, 'BUILD_ROOT', tmp_path / 'build')
     monkeypatch.setenv('PATH', str(tmp_path))
     monkeypatch.setenv('CUDA_HOME', str(tmp_path))
     if os.path.exists('/usr/local/cuda/bin/nvcc'):
         pytest.skip('a CUDA toolkit is installed at /usr/local/cuda')
-    with pytest.raises(RuntimeError, match='nvcc not found'):
-        FR.build()
+    for build in (FR.build, FR._warp_kernel_lib, FR._thread_lib):
+        with pytest.raises(RuntimeError, match='nvcc not found'):
+            build()
 
 
 def test_kernel_source_and_flags():
@@ -264,13 +298,40 @@ def test_kernel_source_and_flags():
 
 
 def test_params_mirror_the_kernel_struct():
-    """_Params must list the fields of FusedRiccatiParams in order."""
-    src = FR.SOURCE.read_text()
-    body = src.split('struct FusedRiccatiParams {')[1].split('};')[0]
-    names = [line.split(';')[0].split()[-1].split('[')[0]
-             for line in body.splitlines() if ';' in line]
+    """_Params must list the fields of FusedRiccatiParams in order, in both
+    sources (one ctypes struct serves both entry points)."""
     mine = [n.replace('polish_', 'pol_') for n, _ in FR._Params._fields_]
-    assert mine == names
+    for source in (FR.SOURCE, FR.WARP_SOURCE):
+        body = source.read_text().split('struct FusedRiccatiParams {')[1]
+        body = body.split('};')[0]
+        fields = [line.split(';')[0].split() for line in body.splitlines()
+                  if ';' in line]
+        assert mine == [f[-1].split('[')[0] for f in fields], source.name
+        # and the same types and array lengths
+        assert [f[0] for f in fields] == [
+            'int' if t is ctypes.c_int else 'float'
+            for t in (ty._type_ if issubclass(ty, ctypes.Array) else ty
+                      for _, ty in FR._Params._fields_)], source.name
+
+
+def test_warp_kernel_source():
+    """The warp kernel: sm_90a with IEEE division and sqrt, the note naming
+    the TPU kernel it replaces and what bounds it, one newton_dir call site,
+    the plain C entry point the wrapper loads, and no polish."""
+    assert 'arch=compute_90a,code=sm_90a' in FR.NVCC_FLAGS
+    assert not any('fast' in f or 'ftz' in f for f in FR.NVCC_FLAGS)
+    src = FR.WARP_SOURCE.read_text()
+    assert 'hector/qp/pallas_riccati.py:_kernel' in src
+    assert 'What bounds it on the card' in src
+    assert 'extern "C"' in src
+    assert src.count('newton_dir(s, cst, lane);') == 1   # one call site
+    for name in ('fused_riccati_warp_solve', 'fused_riccati_warp_attributes',
+                 'fused_riccati_warp_error_string'):
+        assert f'{name}(' in src
+    assert 'template <bool POLISH>' not in src
+    # the wrapper launches it for polish_rounds == 0 and only then
+    wrapper = inspect.getsource(FR.solve_parts_cuda)
+    assert 'warp=True' in wrapper and 'polish_rounds > 0' in wrapper
 
 
 def test_work_counts():
