@@ -3,22 +3,22 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each:
-  build       compile hector_torch/csrc/fused_riccati_warp.cu,
-              fused_riccati.cu and chol.cu for sm_90a (one nvcc each, all
-              started together) and report each kernel's registers, spills,
-              shared memory and (warp kernel) resident warps an SM; the warp
-              kernel must use no local memory, and the one-thread kernel
-              without polish must not have grown;
-  kernel      the warp kernel (the fused Riccati interior point, one warp a
-              scenario) against its plain PyTorch version on the same QPs
+  build       compile hector_torch/csrc/fused_riccati_warp.cu and chol.cu
+              for sm_90a (one nvcc each, both started together) and report
+              each kernel's registers, spills, shared memory and (Riccati
+              kernels) resident warps an SM; neither instantiation of the
+              Riccati kernel may use local memory, and the one without
+              polish must keep to 128 registers and 16 warps an SM;
+  kernel      the Riccati kernel without polish (the fused interior point,
+              one warp a scenario) against its plain PyTorch version on the
+              same QPs
               (closed-loop walking/standing states from a numpy seed, a
               ragged batch and the full 32,768-lane batch), max |du| <= 2e-4 N
               on every lane: both stopped after the same iterations where the
               freeze test (mu < 10 eps) flips on rounding, see hold_to_plain;
               the share of lanes frozen at each iteration;
-  kernel_time the warp kernel, the one-thread kernel without polish
-              (fused_riccati_kernel<false>) on the same QPs, in turns, and
-              the plain version, at 32,768 lanes, beside the bound;
+  kernel_time the kernel and its plain version at 32,768 lanes, beside
+              the bound;
   check       one planning step on the card against the same step on the CPU
               (the plain solver) on 256 closed-loop lanes;
   main        runtime.plan_step_fn at 32,768 lanes, 16 chained steps as
@@ -39,11 +39,13 @@ Phases, one JSON line each:
               on the same states;
   dense_loop  make_rollout with backend='dense_auto', 40 periods at 256
               lanes: no fall, no quarantine;
-  polish      the fused kernel with polish_rounds=8 against its plain
+  polish      the kernel with polish (polish_rounds=8) against its plain
               version at 4,096 and 4,099 lanes and on the main path's
-              32,768 QPs, timed at 32,768 lanes beside
-              the warp kernel, and plan_step_fn with the polish on at 32,768
-              lanes, 4 chained steps (fused_riccati_kernel<true> only);
+              32,768 QPs, and with the polish forced to reject (the
+              interior point without freeze) at 2e-4 N on every lane; timed
+              at 32,768 lanes beside the kernel without polish, and
+              plan_step_fn with the polish on at 32,768 lanes, 4 chained
+              steps (the kernel with polish only);
 then the kernels line, the card's name and power limit, and the result
 line.  Any failure raises, so the exit code is not 0 and no result line is
 printed.  Needs one CUDA device; imports nothing of JAX or of hector/.
@@ -63,8 +65,8 @@ import torch
 KERNEL_TOL = 2e-4     # N, the bar tests/test_pallas_riccati.py holds the TPU kernel body to
 # The freeze test mu < 10 eps is a threshold on a float32 sum: a lane whose
 # mu lands within rounding of it may freeze one iteration earlier in one
-# version than in the other (1 lane of 32,768 on closed-loop QPs, the
-# one-thread kernel the same lane), and one more interior-point step moves u
+# version than in the other (1 lane of 32,768 on closed-loop QPs), and one
+# more interior-point step moves u
 # by up to ~5e-3 N.  Such a lane is held to the plain version stopped after
 # the same iterations, and its mu at the flip must sit within this share of
 # the floor on both sides; at most FLIP_SHARE_MAX of the lanes may flip.
@@ -107,8 +109,10 @@ POLISH_CHAIN = 4
 POLISH_SAME_SET = 0.99    # share of lanes on which kernel and plain agree to accept
 POLISH_ACCEPTED_TOL = 2e-4    # N, lanes both accept
 POLISH_ANY_TOL = 1e-2     # N, every lane (a flipped lane keeps the IP iterate)
-# the one-thread kernel without polish (kept for the A/B) must stay as it was
-BASE_REGISTERS, BASE_SPILL_STORES, BASE_SPILL_LOADS = 255, 9280, 14156
+# the design point of the kernel without polish: at most 128 registers a
+# thread, 16 warps an SM
+IP_MAX_REGISTERS = 128
+IP_WARPS_PER_SM = 16
 
 
 def emit(obj):
@@ -239,9 +243,8 @@ def chain(plan, carry, plant, cmd, n, wrenches=None):
     return carry, plant, wrench, motor
 
 
-KERNEL_NAMES = (('fused_riccati_warp_kernel', 'fused_riccati'),
-                ('fused_riccati_kernelILb1E', 'fused_riccati_polish'),
-                ('fused_riccati_kernelILb0E', 'fused_riccati_thread'),
+KERNEL_NAMES = (('fused_riccati_warp_kernelILb0E', 'fused_riccati'),
+                ('fused_riccati_warp_kernelILb1E', 'fused_riccati_polish'),
                 ('chol_factor_kernel', 'chol_factor'),
                 ('chol_solve_kernel', 'chol_solve'))
 
@@ -394,31 +397,26 @@ def main():
         ptxas.update(parse_ptxas(info.get('ptxas', '')))
     for name, info in (*FR.build_info.items(), ('chol.cu', CH.build_info)):
         nvcc_seconds[name] = info.get('seconds')
-    warp_attr = FR.kernel_attributes('warp')
+    attrs = {'fused_riccati': FR.kernel_attributes('warp'),
+             'fused_riccati_polish': FR.kernel_attributes('polish')}
     emit(dict(phase='build', seconds=build_s, card=card,
-              nvcc_seconds=nvcc_seconds, ptxas=ptxas,
-              attributes={'fused_riccati': warp_attr,
-                          'fused_riccati_thread': FR.kernel_attributes(
-                              'thread'),
-                          'fused_riccati_polish': FR.kernel_attributes(
-                              'polish')}))
-    warp_ptx = ptxas.get('fused_riccati', {})
-    if not (warp_ptx and warp_ptx['spill_store_bytes'] == 0
-            and warp_ptx['spill_load_bytes'] == 0
-            and warp_ptx['stack_frame_bytes'] == 0
-            and warp_attr['local_bytes'] == 0):
-        raise RuntimeError(f'the warp kernel uses local memory: {warp_ptx}, '
-                           f'{warp_attr}')
-    base = ptxas.get('fused_riccati_thread', {})
-    if not (base and base['registers'] <= BASE_REGISTERS
-            and base['spill_store_bytes'] <= BASE_SPILL_STORES
-            and base['spill_load_bytes'] <= BASE_SPILL_LOADS):
-        raise RuntimeError(f'the one-thread kernel without polish grew: '
-                           f'{base}, was {BASE_REGISTERS} registers, '
-                           f'{BASE_SPILL_STORES}/{BASE_SPILL_LOADS} spill '
-                           f'bytes')
+              nvcc_seconds=nvcc_seconds, ptxas=ptxas, attributes=attrs))
+    for name, attr in attrs.items():
+        rep = ptxas.get(name, {})
+        if not (rep and rep['spill_store_bytes'] == 0
+                and rep['spill_load_bytes'] == 0
+                and rep['stack_frame_bytes'] == 0
+                and attr['local_bytes'] == 0):
+            raise RuntimeError(f'{name} uses local memory: {rep}, {attr}')
+    ip_attr = attrs['fused_riccati']
+    if not (ip_attr['registers'] <= IP_MAX_REGISTERS
+            and ip_attr['warps_per_sm'] >= IP_WARPS_PER_SM):
+        raise RuntimeError(f'the kernel without polish takes '
+                           f'{ip_attr["registers"]} registers and '
+                           f'{ip_attr["warps_per_sm"]} warps an SM, not '
+                           f'<= {IP_MAX_REGISTERS} and {IP_WARPS_PER_SM}')
 
-    # ---- warp kernel vs plain version ----
+    # ---- the kernel without polish vs its plain version ----
     max_err = 0.0
     for batch, seed in ((4096, 1), (RAGGED_BATCH, 2), (MAIN_BATCH, 3)):
         parts = scenario_parts(batch, seed, dev)
@@ -426,24 +424,14 @@ def main():
         max_err = max(max_err, rec['max_abs_du'])
     main_parts = parts                  # 32,768 lanes, reused by the polish
 
-    # ---- warp kernel and one-thread kernel, in turns, on the same QPs ----
-    def warp_run():
-        return FR.solve_parts_cuda(parts, scfg, q_diag, r_diag)
+    # ---- the kernel without polish, timed ----
+    def ip_run():
+        return FR.solve_parts_cuda(main_parts, scfg, q_diag, r_diag)
 
-    def thread_run():
-        return FR.solve_parts_thread(parts, scfg, q_diag, r_diag)
-
-    turns = [('warp', warp_run), ('thread', thread_run),
-             ('thread', thread_run), ('warp', warp_run)]
-    times = {'warp': [], 'thread': []}
-    for name, fn in turns:
-        times[name].append(cuda_ms(fn, 10))
-    kernel_ms = sum(times['warp']) / 2
-    thread_ms = sum(times['thread']) / 2
-    sol_w, sol_t = warp_run(), thread_run()
-    torch.cuda.synchronize()
+    kernel_ms_turns = [cuda_ms(ip_run, 10) for _ in range(2)]
+    kernel_ms = sum(kernel_ms_turns) / 2
     plain_ms = cuda_ms(
-        lambda: FR.solve_parts_plain(parts, scfg, q_diag, r_diag), 2)
+        lambda: FR.solve_parts_plain(main_parts, scfg, q_diag, r_diag), 2)
     # the work these QPs need: a lane that freezes at iteration f needs the
     # start and f iterations (the f-th's test before its solve is left out)
     counts = torch.bincount(frozen, minlength=scfg.iterations + 1).tolist()
@@ -454,19 +442,15 @@ def main():
         MAIN_BATCH * FR.bytes_per_scenario(), MAIN_BATCH * n_ops)
     all_ops = FR.op_count(scfg.iterations)
     emit(dict(phase='kernel_time', batch=MAIN_BATCH, ms=kernel_ms,
-              ms_turns=times['warp'], thread_ms=thread_ms,
-              thread_ms_turns=times['thread'],
-              max_abs_du_warp_vs_thread=float(
-                  (sol_w.u - sol_t.u).abs().max()),
-              plain_ms=plain_ms, bound_ms=ip_bound_ms, ops_ms=ops_ms,
-              bytes_ms=bytes_ms, ops_per_scenario=ops,
+              ms_turns=kernel_ms_turns, plain_ms=plain_ms,
+              bound_ms=ip_bound_ms, ops_ms=ops_ms, bytes_ms=bytes_ms,
+              ops_per_scenario=ops,
               lanes_by_freeze_iteration=counts,
               bound_ms_all_iterations=bound_ms(
                   MAIN_BATCH * FR.bytes_per_scenario(),
                   MAIN_BATCH * sum(all_ops.values()))[0],
               bytes_per_scenario=FR.bytes_per_scenario(),
-              share_of_bound=ip_bound_ms / kernel_ms,
-              thread_share_of_bound=ip_bound_ms / thread_ms, card=card))
+              share_of_bound=ip_bound_ms / kernel_ms, card=card))
 
     # ---- card vs CPU on one planning step ----
     carry, plant, cmd = scenarios(256, 4, dev)
@@ -490,7 +474,7 @@ def main():
     main_state = (carry, plant, cmd)    # reused by the polish path
 
     chain(plan, carry, plant, cmd, 2)   # warm-up, not counted
-    FR.launches = FR.polish_launches = FR.thread_launches = 0
+    FR.launches = FR.polish_launches = 0
     CH.factor_launches = CH.solve_launches = 0
     total_ms, (c, p, wrench, motor) = cuda_timed(
         lambda: chain(plan, carry, plant, cmd, MAIN_CHAIN))
@@ -499,8 +483,7 @@ def main():
     if main_launches != MAIN_CHAIN:
         raise RuntimeError(f'main path launched the warp kernel '
                            f'{main_launches} times, expected {MAIN_CHAIN}')
-    if (FR.polish_launches or FR.thread_launches or CH.factor_launches
-            or CH.solve_launches):
+    if FR.polish_launches or CH.factor_launches or CH.solve_launches:
         raise RuntimeError('main path launched a kernel that is not its own')
     for name, x in (('wrench', wrench), ('tau', motor.tau),
                     ('f_ff', c.planner.f_ff), ('position', p.position)):
@@ -698,7 +681,7 @@ def main():
     carry, plant, cmd = scenarios(DENSE_BATCH, 7, dev)
     plan_dense = RT.plan_step_fn(with_solver(CFG, backend='dense_auto'))
     chain(plan_dense, carry, plant, cmd, 1)         # warm-up, not counted
-    FR.launches = FR.polish_launches = FR.thread_launches = 0
+    FR.launches = FR.polish_launches = 0
     CH.factor_launches = CH.solve_launches = 0
     w_dense = []
     total_ms, (c, p, wrench, motor) = cuda_timed(
@@ -709,11 +692,12 @@ def main():
     want = (DENSE_CHAIN * (scfg.iterations + 1),
             DENSE_CHAIN * (2 * scfg.iterations + 1))
     if ((dense_factor_launches, dense_solve_launches) != want
-            or FR.launches or FR.thread_launches):
+            or FR.launches or FR.polish_launches):
         raise RuntimeError(
             f'dense path launched factor/solve {dense_factor_launches}/'
             f'{dense_solve_launches} times (and the Riccati kernel '
-            f'{FR.launches} times), expected {want[0]}/{want[1]} (and 0)')
+            f'{FR.launches + FR.polish_launches} times), expected '
+            f'{want[0]}/{want[1]} (and 0)')
     all_finite(dense_wrench=torch.stack(w_dense), dense_tau=motor.tau,
                dense_f_ff=c.planner.f_ff, dense_position=p.position)
     # the same states through the plain versions and through the fused
@@ -788,10 +772,11 @@ def main():
     if not h.min() > 0.4:
         raise RuntimeError('dense loop: a lane collapsed')
 
-    # ---- polish: the fused kernel with polish_rounds=8 vs its plain version
+    # ---- polish: the kernel with polish_rounds=8 vs its plain version ----
     pcfg = dataclasses.replace(scfg, polish_rounds=POLISH_ROUNDS)
     # with a negative tolerance no lane can accept the polish: what differs
-    # from that run was accepted
+    # from that run was accepted, and that run is the interior point without
+    # freeze, which only the kernel with polish runs
     pcfg_off = dataclasses.replace(pcfg, polish_tol=-1.0)
     polish_err = 0.0
     # at 4,096 and ragged 4,099 lanes, and on the QPs of the main path
@@ -804,7 +789,7 @@ def main():
         off_p = FR.solve_parts_plain(parts, pcfg_off, q_diag, r_diag)
         torch.cuda.synchronize()
         all_finite(polish_u=sol_k.u, polish_stats=torch.stack(
-            [sol_k.mu, sol_k.r_dual, sol_k.r_prim]))
+            [sol_k.mu, sol_k.r_dual, sol_k.r_prim]), rejected_u=off_k.u)
         acc_k = (sol_k.u != off_k.u).any(1)
         acc_p = (sol_p.u != off_p.u).any(1)
         both = acc_k & acc_p
@@ -812,6 +797,7 @@ def main():
         du = (sol_k.u - sol_p.u).abs().amax(1)
         du_both = float(du[both].max()) if bool(both.any()) else 0.0
         du_any = float(du.max())
+        du_off = float((off_k.u - off_p.u).abs().max())
         emit(dict(phase='polish', batch=batch,
                   accepted_share_kernel=float(acc_k.float().mean()),
                   accepted_share_plain=float(acc_p.float().mean()),
@@ -820,8 +806,7 @@ def main():
                   max_r_prim=float(sol_k.r_prim.max()),
                   max_r_prim_accepted=float(sol_k.r_prim[acc_k].max())
                   if bool(acc_k.any()) else None,
-                  max_abs_ip_iterate_diff=float(
-                      (off_k.u - off_p.u).abs().max())))
+                  max_abs_du_rejected=du_off))
         if same_set < POLISH_SAME_SET:
             raise RuntimeError(f'polish: kernel and plain accept the same '
                                f'lanes on {same_set} < {POLISH_SAME_SET}')
@@ -830,11 +815,21 @@ def main():
                                f'N on lanes both accept')
         if not du_any <= POLISH_ANY_TOL:
             raise RuntimeError(f'polish: {du_any} N > {POLISH_ANY_TOL} N')
+        if not du_off <= KERNEL_TOL:
+            raise RuntimeError(f'polish forced to reject: {du_off} N > '
+                               f'{KERNEL_TOL} N')
         polish_err = max(polish_err, du_any)
-    polish_ms = cuda_ms(
-        lambda: FR.solve_parts_cuda(main_parts, pcfg, q_diag, r_diag), 3)
-    kernel_ms_again = cuda_ms(
-        lambda: FR.solve_parts_cuda(main_parts, scfg, q_diag, r_diag), 10)
+
+    def polish_run():
+        return FR.solve_parts_cuda(main_parts, pcfg, q_diag, r_diag)
+
+    # in turns, on the same QPs: with polish, without, without, with
+    turns = {'polish': [], 'ip': []}
+    for name, fn, reps in (('polish', polish_run, 3), ('ip', ip_run, 10),
+                           ('ip', ip_run, 10), ('polish', polish_run, 3)):
+        turns[name].append(cuda_ms(fn, reps))
+    polish_ms = sum(turns['polish']) / 2
+    kernel_ms_again = sum(turns['ip']) / 2
     polish_plain_ms = cuda_ms(
         lambda: FR.solve_parts_plain(main_parts, pcfg, q_diag, r_diag), 1)
     pol_steps = pcfg.polish_rounds * pcfg.polish_iters
@@ -842,13 +837,16 @@ def main():
     pol_bound = bound_ms(MAIN_BATCH * FR.bytes_per_scenario(),
                          MAIN_BATCH * sum(pops.values()))
     emit(dict(phase='polish_time', batch=MAIN_BATCH, polish_steps=pol_steps,
-              ms=polish_ms, warp_ms_without_polish=kernel_ms_again,
-              warp_ms_without_polish_first=kernel_ms,
+              ms=polish_ms, ms_turns=turns['polish'],
+              ms_without_polish=kernel_ms_again,
+              ms_without_polish_turns=turns['ip'],
+              ms_without_polish_first=kernel_ms,
               plain_ms=polish_plain_ms,
               bound_ms=pol_bound[0], bound_by=pol_bound[1],
               share_of_bound=pol_bound[0] / polish_ms,
               ops_per_scenario=pops,
-              ptxas_with_polish=ptxas.get('fused_riccati_polish', {}),
+              ptxas=ptxas.get('fused_riccati_polish', {}),
+              attributes=attrs['fused_riccati_polish'],
               card=card))
 
     # ---- polish path: chained planning steps with the polish on ----
@@ -856,18 +854,19 @@ def main():
     plan_polish = RT.plan_step_fn(with_solver(CFG,
                                               polish_rounds=POLISH_ROUNDS))
     chain(plan_polish, carry, plant, cmd, 1)        # warm-up, not counted
-    FR.launches = FR.polish_launches = FR.thread_launches = 0
+    FR.launches = FR.polish_launches = 0
+    CH.factor_launches = CH.solve_launches = 0
     total_ms, (c, p, wrench, motor) = cuda_timed(
         lambda: chain(plan_polish, carry, plant, cmd, POLISH_CHAIN))
     polish_path_launches = FR.polish_launches
     polish_step_ms = total_ms / POLISH_CHAIN
     if (polish_path_launches != POLISH_CHAIN or FR.launches
-            or FR.thread_launches):
+            or CH.factor_launches or CH.solve_launches):
         raise RuntimeError(
-            f'polish path launched the polish kernel {polish_path_launches} '
-            f'times, the warp kernel {FR.launches} and the one-thread '
-            f'interior point {FR.thread_launches} times, expected '
-            f'{POLISH_CHAIN}, 0 and 0')
+            f'polish path launched the kernel with polish '
+            f'{polish_path_launches} times, without {FR.launches} times and '
+            f'the Cholesky kernels {CH.factor_launches}/{CH.solve_launches} '
+            f'times, expected {POLISH_CHAIN}, 0 and 0/0')
     all_finite(polish_wrench=wrench, polish_tau=motor.tau,
                polish_f_ff=c.planner.f_ff)
     emit(dict(phase='polish_path', batch=MAIN_BATCH, chain=POLISH_CHAIN,
@@ -882,7 +881,7 @@ def main():
              plain_ms=plain_ms, bound_ms=ip_bound_ms, bound_by=ip_bound_by,
              library_ms=None),
         dict(name='fused_riccati_polish', route='cuda',
-             source='hector_torch/csrc/fused_riccati.cu',
+             source='hector_torch/csrc/fused_riccati_warp.cu',
              replaces='hector/qp/pallas_riccati.py:542',
              launches=polish_path_launches, max_abs_err=polish_err,
              ms=polish_ms, plain_ms=polish_plain_ms, bound_ms=pol_bound[0],

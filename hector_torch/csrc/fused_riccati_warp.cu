@@ -3,14 +3,22 @@
 // (loaded with ctypes by hector_torch/qp/fused_riccati.py).
 //
 // Replaces the Pallas TPU kernel hector/qp/pallas_riccati.py:_kernel (:63),
-// whose body is _solve_tile (:73-631), launched by pl.pallas_call at :668,
-// for polish_rounds = 0 (the default configuration).  It computes what
-// _solve_tile computes without the polish: the fixed-sigma interior point
+// whose body is _solve_tile (:73-631), launched by pl.pallas_call at :668.
+// It computes what _solve_tile computes: the fixed-sigma interior point
 // (rollout, barrier weights on the 12 lower and 8 upper one-sided rows,
 // backward Riccati sweep with a 12x12 Cholesky that keeps only K and kff,
-// forward rollout, fraction-to-boundary steps, clipped updates), then the
-// final residuals mu, r_dual and r_prim.  The polish instantiation stays in
-// csrc/fused_riccati.cu (fused_riccati_kernel<true>).
+// forward rollout, fraction-to-boundary steps, clipped updates), then, when
+// polish_rounds > 0, the primal-dual active-set polish (:542-610), then the
+// final residuals mu, r_dual and r_prim.
+//
+// The kernel is a template on POLISH, compiled twice.  <false> is what the
+// default configuration (polish_rounds = 0) launches: every polish
+// statement sits under `if constexpr (POLISH)`, so it holds the interior
+// point alone.  <true> runs the interior point without the freeze (its
+// mu_floor is 0, pallas_riccati.py:144) and then polish_rounds *
+// polish_iters augmented-Lagrangian Riccati solves as further iterations of
+// THE SAME rolled loop, through the same newton_dir call site (a second site
+// would inline the sweep twice and change <false>'s registers).
 //
 // What bounds it on the card: arithmetic.  A solve reads ~3.3 KB and writes
 // ~0.5 KB per scenario but does ~2 MFLOP of dependent scalar FP32 work (the
@@ -60,10 +68,36 @@
 //   - Early exit.  A lane whose mu is below mu_floor, or whose step is not
 //     finite, is skipped, and its state does not change; the next iteration
 //     would recompute the same mu and the same step and skip it again.  So
-//     the warp leaves the loop at the first skip (before the Newton solve
-//     when mu decides) and goes to the final residuals: the same u and stats
-//     bit for bit as running all iterations.  On closed-loop QPs in float32
-//     lanes freeze after 7-9 of the 14 iterations.
+//     the warp leaves the interior point at the first skip (before the
+//     Newton solve when mu decides) and goes on to the polish (<true>) or
+//     the final residuals: the same u and stats bit for bit as running all
+//     iterations.  On closed-loop QPs in float32 lanes freeze after 7-9 of
+//     the 14 iterations; with the polish only a step that is not finite
+//     leaves early.
+//
+//   - The polish (<true>).  Its row state lives in the rows' slots: the
+//     multipliers nu_p and the best round's nu_b, one register a slot; the
+//     active sets as bits of one word; the row masks rebuilt from the bound
+//     values (lb > -big, ub < big on all 16 rows, not the interior point's
+//     one-sided sets).  The polished iterate u_p takes the place of u in
+//     shared memory, so the rollout and C u read it where they always do;
+//     the best round's u_b is four registers a lane (entry lane + 32 j),
+//     and the interior point's u (the fallback) waits in u_out.  A polish
+//     step puts its C^T argument nu + rho act (C u_p - bnd) into the row
+//     scratch and rho act into d_row, where newton_dir reads them.  The
+//     merit's maxima are warp_max butterflies and its finite tests
+//     __all_sync, so the round ends, the best-of-rounds update and the
+//     acceptance are the same in every lane.
+//   - Registers of <true>.  Every value the rolled loop carries stays live
+//     across the inlined newton_dir, where <false> already takes all 128
+//     registers; 14 warps an SM would not give more (the register file is
+//     split over the SM's four schedulers: 4 warps each either way).  So
+//     the polish carries no new arrays: it keeps its row state in the
+//     registers of the interior point's slacks and duals, which it no
+//     longer needs once mu is written and the fallback multipliers are
+//     kept (lam_ip), and it reads the bounds again from the cache and
+//     recomputes the primal residuals after each newton_dir instead of
+//     carrying them across it.  No local memory, 16 warps an SM.
 //
 // Floating point: no fast math and no flush-to-zero.  The isfinite guards,
 // the inf ratios of the dual step and the skip logic need IEEE division,
@@ -73,8 +107,7 @@
 #include <cfloat>
 #include <cstddef>
 
-// Solver constants; the layout must match _Params in fused_riccati.py (and
-// FusedRiccatiParams in fused_riccati.cu).  The polish fields must be 0.
+// Solver constants; the layout must match _Params in fused_riccati.py.
 struct FusedRiccatiParams {
   float q2[13];      // 2 * state weights
   float r2[12];      // 2 * input weights
@@ -85,10 +118,10 @@ struct FusedRiccatiParams {
   float init_slack;
   float init_dual;
   int iters;
-  int pol_rounds;    // polish: must be 0 here
-  int pol_iters;
-  float pol_rho;
-  float pol_tol;
+  int pol_rounds;    // polish: rounds of active-set estimation (0 = off)
+  int pol_iters;     // polish: augmented-Lagrangian solves per round
+  float pol_rho;     // polish: penalty
+  float pol_tol;     // polish: a lane is accepted at merit <= 10 * pol_tol
 };
 
 namespace {
@@ -104,9 +137,11 @@ constexpr int SLOTS = H * NC / 32;    // constraint rows per lane
 constexpr int WARPS = 2;              // scenarios per block
 constexpr int THREADS = 32 * WARPS;
 constexpr int MIN_BLOCKS = 8;         // blocks an SM: 16 warps, 128 registers
+constexpr int UREGS = (H * NU + 31) / 32;  // entries of u a lane holds
 constexpr unsigned FULL = 0xffffffffu;
 
 static_assert(H * NC == 32 * SLOTS, "rows must fill whole warps");
+static_assert(UREGS <= SLOTS, "u_b lives in a row array");
 
 // Unused dynamic shared memory a block; profile_warp_kernel.py builds with
 // it set to hold an SM to fewer warps.
@@ -280,6 +315,54 @@ __device__ __forceinline__ float row_dot(const float* crow, const float* v) {
   return acc;
 }
 
+// Bound data of one constraint row for the polish (pallas_riccati.py:92-98,
+// 549): float masks of the finite sides taken from the bound values, the
+// equality flag (lb == ub: the swing legs' zero rows) and the bounds with
+// the absent sides set to 0.
+struct PolRow {
+  float fl, fu, feq, lb_c, ub_c;
+};
+
+__device__ __forceinline__ PolRow pol_row(float lbv, float ubv, float big) {
+  PolRow w;
+  w.fl = (lbv > -big) ? 1.f : 0.f;
+  w.fu = (ubv < big) ? 1.f : 0.f;
+  w.lb_c = (lbv > -big) ? lbv : 0.f;
+  w.ub_c = (ubv < big) ? ubv : 0.f;
+  w.feq = w.fl * w.fu * ((w.ub_c - w.lb_c < 1e-12f) ? 1.f : 0.f);
+  return w;
+}
+
+// The active sets of a lane's rows in one word: bit t says slot t is
+// lower-active (a_l), bit t + 8 upper-active (a_u).
+constexpr int A_U = 8;
+
+// Bit i of the active-set word as 0 or 1.
+__device__ __forceinline__ float bitf(unsigned m, int i) {
+  return ((m >> i) & 1u) ? 1.f : 0.f;
+}
+
+// Active-set estimate of one row from the sign of nu + rho (C u - bound)
+// (estimate, pallas_riccati.py:554-560), into slot t of the word.
+__device__ __forceinline__ void pol_estimate(const PolRow& w, float rho, float nu,
+                                             float cu, int t, unsigned& act) {
+  const float t_u = nu + rho * (cu - w.ub_c);
+  const float t_l = -nu + rho * (w.lb_c - cu);
+  const float au = jmax(w.fu * ((t_u > 0.f) ? 1.f : 0.f), w.feq);
+  const float al = jmax(w.fl * ((t_l > 0.f) ? 1.f : 0.f) * (1.f - au), w.feq);
+  act &= ~((1u << t) | (1u << (t + A_U)));
+  act |= (al != 0.f ? 1u << t : 0u) | (au != 0.f ? 1u << (t + A_U) : 0u);
+}
+
+// The row's active flag, and the bound it is held to: lower-active (and
+// equality) rows target lb, upper-active rows ub (pallas_riccati.py:570-572).
+__device__ __forceinline__ void pol_target(const PolRow& w, float al, float au,
+                                           float& on, float& low, float& bnd) {
+  on = jmax(al, au);
+  low = jmax(al * (1.f - au), w.feq);
+  bnd = low * w.lb_c + (1.f - low) * au * w.ub_c;
+}
+
 // q_lin[k] = q2 * (x_{k+1} - xd[k]) along the rollout of s.u from x0 (lane
 // m holds x0[m]); xd is the batch-minor input, offset by the scenario, read
 // through the cache.
@@ -319,9 +402,8 @@ __device__ void rollout_qlin(Scen& s, const Consts& cst, int lane, float x0,
 
 // One LQR solve: backward Riccati sweep (storing only K, kff) and forward
 // rollout.  Reads s.d_row, s.q_lin, s.r_lin; writes s.du.  Computes what
-// newton_dir of csrc/fused_riccati.cu computes (pallas_riccati.py:235-398),
-// with G = bp A formed as diag(mk) B^T (P A) and the back substitution in
-// its row (axpy) order.
+// newton_dir of pallas_riccati.py:235-398 computes, with G = bp A formed as
+// diag(mk) B^T (P A) and the back substitution in its row (axpy) order.
 __device__ void newton_dir(Scen& s, const Consts& cst, int lane) {
   const float dtl = s.scal[0], a1112 = s.scal[1], em = s.scal[2];
   for (int n = lane; n < NX * NX; n += 32) {
@@ -574,6 +656,7 @@ __device__ __forceinline__ void load_field(Scen* scen, int off,
 
 #define FIELD(name) static_cast<int>(offsetof(Scen, name) / sizeof(float))
 
+template <bool POLISH>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel(
     const float* __restrict__ s69_in, const float* __restrict__ scal_in,
     const float* __restrict__ b69_in, const float* __restrict__ umask_in,
@@ -617,7 +700,9 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
 
   const float big = prm.big;
   const float kInf = __int_as_float(0x7f800000);
-  const float mu_floor = 10.0f * FLT_EPSILON;
+  // with the polish the interior point runs to its clamp-limited stall
+  // point (the active set shows there): no complementarity freeze
+  const float mu_floor = POLISH ? 0.0f : 10.0f * FLT_EPSILON;
   const float s_floor = 10.0f * FLT_EPSILON;
   const float d_cap = static_cast<float>(0.1 / static_cast<double>(FLT_EPSILON));
   const float sl_cap = 1e8f;
@@ -650,52 +735,118 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
   for (int n = lane; n < H * NU; n += 32) s.u[n] = 0.f;
   __syncwarp();
 
+  // polish state (<true> only), in the registers of the interior point's
+  // slacks and duals (see "Registers of <true>" above): once its iterate is
+  // final they serve only the final mu, which the polish start writes to
+  // stats_out, and the fallback multipliers, which it keeps in lam_ip.  The
+  // polished iterate u_p takes s.u; the interior point's u waits in u_out.
+  float (&nu_p)[SLOTS] = sl;     // row multipliers of the polished iterate
+  float (&lam_ip)[SLOTS] = ll;   // the interior point's, signed full rows
+  float (&nu_b)[SLOTS] = su;     // the best round's row multipliers
+  float (&u_b)[SLOTS] = lu;      // the best round's u, entry lane + 32 j
+  unsigned act = 0u;             // active sets (A_U)
+  float bad_b = kInf;            // the best round's merit
+  const int n_pol = POLISH ? prm.pol_rounds * prm.pol_iters : 0;
+
   // Iteration -1 is the unconstrained start (D = 0, r_lin = 0); iterations
-  // 0..iters-1 are the interior-point steps.
+  // 0..iters-1 are the interior-point steps; iterations iters.. are the
+  // polish steps (<true> only).
 #pragma unroll 1
-  for (int it = -1; it < prm.iters; ++it) {
+  for (int it = -1; it < prm.iters + n_pol; ++it) {
+    const bool pol = POLISH && it >= prm.iters;
+    if constexpr (POLISH) {
+      if (it == prm.iters) {
+        // start of the polish (pallas_riccati.py:549-565): the interior
+        // point's mu (as the final residuals sum it) and multipliers as
+        // signed full rows, the first active-set estimate, u_p = u_b = u
+        float acc_l = 0.f, acc_u = 0.f, lam[SLOTS];
+#pragma unroll
+        for (int t = 0; t < SLOTS; ++t) {
+          acc_l += sl[t] * ll[t] * ((has_l && lbv[t] > -big) ? 1.f : 0.f);
+          acc_u += su[t] * lu[t] * ((has_u && ubv[t] < big) ? 1.f : 0.f);
+          lam[t] = has_l ? -ll[t] : 0.f;
+          if (has_u) lam[t] = has_l ? lam[t] + lu[t] : lu[t];
+        }
+        const float mu = (warp_sum(acc_l) + warp_sum(acc_u)) / n_act;
+        if (lane == 0) stats_out[b] = mu;
+#pragma unroll
+        for (int t = 0; t < SLOTS; ++t) {
+          const float cu = row_dot(crow, s.u + (2 * t + khalf) * NU);
+          pol_estimate(pol_row(lbv[t], ubv[t], big), prm.pol_rho, lam[t], cu, t, act);
+          lam_ip[t] = lam[t];
+          nu_p[t] = jmax(bitf(act, t), bitf(act, t + A_U)) * lam[t];
+          nu_b[t] = nu_p[t];
+        }
+#pragma unroll
+        for (int j = 0; j < UREGS; ++j) {
+          const int n = lane + 32 * j;
+          u_b[j] = n < H * NU ? s.u[n] : 0.f;
+          if (n < H * NU) u_out[static_cast<size_t>(n) * B + b] = u_b[j];
+        }
+      }
+    }
     rollout_qlin(s, cst, lane, x0, xd, B);
     float smu = 0.f;
     if (it < 0) {
       for (int n = lane; n < H * NC; n += 32) s.d_row[n] = 0.f;
       for (int n = lane; n < H * NU; n += 32) s.r_lin[n] = 0.f;
     } else {
-      float acc_l = 0.f, acc_u = 0.f;
+      if (pol) {
+        // augmented-Lagrangian step on the active rows: d = rho act, C^T
+        // argument nu + rho act (C u_p - bnd)
 #pragma unroll
-      for (int t = 0; t < SLOTS; ++t) {
-        const float cu = row_dot(crow, s.u + (2 * t + khalf) * NU);
-        const bool ml = has_l && lbv[t] > -big;
-        const bool mu_ = has_u && ubv[t] < big;
-        rp_l[t] = ml ? cu - lbv[t] - sl[t] : 0.f;
-        acc_l += sl[t] * ll[t] * (ml ? 1.f : 0.f);
-        rp_u[t] = mu_ ? ubv[t] - cu - su[t] : 0.f;
-        acc_u += su[t] * lu[t] * (mu_ ? 1.f : 0.f);
-      }
-      const float mu = (warp_sum(acc_l) + warp_sum(acc_u)) / n_act;
-      // frozen: the state stays, so every later iteration skips too
-      if (mu < mu_floor) break;
-      smu = prm.sigma * mu;
-      // d_row and the C^T argument, full rows: lower side, then upper added
-#pragma unroll
-      for (int t = 0; t < SLOTS; ++t) {
-        const bool ml = has_l && lbv[t] > -big;
-        const bool mu_ = has_u && ubv[t] < big;
-        // one reciprocal a slack, recomputed after the Newton solve
-        const float inv_l = 1.0f / jmax(sl[t], s_floor);
-        const float inv_u = 1.0f / jmax(su[t], s_floor);
-        const float dl = ml ? jmin(ll[t] * inv_l, d_cap) : 0.f;
-        const float tls = ml ? smu * inv_l : 0.f;
-        const float dd = mu_ ? jmin(lu[t] * inv_u, d_cap) : 0.f;
-        const float tus = mu_ ? smu * inv_u : 0.f;
-        float drow = has_l ? dl : 0.f;
-        float arg = has_l ? dl * rp_l[t] - tls : 0.f;
-        if (has_u) {
-          const float au = tus - dd * rp_u[t];
-          drow = has_l ? drow + dd : dd;
-          arg = has_l ? arg + au : au;
+        for (int t = 0; t < SLOTS; ++t) {
+          const PolRow w = pol_row(lbv[t], ubv[t], big);
+          float on, low, bnd;
+          pol_target(w, bitf(act, t), bitf(act, t + A_U), on, low, bnd);
+          const float cu = row_dot(crow, s.u + (2 * t + khalf) * NU);
+          s.d_row[32 * t + lane] = prm.pol_rho * on;
+          s.rows[32 * t + lane] = nu_p[t] + prm.pol_rho * (on * (cu - bnd));
         }
-        s.d_row[32 * t + lane] = drow;
-        s.rows[32 * t + lane] = arg;
+      } else {
+        float acc_l = 0.f, acc_u = 0.f;
+#pragma unroll
+        for (int t = 0; t < SLOTS; ++t) {
+          const float cu = row_dot(crow, s.u + (2 * t + khalf) * NU);
+          const bool ml = has_l && lbv[t] > -big;
+          const bool mu_ = has_u && ubv[t] < big;
+          rp_l[t] = ml ? cu - lbv[t] - sl[t] : 0.f;
+          acc_l += sl[t] * ll[t] * (ml ? 1.f : 0.f);
+          rp_u[t] = mu_ ? ubv[t] - cu - su[t] : 0.f;
+          acc_u += su[t] * lu[t] * (mu_ ? 1.f : 0.f);
+        }
+        const float mu = (warp_sum(acc_l) + warp_sum(acc_u)) / n_act;
+        // frozen: the state stays, so every later iteration skips too
+        if (mu < mu_floor) {
+          if constexpr (POLISH) {
+            it = prm.iters - 1;  // on to the polish
+            continue;
+          }
+          break;
+        }
+        smu = prm.sigma * mu;
+        // d_row and the C^T argument, full rows: lower side, then upper added
+#pragma unroll
+        for (int t = 0; t < SLOTS; ++t) {
+          const bool ml = has_l && lbv[t] > -big;
+          const bool mu_ = has_u && ubv[t] < big;
+          // one reciprocal a slack, recomputed after the Newton solve
+          const float inv_l = 1.0f / jmax(sl[t], s_floor);
+          const float inv_u = 1.0f / jmax(su[t], s_floor);
+          const float dl = ml ? jmin(ll[t] * inv_l, d_cap) : 0.f;
+          const float tls = ml ? smu * inv_l : 0.f;
+          const float dd = mu_ ? jmin(lu[t] * inv_u, d_cap) : 0.f;
+          const float tus = mu_ ? smu * inv_u : 0.f;
+          float drow = has_l ? dl : 0.f;
+          float arg = has_l ? dl * rp_l[t] - tls : 0.f;
+          if (has_u) {
+            const float au = tus - dd * rp_u[t];
+            drow = has_l ? drow + dd : dd;
+            arg = has_l ? arg + au : au;
+          }
+          s.d_row[32 * t + lane] = drow;
+          s.rows[32 * t + lane] = arg;
+        }
       }
       __syncwarp();
       // r_lin = r2 u + C^T arg, one (stage, input) a lane
@@ -711,6 +862,16 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
 
     PHASE(8);
     newton_dir(s, cst, lane);
+    if constexpr (POLISH) {
+      // the bounds again, from the cache: carried across newton_dir they
+      // would cost <true> registers
+#pragma unroll
+      for (int t = 0; t < SLOTS; ++t) {
+        const size_t e = static_cast<size_t>(32 * t + lane) * B + b;
+        lbv[t] = __ldg(lb_in + e);
+        ubv[t] = __ldg(ub_in + e);
+      }
+    }
 
     if (it < 0) {
       // scale-aware start from the unconstrained solution
@@ -740,6 +901,66 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
       continue;
     }
 
+    if constexpr (POLISH) {
+      if (pol) {
+        // full Newton step unless the direction is not finite
+        bool fin = true;
+        for (int n = lane; n < H * NU; n += 32) fin = fin && isfinite(s.du[n]);
+        if (__all_sync(FULL, fin))
+          for (int n = lane; n < H * NU; n += 32) s.u[n] += s.du[n];
+        __syncwarp();
+        // multiplier update; at a round's end the KKT merit (primal
+        // violation, wrong-sign multiplier / 10), the best of rounds and
+        // the next active set (pallas_riccati.py:580-600)
+        const bool round_end = (it - prm.iters + 1) % prm.pol_iters == 0;
+        float bad_p = -kInf, wrong = -kInf;
+#pragma unroll
+        for (int t = 0; t < SLOTS; ++t) {
+          const PolRow w = pol_row(lbv[t], ubv[t], big);
+          const float au = bitf(act, t + A_U);
+          float on, low, bnd;
+          pol_target(w, bitf(act, t), au, on, low, bnd);
+          const float cu = row_dot(crow, s.u + (2 * t + khalf) * NU);
+          const float nu_n = on * (nu_p[t] + prm.pol_rho * (cu - bnd));
+          nu_p[t] = nu_n;
+          if (round_end) {
+            bad_p = jmax(bad_p, jmax(w.fl * (w.lb_c - cu), w.fu * (cu - w.ub_c)));
+            wrong = jmax(wrong, jmax(au * (1.f - w.feq) * jmax(-nu_n, 0.f),
+                                     low * (1.f - w.feq) * jmax(nu_n, 0.f)));
+            pol_estimate(w, prm.pol_rho, nu_n, cu, t, act);
+          }
+        }
+        if (round_end) {
+          bool ufin = true;
+          for (int n = lane; n < H * NU; n += 32) ufin = ufin && isfinite(s.u[n]);
+          bad_p = warp_max(bad_p);
+          wrong = warp_max(wrong);
+          const float bad_r = __all_sync(FULL, ufin) ? jmax(bad_p, 0.1f * wrong) : kInf;
+          if (bad_r < bad_b) {
+#pragma unroll
+            for (int j = 0; j < UREGS; ++j) {
+              const int n = lane + 32 * j;
+              if (n < H * NU) u_b[j] = s.u[n];
+            }
+#pragma unroll
+            for (int t = 0; t < SLOTS; ++t) nu_b[t] = nu_p[t];
+          }
+          bad_b = jmin(bad_r, bad_b);
+        }
+        continue;
+      }
+    }
+
+    if constexpr (POLISH) {
+      // the primal residuals once more, bit for bit as before the solve:
+      // carried across newton_dir they would cost <true> registers
+#pragma unroll
+      for (int t = 0; t < SLOTS; ++t) {
+        const float cu = row_dot(crow, s.u + (2 * t + khalf) * NU);
+        rp_l[t] = (has_l && lbv[t] > -big) ? cu - lbv[t] - sl[t] : 0.f;
+        rp_u[t] = (has_u && ubv[t] < big) ? ubv[t] - cu - su[t] : 0.f;
+      }
+    }
     // slack/dual directions, step sizes, finiteness
     bool finite = true;
     for (int n = lane; n < H * NU; n += 32) finite = finite && isfinite(s.du[n]);
@@ -777,7 +998,13 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
       }
     }
     // a step that is not finite is skipped, and would be again: leave
-    if (!__all_sync(FULL, finite)) break;
+    if (!__all_sync(FULL, finite)) {
+      if constexpr (POLISH) {
+        it = prm.iters - 1;  // on to the polish
+        continue;
+      }
+      break;
+    }
     rate_p = warp_max(rate_p);
     ratio_d = warp_min(ratio_d);
     const float a_p = prm.frac / jmax(rate_p, prm.frac);
@@ -798,22 +1025,47 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
     PHASE(9);
   }
 
+  // accept the polished iterate only at a small KKT merit, else keep the
+  // interior point's (pallas_riccati.py:603-610)
+  bool pol_ok = false;
+  if constexpr (POLISH) {
+    bool fin = true;
+#pragma unroll
+    for (int j = 0; j < UREGS; ++j)
+      if (lane + 32 * j < H * NU) fin = fin && isfinite(u_b[j]);
+    const bool all_fin = __all_sync(FULL, fin);
+    pol_ok = all_fin && bad_b <= 10.0f * prm.pol_tol;
+#pragma unroll
+    for (int j = 0; j < UREGS; ++j) {
+      const int n = lane + 32 * j;
+      if (n < H * NU) s.u[n] = pol_ok ? u_b[j] : u_out[static_cast<size_t>(n) * B + b];
+    }
+    __syncwarp();
+  }
+
   PHASE(9);
   // ---- final residuals (pallas_riccati.py:612-631) ----
   rollout_qlin(s, cst, lane, x0, xd, B);
   float r_prim = 0.f, acc_l = 0.f, acc_u = 0.f;
 #pragma unroll
   for (int t = 0; t < SLOTS; ++t) {
-    // full-row signed multipliers: -lam_l + lam_u
-    float lam = has_l ? -ll[t] : 0.f;
-    if (has_u) lam = has_l ? lam + lu[t] : lu[t];
+    // full-row signed multipliers: -lam_l + lam_u, or the polish's
+    float lam;
+    if constexpr (POLISH) {
+      lam = pol_ok ? nu_b[t] : lam_ip[t];
+    } else {
+      lam = has_l ? -ll[t] : 0.f;
+      if (has_u) lam = has_l ? lam + lu[t] : lu[t];
+    }
     s.rows[32 * t + lane] = lam;
     const float cu = row_dot(crow, s.u + (2 * t + khalf) * NU);
     const float rpl = (lbv[t] > -big) ? jmax(lbv[t] - cu, 0.f) : 0.f;
     const float rpu = (ubv[t] < big) ? jmax(cu - ubv[t], 0.f) : 0.f;
     r_prim = jmax(r_prim, jmax(rpl, rpu));
-    acc_l += sl[t] * ll[t] * ((has_l && lbv[t] > -big) ? 1.f : 0.f);
-    acc_u += su[t] * lu[t] * ((has_u && ubv[t] < big) ? 1.f : 0.f);
+    if constexpr (!POLISH) {
+      acc_l += sl[t] * ll[t] * ((has_l && lbv[t] > -big) ? 1.f : 0.f);
+      acc_u += su[t] * lu[t] * ((has_u && ubv[t] < big) ? 1.f : 0.f);
+    }
   }
   // costates nu_k (lane m holds component m) into d_row
   float nu = lane < NX ? s.q_lin[(H - 1) * NX + lane] : 0.f;
@@ -841,60 +1093,44 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
   }
   r_d_max = warp_max(r_d_max);
   r_prim = warp_max(r_prim);
-  const float mu = (warp_sum(acc_l) + warp_sum(acc_u)) / n_act;
+  float mu = 0.f;  // with the polish, written at its start
+  if constexpr (!POLISH) mu = (warp_sum(acc_l) + warp_sum(acc_u)) / n_act;
 
   for (int n = lane; n < H * NU; n += 32) u_out[static_cast<size_t>(n) * B + b] = s.u[n];
   PHASE(10);
   if (lane == 0) {
-    stats_out[b] = mu;
+    if constexpr (!POLISH) stats_out[b] = mu;
     stats_out[B + b] = r_d_max;
     stats_out[2 * B + b] = r_prim;
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches one solve of `batch` scenarios on `stream` (a cudaStream_t) and
-// returns cudaGetLastError() as an int (0 = launched); params->pol_rounds
-// must be 0 (the polish runs in csrc/fused_riccati.cu).  Every array is
-// batch-minor float32: element e of scenario b at [e * batch + b].
-int fused_riccati_warp_solve(const float* s69, const float* scal, const float* b69,
-                             const float* umask, const float* x0, const float* xd,
-                             const float* cm, const float* lb, const float* ub,
-                             float* u_out, float* stats_out, int batch,
-                             const FusedRiccatiParams* params, void* stream) {
-  if (batch <= 0) return 0;
-  if (params->pol_rounds != 0) return static_cast<int>(cudaErrorInvalidValue);
+template <bool POLISH>
+int launch(const float* s69, const float* scal, const float* b69, const float* umask,
+           const float* x0, const float* xd, const float* cm, const float* lb,
+           const float* ub, float* u_out, float* stats_out, int batch,
+           const Params& prm, cudaStream_t stream) {
   const int grid = (batch + WARPS - 1) / WARPS;
 #if FR_EXTRA_SMEM > 0
   const cudaError_t err = cudaFuncSetAttribute(
-      fused_riccati_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, FR_EXTRA_SMEM);
+      fused_riccati_warp_kernel<POLISH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      FR_EXTRA_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
 #endif
-  fused_riccati_warp_kernel<<<grid, THREADS, FR_EXTRA_SMEM,
-                              static_cast<cudaStream_t>(stream)>>>(
-      s69, scal, b69, umask, x0, xd, cm, lb, ub, u_out, stats_out, batch, *params);
+  fused_riccati_warp_kernel<POLISH><<<grid, THREADS, FR_EXTRA_SMEM, stream>>>(
+      s69, scal, b69, umask, x0, xd, cm, lb, ub, u_out, stats_out, batch, prm);
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* fused_riccati_warp_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// What the compiled kernel takes: registers a thread, local bytes a thread,
-// static and dynamic shared bytes a block, threads a block, and the blocks
-// an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-int fused_riccati_warp_attributes(int* num_regs, int* local_bytes,
-                                  int* static_smem, int* dynamic_smem,
-                                  int* threads, int* blocks_per_sm) {
+template <bool POLISH>
+int attributes(int* num_regs, int* local_bytes, int* static_smem, int* dynamic_smem,
+               int* threads, int* blocks_per_sm) {
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, fused_riccati_warp_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&a, fused_riccati_warp_kernel<POLISH>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int nb = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, fused_riccati_warp_kernel,
-                                                      THREADS, FR_EXTRA_SMEM);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &nb, fused_riccati_warp_kernel<POLISH>, THREADS, FR_EXTRA_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   *num_regs = a.numRegs;
   *local_bytes = static_cast<int>(a.localSizeBytes);
@@ -903,6 +1139,47 @@ int fused_riccati_warp_attributes(int* num_regs, int* local_bytes,
   *threads = THREADS;
   *blocks_per_sm = nb;
   return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches one solve of `batch` scenarios on `stream` (a cudaStream_t), the
+// kernel with the polish if params->pol_rounds > 0, and returns
+// cudaGetLastError() as an int (0 = launched).  Every array is batch-minor
+// float32: element e of scenario b at [e * batch + b].
+int fused_riccati_warp_solve(const float* s69, const float* scal, const float* b69,
+                             const float* umask, const float* x0, const float* xd,
+                             const float* cm, const float* lb, const float* ub,
+                             float* u_out, float* stats_out, int batch,
+                             const FusedRiccatiParams* params, void* stream) {
+  if (batch <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (params->pol_rounds > 0) {
+    if (params->pol_iters < 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<true>(s69, scal, b69, umask, x0, xd, cm, lb, ub, u_out, stats_out,
+                        batch, *params, st);
+  }
+  return launch<false>(s69, scal, b69, umask, x0, xd, cm, lb, ub, u_out, stats_out,
+                       batch, *params, st);
+}
+
+const char* fused_riccati_warp_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// What the compiled kernel takes, of the kernel with the polish if `polish`
+// is not 0: registers a thread, local bytes a thread, static and dynamic
+// shared bytes a block, threads a block, and the blocks an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int fused_riccati_warp_attributes(int polish, int* num_regs, int* local_bytes,
+                                  int* static_smem, int* dynamic_smem, int* threads,
+                                  int* blocks_per_sm) {
+  return polish ? attributes<true>(num_regs, local_bytes, static_smem, dynamic_smem,
+                                   threads, blocks_per_sm)
+                : attributes<false>(num_regs, local_bytes, static_smem, dynamic_smem,
+                                    threads, blocks_per_sm);
 }
 
 #ifdef FR_PHASE_CLOCKS

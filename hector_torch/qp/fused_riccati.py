@@ -19,18 +19,12 @@ active-set polish (``:542-610``):
   With the polish on there is no freeze, as in the kernel: the interior
   point runs to its clamp-limited stall point, where the active set shows.
 
-Two sources hold the kernels:
-
-- ``hector_torch/csrc/fused_riccati_warp.cu``: the interior point alone,
-  one warp per scenario, which the default configuration
-  (``polish_rounds = 0``) launches.  ``launches`` counts it.
-- ``hector_torch/csrc/fused_riccati.cu``: one thread per scenario, a
-  template compiled twice.  ``fused_riccati_kernel<true>`` (with the
-  polish) serves ``polish_rounds > 0`` and ``polish_launches`` counts it.
-  ``fused_riccati_kernel<false>`` is launched by nothing on a path: only
-  :func:`solve_parts_thread` reaches it, to time the warp kernel against
-  (``thread_launches`` counts it).  It goes when the polish moves onto the
-  warp kernel.
+One source holds the kernel, ``hector_torch/csrc/fused_riccati_warp.cu``:
+one warp per scenario, a template compiled twice.
+``fused_riccati_warp_kernel<false>`` is the interior point alone, which the
+default configuration (``polish_rounds = 0``) launches; ``launches`` counts
+it.  ``fused_riccati_warp_kernel<true>`` adds the polish and serves
+``polish_rounds > 0``; ``polish_launches`` counts it.
 
 The plain version touches no counter.
 """
@@ -38,7 +32,6 @@ The plain version touches no counter.
 from __future__ import annotations
 
 import ctypes
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
 
@@ -56,23 +49,17 @@ NC = 16     # constraint rows per stage
 # (hector/constraints.py; pallas_riccati.py:102-114)
 LR = (0, 1, 2, 3, 4, 7, 8, 9, 10, 11, 12, 15)
 UR = (4, 5, 6, 7, 12, 13, 14, 15)
-# batch-minor scratch per scenario of csrc/fused_riccati.cu: K_k (NU x NX)
-# and kff_k (NU) per stage (the warp kernel keeps them in shared memory)
-SCRATCH_PER_SCENARIO = H * NU * (NX + 1)
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / 'csrc' / 'fused_riccati.cu'
 WARP_SOURCE = _PKG / 'csrc' / 'fused_riccati_warp.cu'
 BUILD_ROOT = _PKG / '_build'
 NVCC_FLAGS = _nvcc.NVCC_FLAGS
 
-launches = 0            # launches of the warp kernel (polish_rounds = 0)
-                        # since import (or the caller's reset)
-polish_launches = 0     # launches of fused_riccati_kernel<true>, likewise
-thread_launches = 0     # launches of fused_riccati_kernel<false>, likewise
-build_info = {}         # per source file name: ptxas report; nvcc command
-                        # and seconds if built here
-_lib = None             # csrc/fused_riccati.cu
+launches = 0            # launches of the kernel without polish since import
+                        # (or the caller's reset)
+polish_launches = 0     # launches of the kernel with polish, likewise
+build_info = {}         # per source file name (and -D flags): ptxas report;
+                        # nvcc command and seconds if built here
 _warp_lib = None        # csrc/fused_riccati_warp.cu
 
 
@@ -429,8 +416,7 @@ def solve_parts_plain(parts, scfg: SolverConfig, q_diag, r_diag
 
 
 class _Params(ctypes.Structure):
-    """Mirror of ``FusedRiccatiParams`` in csrc/fused_riccati.cu and
-    csrc/fused_riccati_warp.cu (one layout)."""
+    """Mirror of ``FusedRiccatiParams`` in csrc/fused_riccati_warp.cu."""
 
     _fields_ = [('q2', ctypes.c_float * NX), ('r2', ctypes.c_float * NU),
                 ('r2reg', ctypes.c_float * NU), ('sigma', ctypes.c_float),
@@ -439,32 +425,6 @@ class _Params(ctypes.Structure):
                 ('iters', ctypes.c_int), ('polish_rounds', ctypes.c_int),
                 ('polish_iters', ctypes.c_int), ('polish_rho', ctypes.c_float),
                 ('polish_tol', ctypes.c_float)]
-
-
-def _compile(source, defines=()):
-    so, info = _nvcc.compile_shared(source, BUILD_ROOT,
-                                    NVCC_FLAGS + tuple(defines))
-    build_info[' '.join((source.name,) + tuple(defines))] = info
-    return ctypes.CDLL(str(so))
-
-
-def _thread_lib():
-    """csrc/fused_riccati.cu, compiled for sm_90a once and loaded."""
-    global _lib
-    if _lib is None:
-        lib = _compile(SOURCE)
-        fn = lib.fused_riccati_solve
-        fn.argtypes = ([ctypes.c_void_p] * 12
-                       + [ctypes.c_int, ctypes.POINTER(_Params),
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.fused_riccati_error_string.argtypes = [ctypes.c_int]
-        lib.fused_riccati_error_string.restype = ctypes.c_char_p
-        lib.fused_riccati_attributes.argtypes = (
-            [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3)
-        lib.fused_riccati_attributes.restype = ctypes.c_int
-        _lib = lib
-    return _lib
 
 
 def _warp_kernel_lib():
@@ -480,7 +440,10 @@ def warp_kernel_variant(defines=()):
     profiling switches FR_PHASE_CLOCKS and FR_EXTRA_SMEM), loaded; with
     none, the production build.  Install one as ``_warp_lib`` to launch
     it through :func:`solve_parts_cuda`."""
-    lib = _compile(WARP_SOURCE, defines)
+    so, info = _nvcc.compile_shared(WARP_SOURCE, BUILD_ROOT,
+                                    NVCC_FLAGS + tuple(defines))
+    build_info[' '.join((WARP_SOURCE.name,) + tuple(defines))] = info
+    lib = ctypes.CDLL(str(so))
     fn = lib.fused_riccati_warp_solve
     fn.argtypes = ([ctypes.c_void_p] * 11
                    + [ctypes.c_int, ctypes.POINTER(_Params), ctypes.c_void_p])
@@ -488,50 +451,34 @@ def warp_kernel_variant(defines=()):
     lib.fused_riccati_warp_error_string.argtypes = [ctypes.c_int]
     lib.fused_riccati_warp_error_string.restype = ctypes.c_char_p
     lib.fused_riccati_warp_attributes.argtypes = (
-        [ctypes.POINTER(ctypes.c_int)] * 6)
+        [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 6)
     lib.fused_riccati_warp_attributes.restype = ctypes.c_int
     return lib
 
 
 def build():
-    """Compile both sources for sm_90a (once; one nvcc each, run side by
-    side) and load them."""
-    with ThreadPoolExecutor(2) as pool:
-        futs = [pool.submit(_warp_kernel_lib), pool.submit(_thread_lib)]
-        return [f.result() for f in futs]
+    """Compile the source for sm_90a (once) and load it."""
+    return _warp_kernel_lib()
 
 
 def kernel_attributes(kernel: str = 'warp'):
-    """What cudaFuncGetAttributes reports for a compiled kernel: ``'warp'``
-    (the interior point, one warp per scenario; with its shared memory and
-    the warps an SM holds, from cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-    ``'thread'`` (``fused_riccati_kernel<false>``) or ``'polish'``
-    (``fused_riccati_kernel<true>``)."""
-    if kernel == 'warp':
-        lib = _warp_kernel_lib()
-        vals = [ctypes.c_int() for _ in range(6)]
-        rc = lib.fused_riccati_warp_attributes(
-            *[ctypes.byref(v) for v in vals])
-        if rc != 0:
-            raise RuntimeError('cudaFuncGetAttributes failed: '
-                               + lib.fused_riccati_warp_error_string(rc).decode())
-        regs, local, static, dynamic, threads, blocks = [v.value for v in vals]
-        return dict(registers=regs, local_bytes=local,
-                    static_smem_bytes=static, dynamic_smem_bytes=dynamic,
-                    threads_per_block=threads, blocks_per_sm=blocks,
-                    warps_per_sm=blocks * threads // 32)
-    if kernel not in ('thread', 'polish'):
-        raise ValueError(f"kernel is 'warp', 'thread' or 'polish', not "
-                         f"{kernel!r}")
-    lib = _thread_lib()
-    vals = [ctypes.c_int() for _ in range(3)]
-    rc = lib.fused_riccati_attributes(int(kernel == 'polish'),
-                                      *[ctypes.byref(v) for v in vals])
+    """What cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor report for a compiled
+    kernel: ``'warp'`` (the interior point alone) or ``'polish'`` (with the
+    polish)."""
+    if kernel not in ('warp', 'polish'):
+        raise ValueError(f"kernel is 'warp' or 'polish', not {kernel!r}")
+    lib = _warp_kernel_lib()
+    vals = [ctypes.c_int() for _ in range(6)]
+    rc = lib.fused_riccati_warp_attributes(int(kernel == 'polish'),
+                                           *[ctypes.byref(v) for v in vals])
     if rc != 0:
         raise RuntimeError('cudaFuncGetAttributes failed: '
-                           + lib.fused_riccati_error_string(rc).decode())
-    return dict(registers=vals[0].value, local_bytes=vals[1].value,
-                max_threads_per_block=vals[2].value)
+                           + lib.fused_riccati_warp_error_string(rc).decode())
+    regs, local, static, dynamic, threads, blocks = [v.value for v in vals]
+    return dict(registers=regs, local_bytes=local, static_smem_bytes=static,
+                dynamic_smem_bytes=dynamic, threads_per_block=threads,
+                blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32)
 
 
 _SHAPES = dict(s69=(3, 3), scal=(3,), b69=(3, NU), u_mask=(H, NU), x0=(NX,),
@@ -560,7 +507,7 @@ def check_parts(parts):
                              f'parts must be on one CUDA device')
 
 
-def _launch(parts, scfg, q_diag, r_diag, warp):
+def _launch(parts, scfg, q_diag, r_diag):
     """Check, copy to batch-minor, launch on the current stream (no
     synchronisation) and raise on a launch error."""
     check_parts(parts)
@@ -577,24 +524,16 @@ def _launch(parts, scfg, q_diag, r_diag, warp):
     ins = [t.reshape(bsz, -1).t().contiguous() for t in parts]
     u_t = torch.empty((H * NU, bsz), dtype=torch.float32, device=dev)
     stats_t = torch.empty((3, bsz), dtype=torch.float32, device=dev)
-    lib = _warp_kernel_lib() if warp else _thread_lib()
+    lib = _warp_kernel_lib()
     ptrs = [t.data_ptr() for t in ins] + [u_t.data_ptr(), stats_t.data_ptr()]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if warp:
-            rc = lib.fused_riccati_warp_solve(*ptrs, bsz, ctypes.byref(prm),
-                                              stream)
-            err = lib.fused_riccati_warp_error_string
-        else:
-            # K and kff of every stage, batch-minor
-            scratch = torch.empty((SCRATCH_PER_SCENARIO, bsz),
-                                  dtype=torch.float32, device=dev)
-            rc = lib.fused_riccati_solve(*ptrs, scratch.data_ptr(), bsz,
-                                         ctypes.byref(prm), stream)
-            err = lib.fused_riccati_error_string
+        rc = lib.fused_riccati_warp_solve(*ptrs, bsz, ctypes.byref(prm),
+                                          stream)
     if rc != 0:
-        raise RuntimeError('fused_riccati launch failed: CUDA error '
-                           f'{rc} ({err(rc).decode()})')
+        err = lib.fused_riccati_warp_error_string(rc).decode()
+        raise RuntimeError(f'fused_riccati launch failed: CUDA error {rc} '
+                           f'({err})')
     stats = stats_t.t()
     return QPSolution(u=u_t.t().contiguous(), mu=stats[:, 0],
                       r_dual=stats[:, 1], r_prim=stats[:, 2])
@@ -602,38 +541,25 @@ def _launch(parts, scfg, q_diag, r_diag, warp):
 
 def solve_parts_cuda(parts, scfg: SolverConfig, q_diag, r_diag
                      ) -> QPSolution:
-    """Launch on the current stream, no synchronisation: the warp kernel
-    when ``polish_rounds == 0``, else ``fused_riccati_kernel<true>``."""
-    global launches
-    if scfg.polish_rounds > 0:
-        return solve_parts_thread(parts, scfg, q_diag, r_diag)
-    sol = _launch(parts, scfg, q_diag, r_diag, warp=True)
-    launches += 1
-    return sol
-
-
-def solve_parts_thread(parts, scfg: SolverConfig, q_diag, r_diag
-                       ) -> QPSolution:
-    """The one-thread-per-scenario kernels of csrc/fused_riccati.cu:
-    ``<true>`` with the polish (counted in ``polish_launches``), ``<false>``
-    without it (``thread_launches``; no path launches it)."""
-    global polish_launches, thread_launches
-    sol = _launch(parts, scfg, q_diag, r_diag, warp=False)
+    """Launch on the current stream, no synchronisation:
+    ``fused_riccati_warp_kernel<true>`` when ``polish_rounds > 0``
+    (counted in ``polish_launches``), else ``<false>`` (``launches``)."""
+    global launches, polish_launches
+    sol = _launch(parts, scfg, q_diag, r_diag)
     if scfg.polish_rounds > 0:
         polish_launches += 1
     else:
-        thread_launches += 1
+        launches += 1
     return sol
 
 
 # --------------------------------------------------------------------------
-# work of one solve, counted from csrc/fused_riccati.cu
+# work of one solve, counted from csrc/fused_riccati_warp.cu
 
 
 def bytes_per_scenario():
     """Bytes one solve must move: every input read once, u and stats
-    written once (the K/kff scratch is not counted: it is the kernel's
-    choice, not the function's)."""
+    written once."""
     n_in = sum(int(torch.tensor(s).prod()) for s in _SHAPES.values())
     return 4 * (n_in + H * NU + 3)
 

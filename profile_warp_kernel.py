@@ -2,9 +2,11 @@
 
     python3 profile_warp_kernel.py
 
-Builds hector_torch/csrc/fused_riccati_warp.cu four ways: as the port runs
-it; with -DFR_PHASE_CLOCKS (clock64 marks between the kernel's phases); and
-with -DFR_EXTRA_SMEM set so that an SM holds 12 and 8 warps instead of 16.
+Profiles the kernel without polish (fused_riccati_warp_kernel<false>, the
+one the main path launches).  Builds hector_torch/csrc/fused_riccati_warp.cu
+four ways: as the port runs it; with -DFR_PHASE_CLOCKS (clock64 marks
+between the kernel's phases); and with -DFR_EXTRA_SMEM set so that an SM
+holds 12 and 8 warps instead of 16.
 Each build is held to the plain PyTorch version (chip_smoke.hold_to_plain)
 on the 32,768 closed-loop QPs of chip_smoke.py's kernel phase, then all are
 timed in turns (A B C D D C B A) with CUDA events.  Prints one JSON line per

@@ -164,6 +164,90 @@ def test_plain_polish_matches_jax_f64():
                                atol=1e-12, rtol=0)
 
 
+@pytest.mark.parametrize('dtype,iters', [
+    (torch.float32, 6),     # no float32 lane reaches 10 eps in 6 iterations
+    (torch.float64, 14),    # nor a float64 lane 1e-14 in 14
+], ids=['f32', 'f64'])
+def test_plain_rejected_polish_is_the_interior_point(dtype, iters):
+    """With polish_tol < 0 no lane can accept the polish, and what is left
+    is the interior point without the freeze (mu_floor = 0), the iterate the
+    card's forced-rejection check compares.  Where no lane would freeze,
+    that is the interior point without polish, bit for bit: u, mu and the
+    residuals (the multipliers fall back to the interior point's)."""
+    parts = _port_parts(_both_cases(), dtype)
+    ip = FR.solve_parts_plain(parts, _tcfg(iterations=iters), Q_DIAG, R_DIAG)
+    off = FR.solve_parts_plain(
+        parts, _tcfg(iterations=iters, polish_rounds=8, polish_tol=-1.0),
+        Q_DIAG, R_DIAG)
+    floor = max(1e-14, 10.0 * torch.finfo(dtype).eps)
+    assert bool((ip.mu > floor).all())          # no lane froze
+    for x, y in zip(ip, off):
+        assert torch.equal(x, y)
+    # and the polish does move the lanes it accepts
+    on = FR.solve_parts_plain(parts, _tcfg(iterations=iters, polish_rounds=8),
+                              Q_DIAG, R_DIAG)
+    assert bool((on.u != off.u).any(1).any())
+
+
+def _bounds_off_the_one_sided_rows(inputs):
+    """The problems of ``inputs`` with finite bounds on rows the interior
+    point treats as one-sided the other way: a lower bound 0.5 above the
+    interior point's optimum on the line-contact moment row 5 (upper side
+    only) of the stages where it is well below 0, and an upper bound 1
+    below it on the friction row 0 (lower side only) where that is above
+    5."""
+    parts = _port_parts(inputs, torch.float64)
+    sol = FR.solve_parts_plain(parts, _tcfg(), Q_DIAG, R_DIAG)
+    cu = sol.u.reshape(-1, 10, 12) @ parts.c_block.transpose(1, 2)
+    big = TSolverConfig().big_threshold
+    lb, ub = parts.lb.clone(), parts.ub.clone()
+    free_lb = (lb[..., 5] <= -big) & (ub[..., 5] < big) & (cu[..., 5] < -1.0)
+    lb[..., 5] = torch.where(free_lb, cu[..., 5] + 0.5, lb[..., 5])
+    free_ub = (ub[..., 0] >= big) & (lb[..., 0] > -big) & (cu[..., 0] > 5.0)
+    ub[..., 0] = torch.where(free_ub, cu[..., 0] - 1.0, ub[..., 0])
+    assert int(free_lb.sum()) >= 10 and int(free_ub.sum()) >= 10
+    return lb.numpy(), ub.numpy(), (free_lb | free_ub).any(1).numpy()
+
+
+def test_plain_polish_masks_follow_bound_values_f64():
+    """The polish's row masks come from the bound values on all 16 rows
+    (pallas_riccati.py:95-98), not from the interior point's one-sided
+    sets: a finite bound on a row the interior point treats as one-sided
+    the other way is ignored by the interior point (its r_prim shows the
+    violation) and held by the polish.  Against the JAX stage solver, whose
+    interior point and polish both take every finite bound, the lanes that
+    accept the polish agree to 1e-8 N and meet every bound."""
+    inputs = _both_cases()
+    lb, ub, moved = _bounds_off_the_one_sided_rows(inputs)
+    parts = _port_parts(inputs, torch.float64)._replace(
+        lb=torch.tensor(lb), ub=torch.tensor(ub))
+    ip = FR.solve_parts_plain(parts, _tcfg(), Q_DIAG, R_DIAG)
+    assert float(ip.r_prim[torch.tensor(moved)].min()) > 0.4
+    kw = dict(mehrotra=False, polish_rounds=8)
+    sqps = [build_stage_qp(*[jnp.asarray(a[k], jnp.float64)
+                             for a in inputs[:5]],
+                           jnp.asarray(I_BODY, jnp.float64),
+                           jnp.asarray(inputs[5][k], jnp.float64), CFG)
+            for k in range(len(inputs[0]))]
+    sqp = jax.tree.map(lambda *xs: jnp.stack(xs), *sqps)
+    sqp = sqp._replace(lb=jnp.asarray(lb), ub=jnp.asarray(ub))
+    solve = jax.jit(riccati.solve_batched, static_argnums=1)
+    sol_j = solve(sqp, SolverConfig(**kw))
+    off_j = solve(sqp, SolverConfig(polish_tol=-1.0, **kw))
+    sol_t = FR.solve_parts_plain(parts, _tcfg(polish_rounds=8), Q_DIAG,
+                                 R_DIAG)
+    off_t = FR.solve_parts_plain(parts, _tcfg(polish_rounds=8,
+                                              polish_tol=-1.0),
+                                 Q_DIAG, R_DIAG)
+    acc_j = (np.asarray(sol_j.u) != np.asarray(off_j.u)).any(axis=1)
+    acc_t = (sol_t.u != off_t.u).any(dim=1).numpy()
+    both = acc_j & acc_t & moved
+    assert both.sum() >= 3
+    np.testing.assert_allclose(sol_t.u.numpy()[both],
+                               np.asarray(sol_j.u)[both], atol=1e-8, rtol=0)
+    assert float(sol_t.r_prim[torch.tensor(both)].max()) < 1e-9
+
+
 def test_plain_polish_meets_qpoases_bar_f32():
     """The bar tests/test_pallas_riccati.py holds the TPU kernel body with
     polish to: within 1e-3 N of the certified optima in pure float32, with a
@@ -267,71 +351,73 @@ def test_kernel_input_checks(fault):
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
-    """Both libraries are built from source at first use: without nvcc each
+    """The library is built from source at first use: without nvcc the
     build raises (no fallback), and so does a launch's lazy build."""
-    monkeypatch.setattr(FR, '_lib', None)
     monkeypatch.setattr(FR, '_warp_lib', None)
     monkeypatch.setattr(FR, 'BUILD_ROOT', tmp_path / 'build')
     monkeypatch.setenv('PATH', str(tmp_path))
     monkeypatch.setenv('CUDA_HOME', str(tmp_path))
     if os.path.exists('/usr/local/cuda/bin/nvcc'):
         pytest.skip('a CUDA toolkit is installed at /usr/local/cuda')
-    for build in (FR.build, FR._warp_kernel_lib, FR._thread_lib):
+    for build in (FR.build, FR._warp_kernel_lib):
         with pytest.raises(RuntimeError, match='nvcc not found'):
             build()
 
 
 def test_kernel_source_and_flags():
-    """sm_90a, IEEE division and sqrt (no fast math), and the source note
-    naming the TPU kernel it replaces."""
-    assert 'arch=compute_90a,code=sm_90a' in FR.NVCC_FLAGS
-    assert not any('fast' in f or 'ftz' in f for f in FR.NVCC_FLAGS)
-    src = FR.SOURCE.read_text()
-    assert 'hector/qp/pallas_riccati.py:_kernel' in src
-    assert 'What bounds it on the card' in src
-    assert 'extern "C"' in src
-    # the polish is a second instantiation of the one body
-    assert 'template <bool POLISH>' in src
-    assert 'fused_riccati_kernel<true>' in src
-    assert 'fused_riccati_kernel<false>' in src
-    assert src.count('newton_dir(d, prm,') == 1      # one call site
-
-
-def test_params_mirror_the_kernel_struct():
-    """_Params must list the fields of FusedRiccatiParams in order, in both
-    sources (one ctypes struct serves both entry points)."""
-    mine = [n.replace('polish_', 'pol_') for n, _ in FR._Params._fields_]
-    for source in (FR.SOURCE, FR.WARP_SOURCE):
-        body = source.read_text().split('struct FusedRiccatiParams {')[1]
-        body = body.split('};')[0]
-        fields = [line.split(';')[0].split() for line in body.splitlines()
-                  if ';' in line]
-        assert mine == [f[-1].split('[')[0] for f in fields], source.name
-        # and the same types and array lengths
-        assert [f[0] for f in fields] == [
-            'int' if t is ctypes.c_int else 'float'
-            for t in (ty._type_ if issubclass(ty, ctypes.Array) else ty
-                      for _, ty in FR._Params._fields_)], source.name
-
-
-def test_warp_kernel_source():
-    """The warp kernel: sm_90a with IEEE division and sqrt, the note naming
-    the TPU kernel it replaces and what bounds it, one newton_dir call site,
-    the plain C entry point the wrapper loads, and no polish."""
+    """sm_90a, IEEE division and sqrt (no fast math), the source note naming
+    the TPU kernel it replaces, and the plain C entry points the wrapper
+    loads."""
     assert 'arch=compute_90a,code=sm_90a' in FR.NVCC_FLAGS
     assert not any('fast' in f or 'ftz' in f for f in FR.NVCC_FLAGS)
     src = FR.WARP_SOURCE.read_text()
     assert 'hector/qp/pallas_riccati.py:_kernel' in src
     assert 'What bounds it on the card' in src
     assert 'extern "C"' in src
-    assert src.count('newton_dir(s, cst, lane);') == 1   # one call site
     for name in ('fused_riccati_warp_solve', 'fused_riccati_warp_attributes',
                  'fused_riccati_warp_error_string'):
         assert f'{name}(' in src
-    assert 'template <bool POLISH>' not in src
-    # the wrapper launches it for polish_rounds == 0 and only then
+
+
+def test_params_mirror_the_kernel_struct():
+    """_Params must list the fields of FusedRiccatiParams in order, with the
+    same types and array lengths."""
+    mine = [n.replace('polish_', 'pol_') for n, _ in FR._Params._fields_]
+    body = FR.WARP_SOURCE.read_text().split('struct FusedRiccatiParams {')[1]
+    body = body.split('};')[0]
+    fields = [line.split(';')[0].split() for line in body.splitlines()
+              if ';' in line]
+    assert mine == [f[-1].split('[')[0] for f in fields]
+    assert [f[0] for f in fields] == [
+        'int' if t is ctypes.c_int else 'float'
+        for t in (ty._type_ if issubclass(ty, ctypes.Array) else ty
+                  for _, ty in FR._Params._fields_)]
+
+
+def test_warp_kernel_source():
+    """One source, one kernel template: the polish is the instantiation
+    <true> of the same body, and both instantiations share one newton_dir
+    call site (a second would inline the sweep twice).  The one-thread
+    kernel is gone, and so is every path of the wrapper that reached it."""
+    src = FR.WARP_SOURCE.read_text()
+    assert 'template <bool POLISH>' in src
+    assert 'fused_riccati_warp_kernel<POLISH>' in src
+    assert 'launch<true>(' in src and 'launch<false>(' in src
+    assert 'attributes<true>(' in src and 'attributes<false>(' in src
+    assert src.count('newton_dir(s, cst, lane);') == 1
+    assert not (FR.WARP_SOURCE.parent / 'fused_riccati.cu').exists()
+    assert sorted(p.name for p in FR.WARP_SOURCE.parent.glob('*.cu')) == [
+        'chol.cu', 'fused_riccati_warp.cu']
+    assert not [n for n in vars(FR) if 'thread' in n.lower()]
+    for gone in ('SOURCE', 'SCRATCH_PER_SCENARIO', '_lib'):
+        assert not hasattr(FR, gone), gone
+    # the wrapper launches the one library for every polish_rounds and
+    # counts the two instantiations apart
     wrapper = inspect.getsource(FR.solve_parts_cuda)
-    assert 'warp=True' in wrapper and 'polish_rounds > 0' in wrapper
+    assert 'polish_launches += 1' in wrapper and 'launches += 1' in wrapper
+    assert 'warp=' not in inspect.getsource(FR)
+    with pytest.raises(ValueError, match="'warp' or 'polish'"):
+        FR.kernel_attributes('thread')
 
 
 def test_work_counts():
