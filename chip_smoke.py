@@ -6,9 +6,10 @@ Phases, one JSON line each:
   build       compile hector_torch/csrc/fused_riccati_warp.cu and chol.cu
               for sm_90a (one nvcc each, both started together) and report
               each kernel's registers, spills, shared memory and (Riccati
-              kernels) resident warps an SM; neither instantiation of the
-              Riccati kernel may use local memory, and the one without
-              polish must keep to 128 registers and 16 warps an SM;
+              and factor kernels) resident warps an SM; neither
+              instantiation of the Riccati kernel and neither factor kernel
+              may use local memory, and the Riccati kernel without polish
+              must keep to 128 registers and 16 warps an SM;
   kernel      the Riccati kernel without polish (the fused interior point,
               one warp a scenario) against its plain PyTorch version on the
               same QPs
@@ -20,7 +21,9 @@ Phases, one JSON line each:
   kernel_time the kernel and its plain version at 32,768 lanes, beside
               the bound;
   check       one planning step on the card against the same step on the CPU
-              (the plain solver) on 256 closed-loop lanes;
+              (the plain solver) on 256 closed-loop lanes, and the same step
+              on the card under backend='riccati_pallas_interpret' (the
+              plain solver on CUDA tensors: no kernel launch);
   main        runtime.plan_step_fn at 32,768 lanes, 16 chained steps as
               bench.py chains them, counting kernel launches;
   loop        runtime.make_rollout for 200 MPC periods (1 s) at 1,024 lanes,
@@ -29,16 +32,29 @@ Phases, one JSON line each:
   chol        the Cholesky factor and solve kernels against their plain
               versions on the KKT matrices the dense interior point meets on
               closed-loop states (at its start and at iteration 5), at 4,096
-              lanes and a ragged 4,099 (the solve also lane by lane against
-              its plain version), with one bad matrix and one NaN QP
-              that must stay alone, and timed at 4,096 beside the plain
-              versions and torch.linalg.cholesky / torch.cholesky_solve;
+              lanes and a ragged 4,099, lane by lane; the register-tile
+              factor against the shared-memory one bit for bit; with one bad
+              matrix and one NaN QP that must stay alone;
+  chol_spd    the factor on seeded random SPD batches at n = 117 (a ragged
+              tile grid), 240 and 288 (the shared-memory kernel's side of
+              the route), lane by lane;
+  chol_time   the factor kernels in turns (register tiles, shared memory,
+              shared memory, register tiles) and the solve at 4,096 lanes,
+              beside the plain versions and torch.linalg.cholesky /
+              torch.cholesky_solve;
   dense       plan_step_fn with backend='dense_auto' at 4,096 lanes, 8
               chained steps: 15 factor and 29 solve launches a step, forces
               against the 'pallas_interpret' run and the fused Riccati run
               on the same states;
   dense_loop  make_rollout with backend='dense_auto', 40 periods at 256
               lanes: no fall, no quarantine;
+  dense_long  mpc.solve with backend='dense_auto' at horizon 24 (n = 288,
+              the shared-memory factor kernel) at 1,024 lanes: 15 factor
+              launches, all on that kernel; the forces no further from a
+              float64 solve of the same QPs than the 'pallas_interpret'
+              run's plus 2e-2 N (at this n the two float32 runs differ by
+              ~0.1 N, while the factor keeps to 1e-4 of a lane's max |L|);
+              the factor lane by lane against its plain version, timed;
   polish      the kernel with polish (polish_rounds=8) against its plain
               version at 4,096 and 4,099 lanes and on the main path's
               32,768 QPs, and with the polish forced to reject (the
@@ -91,7 +107,13 @@ DENSE_CHAIN = 8
 DENSE_LOOP_BATCH = 256
 DENSE_LOOP_PERIODS = 40
 RAGGED_BATCH = 4099
-CHOL_FACTOR_TOL = 1e-4    # max |L_k - L_p| over max |L_p|, lower triangle
+# max |L_k - L_p| over max |L_p|, lower triangle, on every lane
+CHOL_FACTOR_TOL = 1e-4
+# a ragged tile grid; h = 20; above the tile kernel's 248
+SPD_SIZES = (117, 240, 288)
+SPD_BATCH = 1024
+LONG_HORIZON = 24         # n = 288: the dense path on the shared-memory factor
+LONG_BATCH = 1024
 CHOL_SOLVE_TOL = 1e-3     # |L L^T x - rhs|_inf over |rhs|_inf, batch and worst lane
 # |x_k - x_p|_inf over |x_p|_inf, every lane.  The kernel contracts a
 # multiply and a subtract into one FMA, the plain version rounds twice; on the
@@ -194,15 +216,18 @@ def scenarios(batch, seed, device, periods=20):
     return carry, plant, cmd
 
 
-def scenario_problem(batch, seed, device, build):
+def scenario_problem(batch, seed, device, build, cfg=None):
     """The QP one planning step builds from scenarios(), through ``build``
     (mpc.build_parts or mpc.build_dense): the same preamble as
-    runtime.controller_tick up to the QP."""
+    runtime.controller_tick up to the QP.  Under ``cfg`` (default: the
+    default config); a horizon other than the gait's 10 segments takes the
+    gait table on periodically."""
     from hector_torch import control as C, gait as G, mpc as M
-    from hector_torch.config import DEFAULT_CONFIG as CFG, JOINT_OFFSETS
+    from hector_torch.config import DEFAULT_CONFIG, JOINT_OFFSETS
     from hector_torch.kinematics import foot_position
     from hector_torch.runtime import N_SEGMENTS
 
+    CFG = cfg or DEFAULT_CONFIG
     carry, plant, cmd = scenarios(batch, seed, device)
     est = C.estimate_state(plant.position, plant.v_world, plant.quat,
                            plant.omega_world)
@@ -215,6 +240,7 @@ def scenario_problem(batch, seed, device, build):
                                  N_SEGMENTS)
     gait = G.mpc_gait_table(iteration, cmd.gait_offsets, cmd.gait_durations,
                             N_SEGMENTS).to(plant.position.dtype)
+    gait = gait[:, torch.arange(CFG.mpc.horizon, device=device) % N_SEGMENTS]
     _, problem = build(planner, est, q_data, p_foot_w, v_des, cmd.yaw_rate,
                        cmd.roll, cmd.pitch, gait, CFG)
     return problem
@@ -223,6 +249,38 @@ def scenario_problem(batch, seed, device, build):
 def scenario_parts(batch, seed, device):
     from hector_torch import mpc as M
     return scenario_problem(batch, seed, device, M.build_parts)
+
+
+def kkt_matrices(qp, scfg):
+    """The KKT matrices and first right-hand sides the dense interior point
+    hands the factor and solve wrappers over ``scfg.iterations`` iterations
+    (the first factor call has D = 0)."""
+    from hector_torch.qp import chol as CH
+    from hector_torch.qp import pdip as PD
+    seen_m, seen_rhs = [], []
+    factor_fn, solve_fn = CH.cholesky_bnn, CH.cholesky_solve_bnn
+    CH.cholesky_bnn = lambda m: (seen_m.append(m), factor_fn(m))[1]
+    CH.cholesky_solve_bnn = lambda ell, rhs: (
+        seen_rhs.append(rhs), solve_fn(ell, rhs))[1]
+    try:
+        PD.solve_batched(qp, scfg)
+    finally:
+        CH.cholesky_bnn, CH.cholesky_solve_bnn = factor_fn, solve_fn
+    return seen_m, seen_rhs
+
+
+def factor_vs_plain(l_k, m):
+    """The factor held to its plain version: (max |dL| over the lower
+    triangles, max |L_p|, the worst lane's max |dL| over its max |L_p|)."""
+    from hector_torch.qp import chol as CH
+    n = m.shape[1]
+    lower = torch.tril(torch.ones((n, n), dtype=torch.bool, device=m.device))
+    l_p = CH.cholesky_nnb_plain(m.permute(1, 2, 0)).permute(2, 0, 1)
+    all_finite(l_k=l_k, l_p=l_p)
+    d = ((l_k - l_p) * lower).abs().amax((1, 2))
+    scale = l_p.abs().amax((1, 2))
+    return (float(d.max()), float(scale.max()),
+            float((d / scale.clamp(min=1e-30)).max()))
 
 
 def to_cpu(tree):
@@ -246,6 +304,7 @@ def chain(plan, carry, plant, cmd, n, wrenches=None):
 KERNEL_NAMES = (('fused_riccati_warp_kernelILb0E', 'fused_riccati'),
                 ('fused_riccati_warp_kernelILb1E', 'fused_riccati_polish'),
                 ('chol_factor_kernel', 'chol_factor'),
+                ('chol_factor_smem_kernel', 'chol_factor_shared'),
                 ('chol_solve_kernel', 'chol_solve'))
 
 
@@ -397,8 +456,11 @@ def main():
         ptxas.update(parse_ptxas(info.get('ptxas', '')))
     for name, info in (*FR.build_info.items(), ('chol.cu', CH.build_info)):
         nvcc_seconds[name] = info.get('seconds')
+    n = 12 * CFG.mpc.horizon            # the dense path's KKT matrices
     attrs = {'fused_riccati': FR.kernel_attributes('warp'),
-             'fused_riccati_polish': FR.kernel_attributes('polish')}
+             'fused_riccati_polish': FR.kernel_attributes('polish'),
+             'chol_factor': CH.kernel_attributes(n, 'tile'),
+             'chol_factor_shared': CH.kernel_attributes(n, 'shared')}
     emit(dict(phase='build', seconds=build_s, card=card,
               nvcc_seconds=nvcc_seconds, ptxas=ptxas, attributes=attrs))
     for name, attr in attrs.items():
@@ -463,6 +525,21 @@ def main():
               wrench_scale=float(w_cpu.abs().max())))
     if not (math.isfinite(step_err) and step_err <= STEP_TOL):
         raise RuntimeError(f'card vs CPU planning step differs by {step_err}')
+    # the reference's interpreted-kernel name: the plain solver on the card
+    fr_before = FR.launches + FR.polish_launches
+    plan_int = RT.plan_step_fn(
+        with_solver(CFG, backend='riccati_pallas_interpret'))
+    _, w_int, m_int = plan_int(carry, plant, cmd)
+    torch.cuda.synchronize()
+    int_launches = FR.launches + FR.polish_launches - fr_before
+    int_err = max(float((w_int.cpu() - w_cpu).abs().max()),
+                  float((m_int.tau.cpu() - m_cpu.tau).abs().max()))
+    emit(dict(phase='check', batch=256, backend='riccati_pallas_interpret',
+              launches=int_launches, max_abs_diff=int_err))
+    if int_launches or not (math.isfinite(int_err) and int_err <= STEP_TOL):
+        raise RuntimeError(f"'riccati_pallas_interpret' on the card launched "
+                           f'{int_launches} kernels and differs from the CPU '
+                           f'step by {int_err}')
 
     # ---- main path: chained planning steps at full width ----
     plant = srb.init_plant_state(MAIN_BATCH, CFG, device=dev)
@@ -541,27 +618,19 @@ def main():
 
     # ---- Cholesky kernels vs plain versions on the path's KKT matrices ----
     dense_scfg = dataclasses.replace(scfg, backend='auto')
-    n = 12 * CFG.mpc.horizon
     lower = torch.tril(torch.ones((n, n), dtype=torch.bool, device=dev))
     factor_err = solve_err = 0.0
     for batch, seed in ((DENSE_BATCH, 5), (RAGGED_BATCH, 6)):
         qp = scenario_problem(batch, seed, dev, M.build_dense)
         # what the interior point hands the wrappers: the first factor call
         # has D = 0, the last one is iteration 5's
-        seen_m, seen_rhs = [], []
-        factor_fn, solve_fn = CH.cholesky_bnn, CH.cholesky_solve_bnn
-        CH.cholesky_bnn = lambda m: (seen_m.append(m), factor_fn(m))[1]
-        CH.cholesky_solve_bnn = lambda ell, rhs: (
-            seen_rhs.append(rhs), solve_fn(ell, rhs))[1]
-        try:
-            PD.solve_batched(qp, dataclasses.replace(dense_scfg, iterations=6))
-        finally:
-            CH.cholesky_bnn, CH.cholesky_solve_bnn = factor_fn, solve_fn
+        seen_m, seen_rhs = kkt_matrices(
+            qp, dataclasses.replace(dense_scfg, iterations=6))
         for where, m, rhs in (('start', seen_m[0], seen_rhs[0]),
                               ('iteration 5', seen_m[-1], seen_rhs[-1])):
             l_k = CH.cholesky_bnn(m)
+            l_s = CH.factor_shared_cuda(m, torch.empty_like(m))
             x_k = CH.cholesky_solve_bnn(l_k, rhs)
-            l_p = CH.cholesky_nnb_plain(m.permute(1, 2, 0)).permute(2, 0, 1)
             x_p = CH.cholesky_solve_nnb_plain(l_k.permute(1, 2, 0),
                                               rhs.t()).t()
             # the public batch-minor functions are views of the same kernels
@@ -569,10 +638,10 @@ def main():
             l_nnb = CH.cholesky_nnb(m_nnb)
             x_nnb = CH.cholesky_solve_nnb(l_nnb, rhs.t().contiguous())
             torch.cuda.synchronize()
-            all_finite(l_k=l_k, x_k=x_k, l_p=l_p)
-            l_scale = float(l_p.abs().max())
-            d_l = float(((l_k - l_p) * lower).abs().max())
+            all_finite(l_k=l_k, x_k=x_k)
+            d_l, l_scale, d_l_lane = factor_vs_plain(l_k, m)
             upper_nonzero = int((l_k * ~lower).count_nonzero())
+            tile_equals_shared = bool(torch.equal(l_k, l_s))
             l64, x64, r64 = l_k.double(), x_k.double(), rhs.double()
             resid = (l64 @ (l64.transpose(1, 2) @ x64[..., None]))[..., 0] - r64
             resid_rel = float(resid.abs().max()) / float(r64.abs().max())
@@ -591,7 +660,10 @@ def main():
                                and torch.equal(x_nnb.t(), x_k))
             emit(dict(phase='chol', batch=batch, matrices=where,
                       max_abs_dl=d_l, l_scale=l_scale,
-                      rel_dl=d_l / l_scale, upper_nonzero=upper_nonzero,
+                      rel_dl=d_l / l_scale, rel_dl_worst_lane=d_l_lane,
+                      rel_dl_tol=CHOL_FACTOR_TOL,
+                      tile_equals_shared_kernel=tile_equals_shared,
+                      upper_nonzero=upper_nonzero,
                       solve_residual_rel=resid_rel,
                       solve_residual_rel_worst_lane=lane_rel,
                       max_abs_dx_vs_plain=d_x,
@@ -602,12 +674,15 @@ def main():
                           plain=worst_lane(x_p.double(), x_true)),
                       x_scale=float(x_p.abs().max()),
                       nnb_views_equal=views_equal))
-            if d_l > CHOL_FACTOR_TOL * l_scale:
-                raise RuntimeError(f'factor kernel vs plain: {d_l} > '
-                                   f'{CHOL_FACTOR_TOL} * {l_scale}')
+            if not d_l_lane <= CHOL_FACTOR_TOL:
+                raise RuntimeError(f'factor kernel vs plain: {d_l_lane} of a '
+                                   f'lane\'s max |L| > {CHOL_FACTOR_TOL}')
             if upper_nonzero:
                 raise RuntimeError('factor kernel left non-zeros above the '
                                    'diagonal')
+            if not tile_equals_shared:
+                raise RuntimeError('the register-tile and shared-memory '
+                                   'factor kernels disagree')
             if not max(resid_rel, lane_rel) <= CHOL_SOLVE_TOL:
                 raise RuntimeError(f'solve kernel residual {resid_rel} (worst '
                                    f'lane {lane_rel}) > {CHOL_SOLVE_TOL}')
@@ -643,10 +718,61 @@ def main():
                   nan_qp_skipped_and_isolated=qp_skipped))
         if not (lane_alone and qp_skipped):
             raise RuntimeError('a bad lane leaked into its neighbours')
+    del seen_m, seen_rhs, l64, x64, r64, resid, x_true
+    del m_bad, l_bad, sol_ok, sol_bad
+
+    # ---- the factor on random SPD matrices, both sides of the route ----
+    tile_max_n = CH.tile_max_n()
+    shared_err = shared_lane_err = 0.0
+    for size in SPD_SIZES:
+        gen = torch.Generator(device=dev).manual_seed(size)
+        x = torch.randn((SPD_BATCH, size, size), generator=gen, device=dev)
+        m = x @ x.transpose(1, 2) / size + 1e-3 * torch.eye(size, device=dev)
+        # what lies above the diagonal must not be read
+        m = m + 1e3 * torch.triu(torch.randn((SPD_BATCH, size, size),
+                                             generator=gen, device=dev), 1)
+        shared_before = CH.factor_shared_launches
+        l_k = CH.cholesky_bnn(m)
+        routed_shared = CH.factor_shared_launches - shared_before
+        l_s = CH.factor_shared_cuda(m, torch.empty_like(m))
+        l_nnb = CH.cholesky_nnb(m.permute(1, 2, 0).contiguous())
+        torch.cuda.synchronize()
+        d_l, l_scale, d_l_lane = factor_vs_plain(l_k, m)
+        low = torch.tril(torch.ones((size, size), dtype=torch.bool,
+                                    device=dev))
+        upper_nonzero = int((l_k * ~low).count_nonzero())
+        rec = dict(phase='chol_spd', batch=SPD_BATCH, n=size,
+                   kernel='shared' if routed_shared else 'tile',
+                   max_abs_dl=d_l, l_scale=l_scale, rel_dl_worst_lane=d_l_lane,
+                   upper_nonzero=upper_nonzero,
+                   tile_equals_shared_kernel=bool(torch.equal(l_k, l_s)),
+                   nnb_views_equal=bool(torch.equal(l_nnb.permute(2, 0, 1),
+                                                    l_k)))
+        emit(rec)
+        if routed_shared != (size > tile_max_n):
+            raise RuntimeError(f'n = {size} went to the wrong factor kernel')
+        if not (d_l_lane <= CHOL_FACTOR_TOL and upper_nonzero == 0
+                and rec['tile_equals_shared_kernel']
+                and rec['nnb_views_equal']):
+            raise RuntimeError(f'factor kernel at n = {size}: {rec}')
+        if routed_shared:
+            shared_err = max(shared_err, d_l)
+            shared_lane_err = max(shared_lane_err, d_l_lane)
+        else:
+            factor_err = max(factor_err, d_l)
+    del x, m, l_k, l_s, l_nnb
+
+    # ---- the kernels timed: the two factor kernels in turns ----
     m_nnb = m_time.permute(1, 2, 0).contiguous()
     l_nnb = l_time.permute(1, 2, 0).contiguous()
     rhs_nb = rhs_time.t().contiguous()
-    factor_ms = cuda_ms(lambda: CH.cholesky_bnn(m_time), 20)
+    turns = {'tile': [], 'shared': []}
+    for name in ('tile', 'shared', 'shared', 'tile'):
+        fn = (CH.cholesky_bnn if name == 'tile' else
+              lambda mm: CH.factor_shared_cuda(mm, torch.empty_like(mm)))
+        turns[name].append(cuda_ms(lambda: fn(m_time), 20))
+    factor_ms = sum(turns['tile']) / 2
+    factor_shared_ms = sum(turns['shared']) / 2
     solve_ms = cuda_ms(lambda: CH.cholesky_solve_bnn(l_time, rhs_time), 20)
     factor_nnb_ms = cuda_ms(lambda: CH.cholesky_nnb(m_nnb), 5)
     solve_nnb_ms = cuda_ms(lambda: CH.cholesky_solve_nnb(l_nnb, rhs_nb), 5)
@@ -661,43 +787,52 @@ def main():
                        DENSE_BATCH * sum(f_ops.values()))
     s_bound = bound_ms(DENSE_BATCH * CH.solve_bytes(n),
                        DENSE_BATCH * sum(s_ops.values()))
+    tile_attr = attrs['chol_factor']
     emit(dict(phase='chol_time', batch=DENSE_BATCH, n=n,
-              factor=dict(ms=factor_ms, nnb_view_ms=factor_nnb_ms,
+              factor=dict(ms=factor_ms, ms_turns=turns['tile'],
+                          nnb_view_ms=factor_nnb_ms,
+                          shared_kernel_ms=factor_shared_ms,
+                          shared_kernel_ms_turns=turns['shared'],
                           plain_ms=factor_plain_ms, library_ms=factor_lib_ms,
                           bound_ms=f_bound[0], bound_by=f_bound[1],
                           ops_ms=f_bound[2], bytes_ms=f_bound[3],
-                          share_of_bound=f_bound[0] / factor_ms),
+                          share_of_bound=f_bound[0] / factor_ms,
+                          registers=tile_attr['registers'],
+                          threads_per_block=tile_attr['threads_per_block'],
+                          blocks_per_sm=tile_attr['blocks_per_sm'],
+                          shared_kernel_blocks_per_sm=attrs[
+                              'chol_factor_shared']['blocks_per_sm']),
               solve=dict(ms=solve_ms, nnb_view_ms=solve_nnb_ms,
                          plain_ms=solve_plain_ms, library_ms=solve_lib_ms,
                          bound_ms=s_bound[0], bound_by=s_bound[1],
                          ops_ms=s_bound[2], bytes_ms=s_bound[3],
                          share_of_bound=s_bound[0] / solve_ms),
               card=card))
-    del m_nnb, l_nnb, seen_m, seen_rhs, m_time, l_time, l64, x64, r64, resid
-    del x_true
-    del m_bad, l_bad, sol_ok, sol_bad
+    del m_nnb, l_nnb, m_time, l_time
 
     # ---- dense path: chained planning steps through the two kernels ----
     carry, plant, cmd = scenarios(DENSE_BATCH, 7, dev)
     plan_dense = RT.plan_step_fn(with_solver(CFG, backend='dense_auto'))
     chain(plan_dense, carry, plant, cmd, 1)         # warm-up, not counted
     FR.launches = FR.polish_launches = 0
-    CH.factor_launches = CH.solve_launches = 0
+    CH.factor_launches = CH.factor_shared_launches = CH.solve_launches = 0
     w_dense = []
     total_ms, (c, p, wrench, motor) = cuda_timed(
         lambda: chain(plan_dense, carry, plant, cmd, DENSE_CHAIN, w_dense))
     dense_factor_launches = CH.factor_launches
+    dense_shared_launches = CH.factor_shared_launches
     dense_solve_launches = CH.solve_launches
     dense_step_ms = total_ms / DENSE_CHAIN
     want = (DENSE_CHAIN * (scfg.iterations + 1),
             DENSE_CHAIN * (2 * scfg.iterations + 1))
     if ((dense_factor_launches, dense_solve_launches) != want
-            or FR.launches or FR.polish_launches):
+            or dense_shared_launches or FR.launches or FR.polish_launches):
         raise RuntimeError(
             f'dense path launched factor/solve {dense_factor_launches}/'
-            f'{dense_solve_launches} times (and the Riccati kernel '
+            f'{dense_solve_launches} times (the shared-memory factor '
+            f'{dense_shared_launches} times, the Riccati kernel '
             f'{FR.launches + FR.polish_launches} times), expected '
-            f'{want[0]}/{want[1]} (and 0)')
+            f'{want[0]}/{want[1]} (and 0, 0)')
     all_finite(dense_wrench=torch.stack(w_dense), dense_tau=motor.tau,
                dense_f_ff=c.planner.f_ff, dense_position=p.position)
     # the same states through the plain versions and through the fused
@@ -716,6 +851,7 @@ def main():
                   + (2 * scfg.iterations + 1) * solve_ms)
     emit(dict(phase='dense', batch=DENSE_BATCH, chain=DENSE_CHAIN,
               factor_launches=dense_factor_launches,
+              factor_shared_launches=dense_shared_launches,
               solve_launches=dense_solve_launches,
               ms_per_step=dense_step_ms,
               solves_per_s=DENSE_BATCH / dense_step_ms * 1e3,
@@ -771,6 +907,76 @@ def main():
                dense_loop_position=plant.position)
     if not h.min() > 0.4:
         raise RuntimeError('dense loop: a lane collapsed')
+
+    # ---- dense path at a long horizon: the shared-memory factor kernel ----
+    long_cfg = dataclasses.replace(
+        with_solver(CFG, backend='dense_auto'),
+        mpc=dataclasses.replace(CFG.mpc, horizon=LONG_HORIZON))
+    n_long = 12 * LONG_HORIZON
+    qp_long = scenario_problem(LONG_BATCH, 10, dev, M.build_dense, long_cfg)
+    M.solve(qp_long, long_cfg)                      # warm-up, not counted
+    FR.launches = FR.polish_launches = 0
+    CH.factor_launches = CH.factor_shared_launches = CH.solve_launches = 0
+    long_step_ms, sol_long = cuda_timed(lambda: M.solve(qp_long, long_cfg))
+    long_launches = (CH.factor_launches, CH.factor_shared_launches,
+                     CH.solve_launches)
+    want = (scfg.iterations + 1, scfg.iterations + 1,
+            2 * scfg.iterations + 1)
+    if long_launches != want or FR.launches or FR.polish_launches:
+        raise RuntimeError(f'long-horizon dense solve launched factor/'
+                           f'shared factor/solve {long_launches} times, '
+                           f'expected {want}')
+    sol_long_int = M.solve(qp_long, with_solver(long_cfg,
+                                                backend='pallas_interpret'))
+    # the same QPs in float64 (torch.linalg): the answer both float32 runs
+    # are held to
+    qp_long64 = type(qp_long)(*[x.double() for x in qp_long])
+    sol_long64 = M.solve(qp_long64, with_solver(long_cfg, backend='xla'))
+    all_finite(long_u=sol_long.u, long_u64=sol_long64.u)
+
+    def wrench_diff(a, b):
+        return float((a.u[:, :12].double() - b.u[:, :12].double()).abs().max())
+
+    d_long = wrench_diff(sol_long, sol_long_int)
+    d_long_f64 = wrench_diff(sol_long, sol_long64)
+    d_int_f64 = wrench_diff(sol_long_int, sol_long64)
+    seen_m, _ = kkt_matrices(qp_long, dataclasses.replace(
+        long_cfg.solver, backend='auto', iterations=6))
+    for m in (seen_m[0], seen_m[-1]):
+        d_l, _, d_l_lane = factor_vs_plain(CH.cholesky_bnn(m), m)
+        shared_err = max(shared_err, d_l)
+        shared_lane_err = max(shared_lane_err, d_l_lane)
+    m_long = seen_m[-1]
+    m_long_nnb = m_long.permute(1, 2, 0).contiguous()
+    long_factor_ms = cuda_ms(lambda: CH.cholesky_bnn(m_long), 10)
+    long_plain_ms = cuda_ms(lambda: CH.cholesky_nnb_plain(m_long_nnb), 1)
+    long_lib_ms = cuda_ms(lambda: torch.linalg.cholesky(m_long), 5)
+    long_ops = sum(CH.factor_op_count(n_long).values())
+    long_bound = bound_ms(LONG_BATCH * CH.factor_bytes(n_long),
+                          LONG_BATCH * long_ops)
+    emit(dict(phase='dense_long', batch=LONG_BATCH, horizon=LONG_HORIZON,
+              n=n_long, factor_launches=long_launches[0],
+              factor_shared_launches=long_launches[1],
+              solve_launches=long_launches[2], ms_per_solve=long_step_ms,
+              max_abs_vs_pallas_interpret=d_long,
+              max_abs_vs_f64=dict(kernels=d_long_f64,
+                                  pallas_interpret=d_int_f64),
+              factor_max_abs_dl=shared_err,
+              factor_rel_dl_worst_lane=shared_lane_err,
+              factor=dict(ms=long_factor_ms, plain_ms=long_plain_ms,
+                          library_ms=long_lib_ms, bound_ms=long_bound[0],
+                          bound_by=long_bound[1],
+                          share_of_bound=long_bound[0] / long_factor_ms),
+              attributes=CH.kernel_attributes(n_long, 'shared'), card=card))
+    if not d_long_f64 <= d_int_f64 + DENSE_VS_INTERPRET_TOL:
+        raise RuntimeError(f'long-horizon dense solve: {d_long_f64} N from '
+                           f'the float64 solve, the plain versions '
+                           f'{d_int_f64} N')
+    if not shared_lane_err <= CHOL_FACTOR_TOL:
+        raise RuntimeError(f'shared-memory factor vs plain: {shared_lane_err}'
+                           f' of a lane\'s max |L| > {CHOL_FACTOR_TOL}')
+    del seen_m, m, m_long, m_long_nnb, qp_long, sol_long, sol_long_int
+    del qp_long64, sol_long64
 
     # ---- polish: the kernel with polish_rounds=8 vs its plain version ----
     pcfg = dataclasses.replace(scfg, polish_rounds=POLISH_ROUNDS)
@@ -892,6 +1098,13 @@ def main():
              launches=dense_factor_launches, max_abs_err=factor_err,
              ms=factor_ms, plain_ms=factor_plain_ms, bound_ms=f_bound[0],
              bound_by=f_bound[1], library_ms=factor_lib_ms),
+        dict(name='chol_factor_shared', route='cuda',
+             source='hector_torch/csrc/chol.cu',
+             replaces='hector/qp/pallas_chol.py:48',
+             launches=long_launches[1], max_abs_err=shared_err,
+             ms=long_factor_ms, plain_ms=long_plain_ms,
+             bound_ms=long_bound[0], bound_by=long_bound[1],
+             library_ms=long_lib_ms),
         dict(name='chol_solve', route='cuda',
              source='hector_torch/csrc/chol.cu',
              replaces='hector/qp/pallas_chol.py:77',

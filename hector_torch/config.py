@@ -265,7 +265,13 @@ class SolverConfig:
     #                         (hector_torch/qp/fused_riccati.py): the CUDA
     #                         kernel for CUDA tensors, its plain PyTorch
     #                         version for CPU tensors; with polish_rounds > 0
-    #                         the kernel that carries the polish
+    #                         the kernel that carries the polish (the
+    #                         reference's 'auto' on a CPU backend is the
+    #                         Mehrotra 'riccati' instead, which is not ported
+    #                         yet: on CPU tensors the two differ by their
+    #                         float32 floors, a few mN)
+    #   'riccati_pallas_interpret' -> the fused plain version on any device
+    #                         (no kernel launch), with or without the polish
     #   the condensed dense interior point (hector_torch/qp/pdip.py):
     #   'dense_auto' | 'pallas' -> the CUDA Cholesky factor and solve kernels
     #                         (hector_torch/qp/chol.py) for CUDA tensors,

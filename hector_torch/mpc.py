@@ -23,7 +23,11 @@ from .qp.builder import QPData, StageQPParts, build_qp, build_stage_parts
 from .qp import fused_riccati, pdip
 
 # SolverConfig.backend values by the problem form they solve
-RICCATI_BACKENDS = ('auto', 'riccati_pallas')
+RICCATI_BACKENDS = ('auto', 'riccati_pallas', 'riccati_pallas_interpret')
+# not ported yet, with the ROADMAP.md queue item that ports each
+UNPORTED_BACKENDS = {
+    'riccati': "the Mehrotra stage solver, ROADMAP.md queue A item 6",
+    'qpoases': "the qpOASES path, ROADMAP.md queue A item 14"}
 DENSE_BACKENDS = ('dense_auto', 'pallas', 'pallas_interpret', 'xla')
 
 
@@ -159,7 +163,9 @@ def solve(problem, cfg: HectorConfig = DEFAULT_CONFIG):
     'auto' and 'riccati_pallas' run the fused Riccati interior point on
     ``StageQPParts``: the CUDA kernel for CUDA tensors, its plain version
     for CPU tensors, with the active-set polish when
-    ``cfg.solver.polish_rounds > 0``.  'dense_auto', 'pallas',
+    ``cfg.solver.polish_rounds > 0``.  'riccati_pallas_interpret' runs the
+    plain version on any device (the reference runs the Pallas kernel in
+    interpret mode under that name).  'dense_auto', 'pallas',
     'pallas_interpret' and 'xla' run the dense interior point
     (hector_torch/qp/pdip.py) on ``QPData``; 'dense_auto' stands for the
     solver's own 'auto'."""
@@ -172,11 +178,14 @@ def solve(problem, cfg: HectorConfig = DEFAULT_CONFIG):
         if backend == 'dense_auto':
             scfg = dataclasses.replace(scfg, backend='auto')
         return pdip.solve_batched(problem, scfg)
-    if backend not in RICCATI_BACKENDS:
+    if backend in UNPORTED_BACKENDS:
         raise NotImplementedError(
-            f"solver backend {backend!r} is not ported yet: the Mehrotra "
-            f"stage solver ('riccati') is ROADMAP.md queue A item 6, the "
-            f"qpOASES path ('qpoases') queue A item 14")
+            f'solver backend {backend!r} is not ported yet: '
+            f'{UNPORTED_BACKENDS[backend]}')
+    if backend not in RICCATI_BACKENDS:
+        raise ValueError(
+            f'unknown solver backend {backend!r}: one of '
+            f'{RICCATI_BACKENDS + DENSE_BACKENDS}')
     if not isinstance(problem, StageQPParts):
         raise TypeError(f'backend {backend!r} solves StageQPParts '
                         f'(build_parts), got {type(problem).__name__}')
@@ -186,9 +195,12 @@ def solve(problem, cfg: HectorConfig = DEFAULT_CONFIG):
         raise ValueError(
             f'the fused Riccati solver is built for horizon '
             f'{fused_riccati.H}, config has {cfg.mpc.horizon}')
-    return fused_riccati.solve_parts(
-        problem, cfg.solver, q_diag=tuple(cfg.mpc.weights) + (0.0,),
-        r_diag=tuple(cfg.mpc.alpha))
+    solve_parts = (fused_riccati.solve_parts_plain
+                   if backend == 'riccati_pallas_interpret'
+                   else fused_riccati.solve_parts)
+    return solve_parts(problem, cfg.solver,
+                       q_diag=tuple(cfg.mpc.weights) + (0.0,),
+                       r_diag=tuple(cfg.mpc.alpha))
 
 
 def mpc_update(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,

@@ -17,11 +17,17 @@ per iteration.
 - A CUDA tensor launches the kernel (``hector_torch/csrc/chol.cu``, built
   with nvcc at first use into ``hector_torch/_build/``) or raises; a CPU
   tensor runs the plain version.  Nothing falls back from one to the other.
+- The factor has two kernels, chosen by n in the C entry point: register
+  tiles up to ``tile_max_n()`` (248; the interior point's n = 120), the
+  lower triangle in shared memory above it (up to 339).
+  :func:`factor_shared_cuda` launches the shared-memory one at any n, to
+  compare the two on the same matrices.
 - :func:`cholesky_nnb_plain` and :func:`cholesky_solve_nnb_plain` are the
   textbook loops of the TPU kernels over the batch, in any float type.
 
 ``factor_launches`` and ``solve_launches`` count kernel launches (the plain
-versions never touch them).
+versions never touch them); ``factor_shared_launches`` counts the factor
+launches that went to the shared-memory kernel.
 """
 
 from __future__ import annotations
@@ -38,11 +44,13 @@ SOURCE = _PKG / 'csrc' / 'chol.cu'
 BUILD_ROOT = _PKG / '_build'
 NVCC_FLAGS = _nvcc.NVCC_FLAGS
 
-factor_launches = 0     # launches of the factor kernel since import or reset
+factor_launches = 0     # launches of a factor kernel since import or reset
+factor_shared_launches = 0  # of which the shared-memory factor kernel's
 solve_launches = 0      # launches of the solve kernel since import or reset
 build_info = {}         # ptxas report; nvcc command and seconds if built here
 _lib = None
 _max_n = None
+_tile_max_n = None
 
 
 # --------------------------------------------------------------------------
@@ -90,23 +98,43 @@ def cholesky_solve_nnb_plain(l, rhs):
 
 def build():
     """Compile csrc/chol.cu for sm_90a (once) and load it."""
-    global _lib, _max_n
+    global _lib, _max_n, _tile_max_n
     if _lib is not None:
         return _lib
     so, info = _nvcc.compile_shared(SOURCE, BUILD_ROOT, NVCC_FLAGS)
     build_info.update(info)
+    _lib = _load(so)
+    _max_n = _lib.chol_max_n()
+    _tile_max_n = _lib.chol_factor_tile_max_n()
+    return _lib
+
+
+def kernel_variant(defines=()):
+    """csrc/chol.cu built with extra ``-D`` flags (the profiling switches
+    CHOL_PHASE_CLOCKS and CHOL_EXTRA_SMEM) and loaded: (library, build
+    record).  Install the library as ``_lib`` (after :func:`build`) to
+    launch it through the wrappers."""
+    so, info = _nvcc.compile_shared(SOURCE, BUILD_ROOT,
+                                    NVCC_FLAGS + tuple(defines))
+    return _load(so), info
+
+
+def _load(so):
     lib = ctypes.CDLL(str(so))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.chol_factor.argtypes = [ptr, ptr, i32, i32] + [i64] * 6 + [ptr]
-    lib.chol_factor.restype = i32
+    for fn in (lib.chol_factor, lib.chol_factor_shared):
+        fn.argtypes = [ptr, ptr, i32, i32] + [i64] * 6 + [ptr]
+        fn.restype = i32
     lib.chol_solve.argtypes = [ptr, ptr, ptr, i32, i32] + [i64] * 7 + [ptr]
     lib.chol_solve.restype = i32
     lib.chol_error_string.argtypes = [i32]
     lib.chol_error_string.restype = ctypes.c_char_p
-    lib.chol_max_n.argtypes = []
-    lib.chol_max_n.restype = i32
-    _max_n = lib.chol_max_n()
-    _lib = lib
+    for fn in (lib.chol_max_n, lib.chol_factor_tile_max_n):
+        fn.argtypes = []
+        fn.restype = i32
+    lib.chol_factor_attributes.argtypes = (
+        [i32, i32] + [ctypes.POINTER(i32)] * 6)
+    lib.chol_factor_attributes.restype = i32
     return lib
 
 
@@ -158,22 +186,70 @@ def _raise_on(rc, what):
                            f'({_lib.chol_error_string(rc).decode()})')
 
 
-def factor_cuda(m_bnn, l_bnn):
-    """Launch the factor kernel on (B, n, n) views of any dense strides."""
-    global factor_launches
+def tile_max_n():
+    """The largest n the factor gives its register-tile kernel (the library
+    is built at first use)."""
+    build()
+    return _tile_max_n
+
+
+def _factor_launch(entry, m_bnn, l_bnn):
     bsz, n = _dims(m_bnn)
     dev = m_bnn.device
     _check(dev, ('m', m_bnn, (bsz, n, n)), ('l', l_bnn, (bsz, n, n)))
     lib = _library(n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.chol_factor(
+        rc = getattr(lib, entry)(
             m_bnn.data_ptr(), l_bnn.data_ptr(), n, bsz,
             m_bnn.stride(1), m_bnn.stride(2), m_bnn.stride(0),
             l_bnn.stride(1), l_bnn.stride(2), l_bnn.stride(0), stream)
     _raise_on(rc, 'factor')
+    return n
+
+
+def factor_cuda(m_bnn, l_bnn):
+    """Launch the factor on (B, n, n) views of any dense strides: the
+    register-tile kernel for n <= tile_max_n(), the shared-memory kernel
+    above (the C entry point chooses)."""
+    global factor_launches, factor_shared_launches
+    n = _factor_launch('chol_factor', m_bnn, l_bnn)
     factor_launches += 1
+    if n > _tile_max_n:
+        factor_shared_launches += 1
     return l_bnn
+
+
+def factor_shared_cuda(m_bnn, l_bnn):
+    """Launch the shared-memory factor kernel at any n (it computes what
+    :func:`factor_cuda` computes, bit for bit)."""
+    global factor_launches, factor_shared_launches
+    _factor_launch('chol_factor_shared', m_bnn, l_bnn)
+    factor_launches += 1
+    factor_shared_launches += 1
+    return l_bnn
+
+
+def kernel_attributes(n: int = 120, kernel: str = 'tile'):
+    """What cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor report for the factor
+    kernel at n: ``'tile'`` (the one :func:`factor_cuda` launches at n; the
+    shared-memory kernel if n > tile_max_n()) or ``'shared'``."""
+    if kernel not in ('tile', 'shared'):
+        raise ValueError(f"kernel is 'tile' or 'shared', not {kernel!r}")
+    lib = _library(n)
+    vals = [ctypes.c_int() for _ in range(6)]
+    rc = lib.chol_factor_attributes(n, int(kernel == 'shared'),
+                                    *[ctypes.byref(v) for v in vals])
+    if rc != 0:
+        raise RuntimeError(f'chol_factor_attributes failed: CUDA error {rc} '
+                           f'({lib.chol_error_string(rc).decode()})')
+    regs, local, static, dynamic, threads, blocks = [v.value for v in vals]
+    return dict(kernel='tile' if kernel == 'tile' and n <= _tile_max_n
+                else 'shared', n=n, registers=regs, local_bytes=local,
+                static_smem_bytes=static, dynamic_smem_bytes=dynamic,
+                threads_per_block=threads, blocks_per_sm=blocks,
+                warps_per_sm=blocks * threads // 32)
 
 
 def solve_cuda(l_bnn, rhs_bn, x_bn):

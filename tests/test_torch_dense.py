@@ -274,10 +274,16 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         pytest.skip('a CUDA toolkit is installed at /usr/local/cuda')
     with pytest.raises(RuntimeError, match='nvcc not found'):
         chol.build()
+    with pytest.raises(RuntimeError, match='nvcc not found'):
+        chol.kernel_attributes(120, 'tile')
+    with pytest.raises(RuntimeError, match='nvcc not found'):
+        chol.tile_max_n()
+    with pytest.raises(ValueError, match="'tile' or 'shared'"):
+        chol.kernel_attributes(120, 'smem')
 
 
 def test_kernel_source_and_flags():
-    """sm_90a, IEEE division and sqrt (no fast math), both kernels written
+    """sm_90a, IEEE division and sqrt (no fast math), the kernels written
     out, and the source note naming the TPU kernels they replace."""
     assert 'arch=compute_90a,code=sm_90a' in chol.NVCC_FLAGS
     assert not any('fast' in f or 'ftz' in f for f in chol.NVCC_FLAGS)
@@ -285,7 +291,13 @@ def test_kernel_source_and_flags():
     assert 'hector/qp/pallas_chol.py' in src
     assert '_chol_kernel' in src and '_solve_kernel' in src
     assert 'What bounds them on the card' in src
-    assert '__global__ void __launch_bounds__(FACTOR_THREADS) chol_factor_kernel' in src
+    # the register-tile factor, and the shared-memory one above its n; the
+    # C entry point chooses between them by n
+    assert ('__global__ void __launch_bounds__(TILE_MAX_THREADS, 1) '
+            'chol_factor_kernel(') in src
+    assert ('__global__ void __launch_bounds__(FACTOR_THREADS) '
+            'chol_factor_smem_kernel(') in src
+    assert 'if (n <= TILE_MAX_N)' in src
     assert '__global__ void chol_solve_kernel' in src
     assert 'extern "C"' in src
     for banned in ('cusolver', 'cublas', 'rsqrtf'):
