@@ -5,11 +5,10 @@
 Phases, one JSON line each:
   build       compile hector_torch/csrc/fused_riccati_warp.cu and chol.cu
               for sm_90a (one nvcc each, both started together) and report
-              each kernel's registers, spills, shared memory and (Riccati
-              and factor kernels) resident warps an SM; neither
-              instantiation of the Riccati kernel and neither factor kernel
-              may use local memory, and the Riccati kernel without polish
-              must keep to 128 registers and 16 warps an SM;
+              each kernel's registers, spills, shared memory and resident
+              warps an SM; no instantiation of the Riccati kernel and no
+              Cholesky kernel may use local memory, and the Riccati kernel
+              without polish must keep to 128 registers and 16 warps an SM;
   kernel      the Riccati kernel without polish (the fused interior point,
               one warp a scenario) against its plain PyTorch version on the
               same QPs
@@ -33,28 +32,30 @@ Phases, one JSON line each:
               versions on the KKT matrices the dense interior point meets on
               closed-loop states (at its start and at iteration 5), at 4,096
               lanes and a ragged 4,099, lane by lane; the register-tile
-              factor against the shared-memory one bit for bit; with one bad
-              matrix and one NaN QP that must stay alone;
+              factor and solve against the shared-memory ones bit for bit;
+              with one bad matrix and one NaN QP that must stay alone;
   chol_spd    the factor on seeded random SPD batches at n = 117 (a ragged
-              tile grid), 240 and 288 (the shared-memory kernel's side of
-              the route), lane by lane;
+              tile grid), 240 and 288 (the shared-triangle kernel's side of
+              the route), lane by lane, bit for bit the shared-triangle
+              kernel, the route n says (register tiles up to 248);
   chol_time   the factor kernels in turns (register tiles, shared memory,
-              shared memory, register tiles) and the solve at 4,096 lanes,
-              beside the plain versions and torch.linalg.cholesky /
-              torch.cholesky_solve;
+              shared memory, register tiles) and the solve kernels likewise
+              at 4,096 lanes, beside the plain versions and
+              torch.linalg.cholesky / torch.cholesky_solve;
   dense       plan_step_fn with backend='dense_auto' at 4,096 lanes, 8
               chained steps: 15 factor and 29 solve launches a step, forces
               against the 'pallas_interpret' run and the fused Riccati run
               on the same states;
   dense_loop  make_rollout with backend='dense_auto', 40 periods at 256
               lanes: no fall, no quarantine;
-  dense_long  mpc.solve with backend='dense_auto' at horizon 24 (n = 288,
-              the shared-memory factor kernel) at 1,024 lanes: 15 factor
-              launches, all on that kernel; the forces no further from a
+  dense_long  mpc.solve with backend='dense_auto' at horizon 24 (n = 288)
+              at 1,024 lanes: 15 launches of the shared-triangle factor, 29
+              of the shared-memory solve; the forces no further from a
               float64 solve of the same QPs than the 'pallas_interpret'
               run's plus 2e-2 N (at this n the two float32 runs differ by
               ~0.1 N, while the factor keeps to 1e-4 of a lane's max |L|);
-              the factor lane by lane against its plain version, timed;
+              factor and solve lane by lane against their plain versions on
+              the path's KKT matrices; both timed beside the library;
   polish      the kernel with polish (polish_rounds=8) against its plain
               version at 4,096 and 4,099 lanes and on the main path's
               32,768 QPs, and with the polish forced to reject (the
@@ -111,8 +112,9 @@ RAGGED_BATCH = 4099
 CHOL_FACTOR_TOL = 1e-4
 # a ragged tile grid; h = 20; above the tile kernel's 248
 SPD_SIZES = (117, 240, 288)
+TILE_MAX_N = 248          # the register-tile kernels' cut (chol.cu)
 SPD_BATCH = 1024
-LONG_HORIZON = 24         # n = 288: the dense path on the shared-memory factor
+LONG_HORIZON = 24         # n = 288: the dense path on the shared-memory kernels
 LONG_BATCH = 1024
 CHOL_SOLVE_TOL = 1e-3     # |L L^T x - rhs|_inf over |rhs|_inf, batch and worst lane
 # |x_k - x_p|_inf over |x_p|_inf, every lane.  The kernel contracts a
@@ -124,6 +126,11 @@ CHOL_SOLVE_TOL = 1e-3     # |L L^T x - rhs|_inf over |rhs|_inf, batch and worst 
 # is from the float64 solve with the same L (2.4e-4 to 4.7e-4; both are
 # printed): hence the looser bar there.
 CHOL_SOLVE_VS_PLAIN_TOL = {'start': 1e-4, 'iteration 5': 1e-3}
+# The same at the long horizon (n = 288): there the two roundings
+# differ by up to 1.3e-4 of a lane's |x| already on the first KKT matrices
+# (the shared-memory solve at n = 288, 1,024 lanes, H100), so both sets are
+# held to the iteration-5 bar.
+CHOL_SOLVE_VS_PLAIN_TOL_LONG = 1e-3
 DENSE_VS_INTERPRET_TOL = 2e-2   # N, tests/test_qp.py:131 (TPU kernels vs XLA)
 DENSE_VS_RICCATI_TOL = 5e-2     # N, two different float32 interior points
 POLISH_ROUNDS = 8         # what the JAX tests run (tests/test_pallas_riccati.py)
@@ -283,6 +290,19 @@ def factor_vs_plain(l_k, m):
             float((d / scale.clamp(min=1e-30)).max()))
 
 
+CHOL_COUNTS = ('factor', 'factor_shared', 'solve', 'solve_shared')
+
+
+def chol_counts(CH):
+    """The Cholesky wrappers' launch counts, by count name."""
+    return {k: getattr(CH, f'{k}_launches') for k in CHOL_COUNTS}
+
+
+def reset_chol_counts(CH):
+    for k in CHOL_COUNTS:
+        setattr(CH, f'{k}_launches', 0)
+
+
 def to_cpu(tree):
     return type(tree)(*[to_cpu(x) if isinstance(x, tuple) else x.cpu()
                         for x in tree])
@@ -305,7 +325,8 @@ KERNEL_NAMES = (('fused_riccati_warp_kernelILb0E', 'fused_riccati'),
                 ('fused_riccati_warp_kernelILb1E', 'fused_riccati_polish'),
                 ('chol_factor_kernel', 'chol_factor'),
                 ('chol_factor_smem_kernel', 'chol_factor_shared'),
-                ('chol_solve_kernel', 'chol_solve'))
+                ('chol_solve_kernel', 'chol_solve'),
+                ('chol_solve_smem_kernel', 'chol_solve_shared'))
 
 
 def parse_ptxas(text):
@@ -332,6 +353,20 @@ def parse_ptxas(text):
             out[cur]['smem_bytes'] = (int(smem[0].split()[0]) if smem
                                       else 0)
     return out
+
+
+def bit_equal(a, b):
+    """The same float32 bits (so +0 is not -0)."""
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def edge_rhs(rhs):
+    """rhs with lanes of +0, -0, subnormal and huge entries: the register-tile
+    solve's fast divides take the first and fall back to IEEE divides on the
+    others."""
+    zero = torch.zeros_like(rhs[:8])
+    return torch.cat([zero, -zero, rhs[16:24] * 1e-40, rhs[24:32] * 1e25,
+                      rhs[32:]])
 
 
 def all_finite(**named):
@@ -457,10 +492,16 @@ def main():
     for name, info in (*FR.build_info.items(), ('chol.cu', CH.build_info)):
         nvcc_seconds[name] = info.get('seconds')
     n = 12 * CFG.mpc.horizon            # the dense path's KKT matrices
+    n_long = 12 * LONG_HORIZON
+    # each Cholesky kernel at the n of the path it serves
     attrs = {'fused_riccati': FR.kernel_attributes('warp'),
              'fused_riccati_polish': FR.kernel_attributes('polish'),
-             'chol_factor': CH.kernel_attributes(n, 'tile'),
-             'chol_factor_shared': CH.kernel_attributes(n, 'shared')}
+             'chol_factor': CH.kernel_attributes(n, 'factor_tile'),
+             'chol_factor_shared': CH.kernel_attributes(n_long,
+                                                        'factor_shared'),
+             'chol_solve': CH.kernel_attributes(n, 'solve_tile'),
+             'chol_solve_shared': CH.kernel_attributes(n_long,
+                                                       'solve_shared')}
     emit(dict(phase='build', seconds=build_s, card=card,
               nvcc_seconds=nvcc_seconds, ptxas=ptxas, attributes=attrs))
     for name, attr in attrs.items():
@@ -631,6 +672,7 @@ def main():
             l_k = CH.cholesky_bnn(m)
             l_s = CH.factor_shared_cuda(m, torch.empty_like(m))
             x_k = CH.cholesky_solve_bnn(l_k, rhs)
+            x_s = CH.solve_shared_cuda(l_k, rhs, torch.empty_like(rhs))
             x_p = CH.cholesky_solve_nnb_plain(l_k.permute(1, 2, 0),
                                               rhs.t()).t()
             # the public batch-minor functions are views of the same kernels
@@ -641,7 +683,13 @@ def main():
             all_finite(l_k=l_k, x_k=x_k)
             d_l, l_scale, d_l_lane = factor_vs_plain(l_k, m)
             upper_nonzero = int((l_k * ~lower).count_nonzero())
-            tile_equals_shared = bool(torch.equal(l_k, l_s))
+            tile_equals_shared = bit_equal(l_k, l_s)
+            edge = edge_rhs(rhs)
+            solve_tile_equals_shared = (
+                bit_equal(x_k, x_s)
+                and bit_equal(CH.cholesky_solve_bnn(l_k, edge),
+                              CH.solve_shared_cuda(l_k, edge,
+                                                   torch.empty_like(edge))))
             l64, x64, r64 = l_k.double(), x_k.double(), rhs.double()
             resid = (l64 @ (l64.transpose(1, 2) @ x64[..., None]))[..., 0] - r64
             resid_rel = float(resid.abs().max()) / float(r64.abs().max())
@@ -663,6 +711,7 @@ def main():
                       rel_dl=d_l / l_scale, rel_dl_worst_lane=d_l_lane,
                       rel_dl_tol=CHOL_FACTOR_TOL,
                       tile_equals_shared_kernel=tile_equals_shared,
+                      solve_tile_equals_shared_kernel=solve_tile_equals_shared,
                       upper_nonzero=upper_nonzero,
                       solve_residual_rel=resid_rel,
                       solve_residual_rel_worst_lane=lane_rel,
@@ -683,6 +732,10 @@ def main():
             if not tile_equals_shared:
                 raise RuntimeError('the register-tile and shared-memory '
                                    'factor kernels disagree')
+            if not solve_tile_equals_shared:
+                raise RuntimeError('the register-tile and shared-memory '
+                                   'solve kernels disagree (KKT or edge '
+                                   'right-hand sides)')
             if not max(resid_rel, lane_rel) <= CHOL_SOLVE_TOL:
                 raise RuntimeError(f'solve kernel residual {resid_rel} (worst '
                                    f'lane {lane_rel}) > {CHOL_SOLVE_TOL}')
@@ -718,12 +771,11 @@ def main():
                   nan_qp_skipped_and_isolated=qp_skipped))
         if not (lane_alone and qp_skipped):
             raise RuntimeError('a bad lane leaked into its neighbours')
-    del seen_m, seen_rhs, l64, x64, r64, resid, x_true
+    del seen_m, seen_rhs, l64, x64, r64, resid, x_true, x_s, edge
     del m_bad, l_bad, sol_ok, sol_bad
 
     # ---- the factor on random SPD matrices, both sides of the route ----
-    tile_max_n = CH.tile_max_n()
-    shared_err = shared_lane_err = 0.0
+    shared_err = 0.0
     for size in SPD_SIZES:
         gen = torch.Generator(device=dev).manual_seed(size)
         x = torch.randn((SPD_BATCH, size, size), generator=gen, device=dev)
@@ -731,9 +783,7 @@ def main():
         # what lies above the diagonal must not be read
         m = m + 1e3 * torch.triu(torch.randn((SPD_BATCH, size, size),
                                              generator=gen, device=dev), 1)
-        shared_before = CH.factor_shared_launches
         l_k = CH.cholesky_bnn(m)
-        routed_shared = CH.factor_shared_launches - shared_before
         l_s = CH.factor_shared_cuda(m, torch.empty_like(m))
         l_nnb = CH.cholesky_nnb(m.permute(1, 2, 0).contiguous())
         torch.cuda.synchronize()
@@ -741,25 +791,25 @@ def main():
         low = torch.tril(torch.ones((size, size), dtype=torch.bool,
                                     device=dev))
         upper_nonzero = int((l_k * ~low).count_nonzero())
-        rec = dict(phase='chol_spd', batch=SPD_BATCH, n=size,
-                   kernel='shared' if routed_shared else 'tile',
+        kernel = CH.route(size)
+        rec = dict(phase='chol_spd', batch=SPD_BATCH, n=size, kernel=kernel,
                    max_abs_dl=d_l, l_scale=l_scale, rel_dl_worst_lane=d_l_lane,
                    upper_nonzero=upper_nonzero,
-                   tile_equals_shared_kernel=bool(torch.equal(l_k, l_s)),
+                   tile_equals_shared_kernel=bit_equal(l_k, l_s),
                    nnb_views_equal=bool(torch.equal(l_nnb.permute(2, 0, 1),
                                                     l_k)))
         emit(rec)
-        if routed_shared != (size > tile_max_n):
-            raise RuntimeError(f'n = {size} went to the wrong factor kernel')
+        if kernel != ('factor_tile' if size <= TILE_MAX_N
+                      else 'factor_shared'):
+            raise RuntimeError(f'n = {size} goes to {kernel}')
         if not (d_l_lane <= CHOL_FACTOR_TOL and upper_nonzero == 0
                 and rec['tile_equals_shared_kernel']
                 and rec['nnb_views_equal']):
             raise RuntimeError(f'factor kernel at n = {size}: {rec}')
-        if routed_shared:
-            shared_err = max(shared_err, d_l)
-            shared_lane_err = max(shared_lane_err, d_l_lane)
-        else:
+        if kernel == 'factor_tile':
             factor_err = max(factor_err, d_l)
+        else:
+            shared_err = max(shared_err, d_l)
     del x, m, l_k, l_s, l_nnb
 
     # ---- the kernels timed: the two factor kernels in turns ----
@@ -773,7 +823,13 @@ def main():
         turns[name].append(cuda_ms(lambda: fn(m_time), 20))
     factor_ms = sum(turns['tile']) / 2
     factor_shared_ms = sum(turns['shared']) / 2
-    solve_ms = cuda_ms(lambda: CH.cholesky_solve_bnn(l_time, rhs_time), 20)
+    s_turns = {'tile': [], 'shared': []}
+    for name in ('tile', 'shared', 'shared', 'tile'):
+        fn = (CH.cholesky_solve_bnn if name == 'tile' else
+              lambda ell, r: CH.solve_shared_cuda(ell, r, torch.empty_like(r)))
+        s_turns[name].append(cuda_ms(lambda: fn(l_time, rhs_time), 20))
+    solve_ms = sum(s_turns['tile']) / 2
+    solve_shared_ms = sum(s_turns['shared']) / 2
     factor_nnb_ms = cuda_ms(lambda: CH.cholesky_nnb(m_nnb), 5)
     solve_nnb_ms = cuda_ms(lambda: CH.cholesky_solve_nnb(l_nnb, rhs_nb), 5)
     factor_plain_ms = cuda_ms(lambda: CH.cholesky_nnb_plain(m_nnb), 2)
@@ -787,7 +843,7 @@ def main():
                        DENSE_BATCH * sum(f_ops.values()))
     s_bound = bound_ms(DENSE_BATCH * CH.solve_bytes(n),
                        DENSE_BATCH * sum(s_ops.values()))
-    tile_attr = attrs['chol_factor']
+    tile_attr, solve_attr = attrs['chol_factor'], attrs['chol_solve']
     emit(dict(phase='chol_time', batch=DENSE_BATCH, n=n,
               factor=dict(ms=factor_ms, ms_turns=turns['tile'],
                           nnb_view_ms=factor_nnb_ms,
@@ -800,13 +856,21 @@ def main():
                           registers=tile_attr['registers'],
                           threads_per_block=tile_attr['threads_per_block'],
                           blocks_per_sm=tile_attr['blocks_per_sm'],
-                          shared_kernel_blocks_per_sm=attrs[
-                              'chol_factor_shared']['blocks_per_sm']),
-              solve=dict(ms=solve_ms, nnb_view_ms=solve_nnb_ms,
+                          shared_kernel_blocks_per_sm=CH.kernel_attributes(
+                              n, 'factor_shared')['blocks_per_sm']),
+              solve=dict(ms=solve_ms, ms_turns=s_turns['tile'],
+                         nnb_view_ms=solve_nnb_ms,
+                         shared_kernel_ms=solve_shared_ms,
+                         shared_kernel_ms_turns=s_turns['shared'],
                          plain_ms=solve_plain_ms, library_ms=solve_lib_ms,
                          bound_ms=s_bound[0], bound_by=s_bound[1],
                          ops_ms=s_bound[2], bytes_ms=s_bound[3],
-                         share_of_bound=s_bound[0] / solve_ms),
+                         share_of_bound=s_bound[0] / solve_ms,
+                         registers=solve_attr['registers'],
+                         threads_per_block=solve_attr['threads_per_block'],
+                         blocks_per_sm=solve_attr['blocks_per_sm'],
+                         shared_kernel_blocks_per_sm=CH.kernel_attributes(
+                             n, 'solve_shared')['blocks_per_sm']),
               card=card))
     del m_nnb, l_nnb, m_time, l_time
 
@@ -815,22 +879,23 @@ def main():
     plan_dense = RT.plan_step_fn(with_solver(CFG, backend='dense_auto'))
     chain(plan_dense, carry, plant, cmd, 1)         # warm-up, not counted
     FR.launches = FR.polish_launches = 0
-    CH.factor_launches = CH.factor_shared_launches = CH.solve_launches = 0
+    reset_chol_counts(CH)
     w_dense = []
     total_ms, (c, p, wrench, motor) = cuda_timed(
         lambda: chain(plan_dense, carry, plant, cmd, DENSE_CHAIN, w_dense))
     dense_factor_launches = CH.factor_launches
-    dense_shared_launches = CH.factor_shared_launches
+    dense_larger_n_launches = (CH.factor_shared_launches
+                               + CH.solve_shared_launches)
     dense_solve_launches = CH.solve_launches
     dense_step_ms = total_ms / DENSE_CHAIN
     want = (DENSE_CHAIN * (scfg.iterations + 1),
             DENSE_CHAIN * (2 * scfg.iterations + 1))
     if ((dense_factor_launches, dense_solve_launches) != want
-            or dense_shared_launches or FR.launches or FR.polish_launches):
+            or dense_larger_n_launches or FR.launches or FR.polish_launches):
         raise RuntimeError(
             f'dense path launched factor/solve {dense_factor_launches}/'
-            f'{dense_solve_launches} times (the shared-memory factor '
-            f'{dense_shared_launches} times, the Riccati kernel '
+            f'{dense_solve_launches} times (the kernels for a larger n '
+            f'{dense_larger_n_launches} times, the Riccati kernel '
             f'{FR.launches + FR.polish_launches} times), expected '
             f'{want[0]}/{want[1]} (and 0, 0)')
     all_finite(dense_wrench=torch.stack(w_dense), dense_tau=motor.tau,
@@ -851,7 +916,7 @@ def main():
                   + (2 * scfg.iterations + 1) * solve_ms)
     emit(dict(phase='dense', batch=DENSE_BATCH, chain=DENSE_CHAIN,
               factor_launches=dense_factor_launches,
-              factor_shared_launches=dense_shared_launches,
+              larger_n_kernel_launches=dense_larger_n_launches,
               solve_launches=dense_solve_launches,
               ms_per_step=dense_step_ms,
               solves_per_s=DENSE_BATCH / dense_step_ms * 1e3,
@@ -908,24 +973,25 @@ def main():
     if not h.min() > 0.4:
         raise RuntimeError('dense loop: a lane collapsed')
 
-    # ---- dense path at a long horizon: the shared-memory factor kernel ----
+    # ---- dense path at a long horizon: the shared-memory kernels ----
+    def wrench_diff(a, b):
+        return float((a.u[:, :12].double() - b.u[:, :12].double()).abs().max())
+
     long_cfg = dataclasses.replace(
         with_solver(CFG, backend='dense_auto'),
         mpc=dataclasses.replace(CFG.mpc, horizon=LONG_HORIZON))
-    n_long = 12 * LONG_HORIZON
     qp_long = scenario_problem(LONG_BATCH, 10, dev, M.build_dense, long_cfg)
     M.solve(qp_long, long_cfg)                      # warm-up, not counted
     FR.launches = FR.polish_launches = 0
-    CH.factor_launches = CH.factor_shared_launches = CH.solve_launches = 0
+    reset_chol_counts(CH)
     long_step_ms, sol_long = cuda_timed(lambda: M.solve(qp_long, long_cfg))
-    long_launches = (CH.factor_launches, CH.factor_shared_launches,
-                     CH.solve_launches)
-    want = (scfg.iterations + 1, scfg.iterations + 1,
-            2 * scfg.iterations + 1)
+    long_launches = chol_counts(CH)
+    it = scfg.iterations
+    want = dict(factor=it + 1, factor_shared=it + 1, solve=2 * it + 1,
+                solve_shared=2 * it + 1)
     if long_launches != want or FR.launches or FR.polish_launches:
-        raise RuntimeError(f'long-horizon dense solve launched factor/'
-                           f'shared factor/solve {long_launches} times, '
-                           f'expected {want}')
+        raise RuntimeError(f'long-horizon dense solve launched '
+                           f'{long_launches}, expected {want}')
     sol_long_int = M.solve(qp_long, with_solver(long_cfg,
                                                 backend='pallas_interpret'))
     # the same QPs in float64 (torch.linalg): the answer both float32 runs
@@ -933,41 +999,72 @@ def main():
     qp_long64 = type(qp_long)(*[x.double() for x in qp_long])
     sol_long64 = M.solve(qp_long64, with_solver(long_cfg, backend='xla'))
     all_finite(long_u=sol_long.u, long_u64=sol_long64.u)
-
-    def wrench_diff(a, b):
-        return float((a.u[:, :12].double() - b.u[:, :12].double()).abs().max())
-
     d_long = wrench_diff(sol_long, sol_long_int)
     d_long_f64 = wrench_diff(sol_long, sol_long64)
     d_int_f64 = wrench_diff(sol_long_int, sol_long64)
-    seen_m, _ = kkt_matrices(qp_long, dataclasses.replace(
+    del sol_long, sol_long_int, qp_long64, sol_long64
+    # the factor and the solve against their plain versions on the path's
+    # KKT matrices
+    seen_m, seen_rhs = kkt_matrices(qp_long, dataclasses.replace(
         long_cfg.solver, backend='auto', iterations=6))
-    for m in (seen_m[0], seen_m[-1]):
-        d_l, _, d_l_lane = factor_vs_plain(CH.cholesky_bnn(m), m)
+    shared_lane_err = long_solve_err = 0.0
+    long_solve_lane = {}
+    for where, m, rhs in (('start', seen_m[0], seen_rhs[0]),
+                          ('iteration 5', seen_m[-1], seen_rhs[-1])):
+        l_k = CH.cholesky_bnn(m)
+        x_k = CH.cholesky_solve_bnn(l_k, rhs)
+        x_p = CH.cholesky_solve_nnb_plain(l_k.permute(1, 2, 0), rhs.t()).t()
+        all_finite(long_x=x_k)
+        d_l, _, d_l_lane = factor_vs_plain(l_k, m)
         shared_err = max(shared_err, d_l)
         shared_lane_err = max(shared_lane_err, d_l_lane)
-    m_long = seen_m[-1]
+        long_solve_err = max(long_solve_err, float((x_k - x_p).abs().max()))
+        long_solve_lane[where] = float(
+            ((x_k - x_p).abs().amax(1)
+             / x_p.abs().amax(1).clamp(min=1e-30)).max())
+    m_long, rhs_long = seen_m[-1], seen_rhs[-1]
+    del seen_m, seen_rhs, m, rhs, l_k, x_k, x_p
+
+    # timed on iteration 5's matrices beside the plain versions and the
+    # library
     m_long_nnb = m_long.permute(1, 2, 0).contiguous()
     long_factor_ms = cuda_ms(lambda: CH.cholesky_bnn(m_long), 10)
     long_plain_ms = cuda_ms(lambda: CH.cholesky_nnb_plain(m_long_nnb), 1)
     long_lib_ms = cuda_ms(lambda: torch.linalg.cholesky(m_long), 5)
-    long_ops = sum(CH.factor_op_count(n_long).values())
     long_bound = bound_ms(LONG_BATCH * CH.factor_bytes(n_long),
-                          LONG_BATCH * long_ops)
+                          LONG_BATCH * sum(CH.factor_op_count(n_long).values()))
+    l_long = CH.cholesky_bnn(m_long)
+    l_long_nnb = l_long.permute(1, 2, 0).contiguous()
+    rhs_long_nb = rhs_long.t().contiguous()
+    rhs_long_col = rhs_long[..., None].contiguous()
+    long_solve_ms = cuda_ms(lambda: CH.cholesky_solve_bnn(l_long, rhs_long),
+                            10)
+    long_solve_plain_ms = cuda_ms(
+        lambda: CH.cholesky_solve_nnb_plain(l_long_nnb, rhs_long_nb), 1)
+    long_solve_lib_ms = cuda_ms(
+        lambda: torch.cholesky_solve(rhs_long_col, l_long), 5)
+    long_s_bound = bound_ms(LONG_BATCH * CH.solve_bytes(n_long),
+                            LONG_BATCH * sum(CH.solve_op_count(n_long).values()))
     emit(dict(phase='dense_long', batch=LONG_BATCH, horizon=LONG_HORIZON,
-              n=n_long, factor_launches=long_launches[0],
-              factor_shared_launches=long_launches[1],
-              solve_launches=long_launches[2], ms_per_solve=long_step_ms,
+              n=n_long, launches=long_launches, ms_per_solve=long_step_ms,
               max_abs_vs_pallas_interpret=d_long,
               max_abs_vs_f64=dict(kernels=d_long_f64,
                                   pallas_interpret=d_int_f64),
               factor_max_abs_dl=shared_err,
               factor_rel_dl_worst_lane=shared_lane_err,
+              solve_max_abs_dx=long_solve_err,
+              solve_rel_dx_worst_lane=long_solve_lane,
               factor=dict(ms=long_factor_ms, plain_ms=long_plain_ms,
                           library_ms=long_lib_ms, bound_ms=long_bound[0],
                           bound_by=long_bound[1],
-                          share_of_bound=long_bound[0] / long_factor_ms),
-              attributes=CH.kernel_attributes(n_long, 'shared'), card=card))
+                          share_of_bound=long_bound[0] / long_factor_ms,
+                          attributes=attrs['chol_factor_shared']),
+              solve=dict(ms=long_solve_ms, plain_ms=long_solve_plain_ms,
+                         library_ms=long_solve_lib_ms,
+                         bound_ms=long_s_bound[0], bound_by=long_s_bound[1],
+                         share_of_bound=long_s_bound[0] / long_solve_ms,
+                         attributes=attrs['chol_solve_shared']),
+              card=card))
     if not d_long_f64 <= d_int_f64 + DENSE_VS_INTERPRET_TOL:
         raise RuntimeError(f'long-horizon dense solve: {d_long_f64} N from '
                            f'the float64 solve, the plain versions '
@@ -975,8 +1072,13 @@ def main():
     if not shared_lane_err <= CHOL_FACTOR_TOL:
         raise RuntimeError(f'shared-memory factor vs plain: {shared_lane_err}'
                            f' of a lane\'s max |L| > {CHOL_FACTOR_TOL}')
-    del seen_m, m, m_long, m_long_nnb, qp_long, sol_long, sol_long_int
-    del qp_long64, sol_long64
+    for where, v in long_solve_lane.items():
+        if not v <= CHOL_SOLVE_VS_PLAIN_TOL_LONG:
+            raise RuntimeError(f'shared-memory solve vs plain at n = '
+                               f'{n_long} ({where}): {v} of a lane\'s |x| > '
+                               f'{CHOL_SOLVE_VS_PLAIN_TOL_LONG}')
+    del m_long, m_long_nnb, l_long, l_long_nnb, rhs_long, rhs_long_nb
+    del rhs_long_col, qp_long
 
     # ---- polish: the kernel with polish_rounds=8 vs its plain version ----
     pcfg = dataclasses.replace(scfg, polish_rounds=POLISH_ROUNDS)
@@ -1101,7 +1203,7 @@ def main():
         dict(name='chol_factor_shared', route='cuda',
              source='hector_torch/csrc/chol.cu',
              replaces='hector/qp/pallas_chol.py:48',
-             launches=long_launches[1], max_abs_err=shared_err,
+             launches=long_launches['factor_shared'], max_abs_err=shared_err,
              ms=long_factor_ms, plain_ms=long_plain_ms,
              bound_ms=long_bound[0], bound_by=long_bound[1],
              library_ms=long_lib_ms),
@@ -1110,7 +1212,14 @@ def main():
              replaces='hector/qp/pallas_chol.py:77',
              launches=dense_solve_launches, max_abs_err=solve_err,
              ms=solve_ms, plain_ms=solve_plain_ms, bound_ms=s_bound[0],
-             bound_by=s_bound[1], library_ms=solve_lib_ms)]})
+             bound_by=s_bound[1], library_ms=solve_lib_ms),
+        dict(name='chol_solve_shared', route='cuda',
+             source='hector_torch/csrc/chol.cu',
+             replaces='hector/qp/pallas_chol.py:77',
+             launches=long_launches['solve_shared'],
+             max_abs_err=long_solve_err, ms=long_solve_ms,
+             plain_ms=long_solve_plain_ms, bound_ms=long_s_bound[0],
+             bound_by=long_s_bound[1], library_ms=long_solve_lib_ms)]})
     print(card, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,
                                  'count': torch.cuda.device_count()}})

@@ -1,14 +1,15 @@
 // Batched Cholesky factor and Cholesky solve of small SPD matrices (n = 120
-// on the dense interior point's path), one thread block per matrix.  CUDA
-// C++ for sm_90a, plain C entry points (loaded with ctypes by
-// hector_torch/qp/chol.py).
+// on the dense interior point's path, 288 at horizon 24), one thread block
+// per matrix.  CUDA C++ for sm_90a, plain C entry points (loaded with ctypes
+// by hector_torch/qp/chol.py).
 //
 // Replaces the two Pallas TPU kernels of hector/qp/pallas_chol.py:
-//   chol_factor_kernel       <-  _chol_kernel  (:48, pl.pallas_call at :129,
-//   (chol_factor_smem_kernel     reached through cholesky_nnb :114)
-//    for n above 248)
-//   chol_solve_kernel        <-  _solve_kernel (:77, pl.pallas_call at :156,
-//                                reached through cholesky_solve_nnb :146)
+//   chol_factor_kernel         <-  _chol_kernel  (:48, pl.pallas_call at :129,
+//   (chol_factor_smem_kernel       reached through cholesky_nnb :114)
+//    above 248)
+//   chol_solve_kernel          <-  _solve_kernel (:77, pl.pallas_call at :156,
+//   (chol_solve_smem_kernel        reached through cholesky_solve_nnb :146)
+//    above 248)
 // They compute what those compute: the lower Cholesky factor L of each
 // matrix (right-looking, column by column, scaled by the reciprocal square
 // root of the pivot), and x with L L^T x = rhs by forward then back
@@ -19,7 +20,7 @@
 // for n^3/3 = 576 K operations, 6.6 a byte where the card can do 20; a
 // solve reads the 29 KB triangle of L for 2 n^2 = 29 K operations.
 // What stands between these kernels and that bound is the chain of n
-// dependent pivots (factor) or 2n dependent steps (solve), and the on-chip
+// dependent pivots (factor) or 2n dependent divides (solve), and the on-chip
 // traffic of the factor's updates.
 //
 // The TPU kernels put the batch on the 128 lanes and keep a multi-megabyte
@@ -33,41 +34,35 @@
 // cholesky_solve_nnb (loads strided by B: right, slow, used by tests).
 // The grid is the batch: no padding lanes, no identity padding copy.
 //
+// Tiles.  The tile kernels cut the matrix into 8 x 8 tiles, T = ceil(n / 8)
+// tile rows, and number the T (T + 1) / 2 lower tiles down the tile columns
+// (tile (I, J), I >= J).  A ragged edge is padded with an identity (pivot
+// 1, zeros), which never reaches a real entry.  Loads and stores: with a
+// unit column stride, row and batch strides that are multiples of 4,
+// 16-byte aligned pointers and n a multiple of 8 (the (B, 120, 120)
+// tensors of the interior point), each tile row is two 16-byte accesses and
+// no address needs a divide; otherwise element by element, bounds-checked.
+//
 // The factor, n <= 248 (chol_factor_kernel): register tiles.
-//   - The matrix is cut into 8 x 8 tiles, T = ceil(n / 8) tile rows; each
-//     of the T (T + 1) / 2 lower tiles lives in the 64 registers of one
-//     thread for the whole factorization (n = 120: 15 x 15 grid, 120 tiles,
-//     4 warps).  Tiles are numbered down the tile columns, so the work of
-//     a panel sits on the warps of the later columns, not spread as idle
-//     lanes over all of them, and a warp whose columns are final leaves
-//     the panel loop, writes its tiles back and is done (a panel's
-//     barriers count only the warps still in the loop).  A ragged edge is
-//     padded inside the registers with an identity (pivot 1, zeros), which
-//     never reaches a real entry.
+//   - Each lower tile lives in the 64 registers of one thread for the whole
+//     factorization (n = 120: 15 x 15 grid, 120 tiles, 4 warps).  The work
+//     of a panel sits on the warps of the later columns, not spread as idle
+//     lanes over all of them, and a warp whose columns are final leaves the
+//     panel loop, writes its tiles back and is done (a panel's barriers
+//     count only the warps still in the loop).
 //   - Blocked right-looking order, one 8-wide panel at a time: the thread
 //     of the diagonal tile factors it alone in registers and publishes L
 //     and the 8 pivot reciprocals; the threads of the tile column below it
 //     solve their tiles against it and publish the panel (transposed, so
 //     a tile's 8 rows are two float4 reads); every trailing tile then
 //     takes its rank-8 update in registers, 16 shared loads (4 float4)
-//     feeding 64 FMAs a column.  The per-entry shared-memory load, FMA and
-//     store of the earlier shared-triangle kernel become one FMA, and the
-//     barriers drop from 2 a column to 2 a panel (240 -> 28 at n = 120).
+//     feeding 64 FMAs a column.  2 barriers a panel (28 at n = 120).
 //   - The rounding is the column-by-column kernel's, entry by entry: every
 //     entry takes its contributions in column order j = 0, 1, ..., one FMA
 //     each (a -= L[r][j] L[c][j]), then the scaling by the IEEE
 //     1.0f / sqrtf(pivot) of its column.  A panel's contributions are never
 //     summed first.  So the result is the shared-triangle kernel's, bit for
 //     bit, and chip_smoke.py checks that.
-//   - Loads and stores: with a unit column stride, row and batch strides
-//     that are multiples of 4, 16-byte aligned pointers and n a multiple of
-//     8 (the (B, 120, 120) tensors of the interior point), each tile row
-//     is two 16-byte accesses and no address needs a divide; otherwise
-//     element by element, bounds-checked.  Each 32-byte sector is used
-//     whole, but a warp's request spans its 32 tiles, not one line: the
-//     load is 5-12 % of a block's cycles (profile_chol_kernel.py).  The
-//     thread of tile (I, J) also writes the zero tile (J, I) above the
-//     diagonal.
 //   - Registers: __launch_bounds__(512, 1) caps a thread at 128, so at
 //     n = 120 (128 threads) four blocks fit an SM.
 //   - What bounds it now is each block's chain of panels, not bytes: 0.316
@@ -77,17 +72,42 @@
 //     cycles; the four blocks an SM hide part of the chain (held to two,
 //     the kernel is 1.46x slower; profile_chol_kernel.py).
 //
-// The factor, 248 < n <= 339 (chol_factor_smem_kernel): the lower triangle
-// packed in shared memory (row r at r (r + 1) / 2; 229 KB at n = 339),
-// 256 threads sharing each column's rank-1 update, two barriers a column.
-// A register tile grid does not fit there: 946 tiles at n = 339.  The
-// choice is made by n in chol_factor, never on a failure.  It is the
-// kernel the tile kernel replaced on the dense path, and
-// chol_factor_shared launches it at any n so that the two can be compared.
+// The factor, 248 < n <= 339 (chol_factor_smem_kernel; n = 288 at horizon
+// 24): the lower triangle packed in shared memory (row r at r (r + 1) / 2;
+// 229 KB at n = 339), 256 threads sharing each column's rank-1 update, two
+// barriers a column.  chol_factor_shared launches it at any n, so that the
+// register-tile kernel can be held to it bit for bit.
 //
-// The solve (chol_solve_kernel): L's packed lower triangle in shared memory,
-// x[t] in a register of thread t, one x[j] broadcast per step through a
-// double-buffered shared slot: one barrier per step.
+// The solve, n <= 248 (chol_solve_kernel): register tiles, the factor's
+// layout.  One lower tile of L per thread in registers, x and the pivots'
+// reciprocals in shared memory.
+//   - Forward, panel p: the thread of the diagonal tile solves its 8
+//     entries of x in registers and publishes them (barrier); the threads
+//     of tile column p below it each apply x_I -= L_Ip x_p to their own
+//     tile row I, one writer a row (barrier).
+//   - Back, panel p from the last: the diagonal tile solves with L_pp^T
+//     (barrier); the threads of tile row p apply x_J -= L_pJ^T x_p for
+//     J < p (barrier).  x goes out at the end, coalesced.
+//   - 58 barriers at n = 120 against 240 (one a step) in the shared-memory
+//     solve; the divides sit 8 to a thread in one chain, and take the fast
+//     path below, three dependent operations each instead of a divide's.
+//   - Rounding: each entry takes its contributions in the shared-memory
+//     solve's order, one FMA each (forward: columns 0, 1, ..., then the
+//     IEEE divide by the pivot; back: columns in descending order, then the
+//     divide), so x is that kernel's, bit for bit.
+//   - What bounds it: each block's chain of 28 diagonal steps and barriers;
+//     held to 3 and 2 blocks an SM instead of 4 it is 1.3x and 1.7x slower
+//     (profile_chol_kernel.py).  0.124 ms for 4,096 matrices at n = 120
+//     against the 0.037 ms byte bound, the shared-memory solve 0.357 and
+//     torch.cholesky_solve 1.449 (H100 80GB HBM3, 700 W).
+//
+// The solve, n > 248 (chol_solve_smem_kernel): L's packed lower triangle in
+// shared memory, x[t] in a register of thread t, one x[j] broadcast per
+// step through a double-buffered shared slot: one barrier per step.
+// chol_solve_shared launches it at any n.
+//
+// Every kernel is chosen by n in its C entry point (chol_factor_route,
+// chol_solve_route), never on a failure.
 //
 // Floating point: no fast math.  The pivot scale is 1.0f / sqrtf(pivot),
 // both IEEE-rounded, as the plain PyTorch version computes it.  There is no
@@ -101,7 +121,7 @@
 
 namespace {
 
-// ---- register-tile factor ----
+// ---- register tiles (factor and solve) ----
 constexpr int TILE = 8;
 constexpr int TILE_MAX_THREADS = 512;  // 16 warps
 constexpr int TILE_MAX_T = 31;         // 31 * 32 / 2 = 496 tiles <= 512 threads
@@ -110,6 +130,11 @@ constexpr int TILE_MAX_N = TILE * TILE_MAX_T;  // 248
 // ---- shared-triangle factor and solve ----
 constexpr int FACTOR_THREADS = 256;  // 8 warps
 constexpr int FACTOR_ROWS = 4;       // rows a warp updates together
+
+constexpr size_t BLOCK_SMEM_MAX = 232448;  // bytes of shared memory a block may hold
+
+// the kernels, as chol_kernel_attributes and the routes number them
+enum KernelId { FACTOR_TILE, FACTOR_SHARED, SOLVE_TILE, SOLVE_SHARED };
 
 // offset of element (r, c), c <= r, in the packed lower triangle
 __host__ __device__ inline int tri(int r, int c) { return r * (r + 1) / 2 + c; }
@@ -122,11 +147,24 @@ inline size_t smem_bytes(int n) {
 
 __host__ __device__ inline int tile_rows(int n) { return (n + TILE - 1) / TILE; }
 
-// threads of the tile kernel at n: one a lower tile, whole warps
-inline int tile_threads(int n) {
+__host__ __device__ inline int tile_count(int n) {
   const int t = tile_rows(n);
-  return (t * (t + 1) / 2 + 31) / 32 * 32;
+  return t * (t + 1) / 2;
 }
+
+// coordinates (ti, tj) of tile g; tj == nt: none (g past the last tile)
+__device__ __forceinline__ void tile_coords(int g, int nt, int& ti, int& tj) {
+  int first = 0;
+  tj = 0;
+  while (tj < nt && g >= first + nt - tj) {
+    first += nt - tj;
+    ++tj;
+  }
+  ti = tj + g - first;
+}
+
+// threads of the register-tile kernels at n: one a lower tile, whole warps
+inline int tile_threads(int n) { return (tile_count(n) + 31) / 32 * 32; }
 
 constexpr int MAX_DEVICES = 64;
 
@@ -206,12 +244,100 @@ __device__ __forceinline__ void store_tile(float* l, const Tile& a, int n, int t
     }
 }
 
+// Write the final tile (ti, tj) of L and, below the diagonal, the zero tile
+// (tj, ti) above it.
+__device__ __forceinline__ void store_tiles(float* l, const Tile& a, int n, int ti,
+                                            int tj, long long sr, long long sc,
+                                            bool vec) {
+  store_tile(l, a, n, ti, tj, sr, sc, vec, false);
+  if (ti != tj) store_tile(l, a, n, tj, ti, sr, sc, vec, true);
+}
+
+// Eight floats from 16-byte aligned shared memory, and back.
+__device__ __forceinline__ void get8(float (&v)[TILE], const float* s) {
+  const float4 x = reinterpret_cast<const float4*>(s)[0];
+  const float4 y = reinterpret_cast<const float4*>(s)[1];
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+}
+
+__device__ __forceinline__ void put8(float* s, const float (&v)[TILE]) {
+  reinterpret_cast<float4*>(s)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(s)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// Write `a` to shared memory column by column, column k at s + k * ks
+// (s[k * ks + i] = a[i][k]).
+__device__ __forceinline__ void put_cols(float* s, const Tile& a, int ks) {
+#pragma unroll
+  for (int k = 0; k < TILE; ++k) {
+    const float c[TILE] = {a[0][k], a[1][k], a[2][k], a[3][k],
+                           a[4][k], a[5][k], a[6][k], a[7][k]};
+    put8(s + k * ks, c);
+  }
+}
+
+// The factor's three tile steps.  Each entry takes its contributions in
+// column order, one FMA each, then its column's pivot scaling.
+
+// a <- its lower Cholesky factor, column by column (the entries above the
+// diagonal are left as they are); inv[k] <- the 8 pivot reciprocals
+__device__ __forceinline__ void factor_diag(Tile& a, float* inv) {
+#pragma unroll
+  for (int k = 0; k < TILE; ++k) {
+    const float r = 1.0f / sqrtf(a[k][k]);
+#pragma unroll
+    for (int i = k; i < TILE; ++i) a[i][k] *= r;
+#pragma unroll
+    for (int c = k + 1; c < TILE; ++c)
+#pragma unroll
+      for (int i = c; i < TILE; ++i) a[i][c] = fmaf(-a[i][k], a[c][k], a[i][c]);
+    inv[k] = r;
+  }
+}
+
+// a <- a L^-T for the factored diagonal tile L, given column by column
+// (dg[8 k + c] = L[c][k]) with its pivot reciprocals inv
+__device__ __forceinline__ void solve_cols(Tile& a, const float* dg, const float* inv) {
+#pragma unroll
+  for (int k = 0; k < TILE; ++k) {
+    float lk[TILE];
+    get8(lk, dg + k * TILE);
+    const float r = inv[k];
+#pragma unroll
+    for (int i = 0; i < TILE; ++i) a[i][k] *= r;
+#pragma unroll
+    for (int c = k + 1; c < TILE; ++c)
+#pragma unroll
+      for (int i = 0; i < TILE; ++i) a[i][c] = fmaf(-a[i][k], lk[c], a[i][c]);
+  }
+}
+
+// a <- a - X Y^T for two tiles of the panel given column by column, column
+// k of X at x + k * ks and of Y at y + k * ks
+__device__ __forceinline__ void update_rank8(Tile& a, const float* x, const float* y,
+                                             int ks) {
+#pragma unroll
+  for (int k = 0; k < TILE; ++k) {
+    float xk[TILE], yk[TILE];
+    get8(xk, x + k * ks);
+    get8(yk, y + k * ks);
+#pragma unroll
+    for (int i = 0; i < TILE; ++i)
+#pragma unroll
+      for (int c = 0; c < TILE; ++c) a[i][c] = fmaf(-xk[i], yk[c], a[i][c]);
+  }
+}
+
 // Profiling switches, for profile_chol_kernel.py (the default build has
-// neither).  CHOL_PHASE_CLOCKS: the block's last thread, whose warp stays in
-// the panel loop to the end, adds the SM cycles since its last mark to the
-// phase it leaves (g_chol_cycles[CHOL_PHASES] counts the blocks).
-// CHOL_EXTRA_SMEM: bytes of dynamic shared memory the tile kernel's launch
-// asks for and leaves unused, to hold an SM to fewer blocks.
+// none).  CHOL_PHASE_CLOCKS: the register-tile factor block's last thread,
+// whose warp stays in the panel loop to the end, adds the SM cycles since
+// its last mark to the phase it leaves (g_chol_cycles[CHOL_PHASES] counts
+// the blocks).  CHOL_STEP_CLOCKS: thread 0 of each of the first
+// CHOL_STEP_BLOCKS blocks of the register-tile solve writes the SM clock at its start, after each barrier and at its
+// end (g_chol_steps), a timeline of the block's steps.  CHOL_EXTRA_SMEM:
+// bytes of dynamic shared memory the register-tile kernels' launches ask for
+// and leave unused, to hold an SM to fewer blocks.
 #ifdef CHOL_PHASE_CLOCKS
 constexpr int CHOL_PHASES = 7;
 __device__ unsigned long long g_chol_cycles[CHOL_PHASES + 1];
@@ -224,6 +350,19 @@ __device__ unsigned long long g_chol_cycles[CHOL_PHASES + 1];
 #else
 #define PHASE_MARK(i)
 #endif
+#ifdef CHOL_STEP_CLOCKS
+constexpr int CHOL_STEP_BLOCKS = 4096, CHOL_STEPS = 96;
+__device__ long long g_chol_steps[CHOL_STEP_BLOCKS * CHOL_STEPS];
+#define STEP_START int step_ = 0; STEP_MARK
+#define STEP_MARK                                                        \
+  if (threadIdx.x == 0 && blockIdx.x < CHOL_STEP_BLOCKS)                 \
+    g_chol_steps[blockIdx.x * CHOL_STEPS + min(step_, CHOL_STEPS - 1)] = \
+        clock64();                                                       \
+  ++step_;
+#else
+#define STEP_START
+#define STEP_MARK
+#endif
 #ifndef CHOL_EXTRA_SMEM
 #define CHOL_EXTRA_SMEM 0
 #endif
@@ -233,15 +372,6 @@ __device__ unsigned long long g_chol_cycles[CHOL_PHASES + 1];
 // no part.
 __device__ __forceinline__ void bar_sync(int count) {
   asm volatile("bar.sync 1, %0;" ::"r"(count) : "memory");
-}
-
-// Write the final tile (ti, tj) of L and, below the diagonal, the zero tile
-// (tj, ti) above it.
-__device__ __forceinline__ void store_tiles(float* l, const Tile& a, int n, int ti,
-                                            int tj, long long sr, long long sc,
-                                            bool vec) {
-  store_tile(l, a, n, ti, tj, sr, sc, vec, false);
-  if (ti != tj) store_tile(l, a, n, tj, ti, sr, sc, vec, true);
 }
 
 // One block factors one matrix, one lower 8 x 8 tile per thread (n <= 248;
@@ -267,14 +397,10 @@ __global__ void __launch_bounds__(TILE_MAX_THREADS, 1) chol_factor_kernel(
   }
 #endif
 
-  // this thread's tile (ti, tj), numbered down the tile columns; tj == nt:
-  // none (the last warp's spare threads)
-  int tj = 0, first = 0;
-  while (tj < nt && static_cast<int>(threadIdx.x) >= first + nt - tj) {
-    first += nt - tj;
-    ++tj;
-  }
-  const int ti = tj + static_cast<int>(threadIdx.x) - first;
+  // this thread's tile (ti, tj); tj == nt: none (the last warp's spare
+  // threads)
+  int ti, tj;
+  tile_coords(threadIdx.x, nt, ti, tj);
   const bool owns = tj < nt;
   // the last tile column of this thread's warp: its tiles are all final
   // after that panel, and the warp leaves the loop, writes them back and
@@ -294,23 +420,8 @@ __global__ void __launch_bounds__(TILE_MAX_THREADS, 1) chol_factor_kernel(
   for (int p = 0; p <= wlast; ++p) {
     // the diagonal tile, in registers, column by column
     if (owns && ti == p && tj == p) {
-#pragma unroll
-      for (int k = 0; k < TILE; ++k) {
-        const float inv = 1.0f / sqrtf(a[k][k]);
-#pragma unroll
-        for (int i = k; i < TILE; ++i) a[i][k] *= inv;
-#pragma unroll
-        for (int c = k + 1; c < TILE; ++c)
-#pragma unroll
-          for (int i = c; i < TILE; ++i) a[i][c] = fmaf(-a[i][k], a[c][k], a[i][c]);
-        dg[TILE][k] = inv;
-      }
-#pragma unroll
-      for (int k = 0; k < TILE; ++k) {
-        float4* q = reinterpret_cast<float4*>(dg[k]);
-        q[0] = make_float4(a[0][k], a[1][k], a[2][k], a[3][k]);
-        q[1] = make_float4(a[4][k], a[5][k], a[6][k], a[7][k]);
-      }
+      factor_diag(a, dg[TILE]);
+      put_cols(dg[0], a, TILE);
     }
     PHASE_MARK(1);  // diagonal factor
     if (p == nt - 1) break;
@@ -319,44 +430,14 @@ __global__ void __launch_bounds__(TILE_MAX_THREADS, 1) chol_factor_kernel(
     PHASE_MARK(2);  // waiting for the diagonal tile
     // the tile column below it: a <- a L_pp^-T, column by column
     if (owns && tj == p && ti > p) {
-#pragma unroll
-      for (int k = 0; k < TILE; ++k) {
-        const float4* q = reinterpret_cast<const float4*>(dg[k]);
-        const float4 d0 = q[0], d1 = q[1];
-        const float lk[TILE] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-        const float inv = dg[TILE][k];
-#pragma unroll
-        for (int i = 0; i < TILE; ++i) a[i][k] *= inv;
-#pragma unroll
-        for (int c = k + 1; c < TILE; ++c)
-#pragma unroll
-          for (int i = 0; i < TILE; ++i) a[i][c] = fmaf(-a[i][k], lk[c], a[i][c]);
-      }
-#pragma unroll
-      for (int k = 0; k < TILE; ++k) {
-        float4* q = reinterpret_cast<float4*>(&pan[k][ti * TILE]);
-        q[0] = make_float4(a[0][k], a[1][k], a[2][k], a[3][k]);
-        q[1] = make_float4(a[4][k], a[5][k], a[6][k], a[7][k]);
-      }
+      solve_cols(a, dg[0], dg[TILE]);
+      put_cols(&pan[0][ti * TILE], a, TILE_MAX_N);
     }
     PHASE_MARK(3);  // column solve
     bar_sync(active);
     PHASE_MARK(4);  // waiting for the panel
     // the trailing tiles: the panel's rank-8 update, one column at a time
-    if (owns && tj > p) {
-#pragma unroll
-      for (int k = 0; k < TILE; ++k) {
-        const float4* xr = reinterpret_cast<const float4*>(&pan[k][ti * TILE]);
-        const float4* yc = reinterpret_cast<const float4*>(&pan[k][tj * TILE]);
-        const float4 x0 = xr[0], x1 = xr[1], y0 = yc[0], y1 = yc[1];
-        const float x[TILE] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-        const float y[TILE] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
-#pragma unroll
-        for (int i = 0; i < TILE; ++i)
-#pragma unroll
-          for (int c = 0; c < TILE; ++c) a[i][c] = fmaf(-x[i], y[c], a[i][c]);
-      }
-    }
+    if (owns && tj > p) update_rank8(a, &pan[0][ti * TILE], &pan[0][tj * TILE], TILE_MAX_N);
     PHASE_MARK(5);  // trailing update
   }
   if (owns) store_tiles(l, a, n, ti, tj, l_sr, l_sc, vec != 0);
@@ -421,13 +502,191 @@ __global__ void __launch_bounds__(FACTOR_THREADS) chol_factor_smem_kernel(
   }
 }
 
-// One block solves L L^T x = rhs for one matrix; blockDim.x >= n, thread t
-// owns x[t].
-__global__ void chol_solve_kernel(const float* l, const float* rhs, float* x,
-                                  int n, long long l_sr, long long l_sc,
-                                  long long l_sb, long long r_sn,
-                                  long long r_sb, long long x_sn,
-                                  long long x_sb) {
+// The solve's divides.  x / d is IEEE-rounded; with r = 1 / d (IEEE-rounded,
+// computed once per pivot when L is loaded) the FMA correction of x r
+// (Markstein) gives the same quotient in three dependent operations instead
+// of a divide's reciprocal, refinement, range check and branch, as long as
+// no step leaves the normal range: |x| and |d| in [2^-60, 2^60], or x = +0
+// (-0 would come out +0; a subnormal x is off by an ulp).  The fast path
+// collects whether that held for every divide of a tile (`ok`); where it did
+// not, solve_diag_ieee solves the tile again with IEEE divides, so the result
+// is the divide's, bit for bit, always.
+constexpr float DIV_LO = 0x1p-60f, DIV_HI = 0x1p60f;
+
+// (bitwise & and |: with && and || the checks compiled to branches, which
+// made the kernel markedly slower)
+__device__ __forceinline__ bool div_in_range(float x) {
+  const float ax = fabsf(x);
+  return (ax >= DIV_LO) & (ax <= DIV_HI);
+}
+
+__device__ __forceinline__ float fast_divide(float x, float d, float r, bool& ok) {
+  ok &= div_in_range(x) | ((x == 0.0f) & !signbit(x));
+  const float q0 = x * r;
+  return fmaf(fmaf(-d, q0, x), r, q0);
+}
+
+// v <- L^-1 v for the diagonal tile L in a, with rc[i] = 1 / L[i][i]: entry
+// i takes columns 0, 1, ... of its row, one FMA each, then the divide by its
+// pivot.
+__device__ __forceinline__ void forward_diag(float (&v)[TILE], const Tile& a,
+                                             const float (&rc)[TILE], bool& ok) {
+#pragma unroll
+  for (int i = 0; i < TILE; ++i) {
+#pragma unroll
+    for (int k = 0; k < i; ++k) v[i] = fmaf(-a[i][k], v[k], v[i]);
+    v[i] = fast_divide(v[i], a[i][i], rc[i], ok);
+  }
+}
+
+// v <- L^-T v likewise: entry i takes rows 7, 6, ... of its column, then the
+// divide.
+__device__ __forceinline__ void back_diag(float (&v)[TILE], const Tile& a,
+                                          const float (&rc)[TILE], bool& ok) {
+#pragma unroll
+  for (int i = TILE - 1; i >= 0; --i) {
+#pragma unroll
+    for (int k = TILE - 1; k > i; --k) v[i] = fmaf(-a[k][i], v[k], v[i]);
+    v[i] = fast_divide(v[i], a[i][i], rc[i], ok);
+  }
+}
+
+// forward_diag and/or back_diag with IEEE divides, in place on x (shared
+// memory), the tile with first row j0 read from L in device memory: rolled
+// loops, so that the code of the fast path stays small (inlined, the unrolled
+// fallback made the kernel markedly slower without ever running).  Entries past
+// n, which the fast path pads with the identity, add nothing to a real entry
+// and are left as they are (+0).
+__device__ __forceinline__ void solve_diag_ieee(float* x, const float* l, int n,
+                                                int j0, long long sr, long long sc,
+                                                bool fwd, bool back) {
+  const int m = min(TILE, n - j0);
+#pragma unroll 1
+  for (int i = 0; fwd && i < m; ++i) {
+    float v = x[i];
+#pragma unroll 1
+    for (int k = 0; k < i; ++k) v = fmaf(-l[(j0 + i) * sr + (j0 + k) * sc], x[k], v);
+    x[i] = v / l[(j0 + i) * (sr + sc)];
+  }
+#pragma unroll 1
+  for (int i = m - 1; back && i >= 0; --i) {
+    float v = x[i];
+#pragma unroll 1
+    for (int k = m - 1; k > i; --k) v = fmaf(-l[(j0 + k) * sr + (j0 + i) * sc], x[k], v);
+    x[i] = v / l[(j0 + i) * (sr + sc)];
+  }
+}
+
+// The diagonal tile p's 8 entries of x in xs: the forward solve if `fwd`,
+// then the back solve if `back`; fast divides with the pivot reciprocals
+// rcs, and solve_diag_ieee if a fast one was out of range (or a pivot:
+// !rc_ok).
+__device__ __forceinline__ void solve_diag(float* xs, const float* rcs, const Tile& a,
+                                           bool rc_ok, int p, bool fwd, bool back,
+                                           const float* l, int n, long long sr,
+                                           long long sc) {
+  float v[TILE], rc[TILE];
+  get8(v, xs + p * TILE);
+  get8(rc, rcs + p * TILE);
+  bool ok = rc_ok;
+  if (fwd) forward_diag(v, a, rc, ok);
+  if (back) back_diag(v, a, rc, ok);
+  if (ok)
+    put8(xs + p * TILE, v);
+  else
+    solve_diag_ieee(xs + p * TILE, l, n, p * TILE, sr, sc, fwd, back);
+}
+
+// One block solves L L^T x = rhs for one matrix, one lower 8 x 8 tile of L
+// per thread (n <= 248; blockDim.x = tile_threads(n)).  x may alias rhs.
+// `vec` as load_tile.
+__global__ void __launch_bounds__(TILE_MAX_THREADS, 1) chol_solve_kernel(
+    const float* l, const float* rhs, float* x, int n, long long l_sr,
+    long long l_sc, long long l_sb, long long r_sn, long long r_sb,
+    long long x_sn, long long x_sb, int vec) {
+  __shared__ __align__(16) float xs[TILE_MAX_N];   // x, padded with zeros
+  __shared__ __align__(16) float rcs[TILE_MAX_N];  // 1 / L[j][j]
+  const int nt = tile_rows(n);
+  l += static_cast<long long>(blockIdx.x) * l_sb;
+  rhs += static_cast<long long>(blockIdx.x) * r_sb;
+  x += static_cast<long long>(blockIdx.x) * x_sb;
+  STEP_START
+  int ti, tj;
+  tile_coords(threadIdx.x, nt, ti, tj);
+  const bool owns = tj < nt, diag = owns && ti == tj;
+
+  Tile a;
+  if (owns) load_tile(a, l, n, ti, tj, l_sr, l_sc, vec != 0);
+  // the diagonal tile's pivot reciprocals, for the fast divides
+  bool rc_ok = diag;
+  if (diag) {
+    float rc[TILE];
+#pragma unroll
+    for (int i = 0; i < TILE; ++i) {
+      rc_ok &= div_in_range(a[i][i]);
+      rc[i] = 1.0f / a[i][i];
+    }
+    put8(rcs + ti * TILE, rc);
+  }
+  for (int r = threadIdx.x; r < nt * TILE; r += blockDim.x)
+    xs[r] = r < n ? rhs[r * r_sn] : 0.0f;
+  __syncthreads();
+  STEP_MARK
+
+  // Past the edge L is the identity and x stays +0 (in a lane whose x is
+  // finite), so a padded entry's term in a real one, fma(-(+0), +0, v), adds
+  // -0 and leaves v as it is, bit for bit: no loop needs a bound.
+  // forward, L y = rhs: x_p <- L_pp^-1 x_p, then x_I -= L_Ip x_p for I > p
+  for (int p = 0; p < nt - 1; ++p) {
+    if (diag && tj == p) solve_diag(xs, rcs, a, rc_ok, p, true, false, l, n, l_sr, l_sc);
+    __syncthreads();
+    STEP_MARK
+    if (owns && tj == p && ti > p) {
+      float xp[TILE], xi[TILE];
+      get8(xp, xs + p * TILE);
+      get8(xi, xs + ti * TILE);
+#pragma unroll
+      for (int k = 0; k < TILE; ++k)
+#pragma unroll
+        for (int i = 0; i < TILE; ++i) xi[i] = fmaf(-a[i][k], xp[k], xi[i]);
+      put8(xs + ti * TILE, xi);
+    }
+    __syncthreads();
+    STEP_MARK
+  }
+  // back, L^T x = y, from the last panel: x_p <- L_pp^-T x_p, final, then
+  // x_J -= L_pJ^T x_p for J < p
+  for (int p = nt - 1; p >= 0; --p) {
+    if (diag && tj == p)
+      solve_diag(xs, rcs, a, rc_ok, p, p == nt - 1, true, l, n, l_sr, l_sc);
+    __syncthreads();
+    STEP_MARK
+    if (p == 0) break;
+    if (owns && ti == p && tj < p) {
+      float xp[TILE], xj[TILE];
+      get8(xp, xs + p * TILE);
+      get8(xj, xs + tj * TILE);
+#pragma unroll
+      for (int k = TILE - 1; k >= 0; --k)
+#pragma unroll
+        for (int c = 0; c < TILE; ++c) xj[c] = fmaf(-a[k][c], xp[k], xj[c]);
+      put8(xs + tj * TILE, xj);
+    }
+    __syncthreads();
+    STEP_MARK
+  }
+  for (int r = threadIdx.x; r < n; r += blockDim.x) x[r * x_sn] = xs[r];
+  STEP_MARK
+}
+
+// One block solves L L^T x = rhs for one matrix, L's lower triangle in
+// shared memory (any n up to chol_max_n()); blockDim.x >= n, thread t owns
+// x[t].  x may alias rhs.
+__global__ void chol_solve_smem_kernel(const float* l, const float* rhs, float* x,
+                                       int n, long long l_sr, long long l_sc,
+                                       long long l_sb, long long r_sn,
+                                       long long r_sb, long long x_sn,
+                                       long long x_sb) {
   extern __shared__ float smem[];
   float* a = smem;
   float* slot = smem + tri(n, 0);  // slot[j & 1]: x[j] of the current step
@@ -450,7 +709,7 @@ __global__ void chol_solve_kernel(const float* l, const float* rhs, float* x,
       slot[j & 1] = xt;
     }
     __syncthreads();
-    if (t > j && t < n) xt -= a[tri(t, j)] * slot[j & 1];
+    if (t > j && t < n) xt = fmaf(-a[tri(t, j)], slot[j & 1], xt);
   }
   // back: x[j] = x[j] / L[j][j]; x[t] -= L[j][t] x[j] for t < j
   for (int j = n - 1; j >= 0; --j) {
@@ -459,19 +718,22 @@ __global__ void chol_solve_kernel(const float* l, const float* rhs, float* x,
       slot[j & 1] = xt;
     }
     __syncthreads();
-    if (t < j) xt -= a[tri(j, t)] * slot[j & 1];
+    if (t < j) xt = fmaf(-a[tri(j, t)], slot[j & 1], xt);
   }
   if (t < n) x[t * x_sn] = xt;
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
+// Whether the tile kernels may move the tiles of a as float4: see load_tile.
+bool vec_ok(int n, long long sr, long long sc, long long sb, const void* a) {
+  return n % TILE == 0 && sc == 1 && sr % 4 == 0 && sb % 4 == 0 && aligned16(a);
+}
+
 int launch_tile(const float* m, float* l, int n, int batch, long long m_sr,
                 long long m_sc, long long m_sb, long long l_sr, long long l_sc,
                 long long l_sb, cudaStream_t stream) {
-  const bool vec = n % TILE == 0 && m_sc == 1 && l_sc == 1 && m_sr % 4 == 0 &&
-                   l_sr % 4 == 0 && m_sb % 4 == 0 && l_sb % 4 == 0 &&
-                   aligned16(m) && aligned16(l);
+  const bool vec = vec_ok(n, m_sr, m_sc, m_sb, m) && vec_ok(n, l_sr, l_sc, l_sb, l);
   if (CHOL_EXTRA_SMEM > 0) {
     static int have[MAX_DEVICES] = {};
     const cudaError_t err = ensure_smem(chol_factor_kernel, have, CHOL_EXTRA_SMEM);
@@ -494,40 +756,98 @@ int launch_smem(const float* m, float* l, int n, int batch, long long m_sr,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_solve_tile(const float* l, const float* rhs, float* x, int n, int batch,
+                      long long l_sr, long long l_sc, long long l_sb,
+                      long long r_sn, long long r_sb, long long x_sn,
+                      long long x_sb, cudaStream_t stream) {
+  const bool vec = vec_ok(n, l_sr, l_sc, l_sb, l);
+  if (CHOL_EXTRA_SMEM > 0) {
+    static int have[MAX_DEVICES] = {};
+    const cudaError_t err = ensure_smem(chol_solve_kernel, have, CHOL_EXTRA_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  chol_solve_kernel<<<batch, tile_threads(n), CHOL_EXTRA_SMEM, stream>>>(
+      l, rhs, x, n, l_sr, l_sc, l_sb, r_sn, r_sb, x_sn, x_sb, vec ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int solve_smem_threads(int n) { return (n + 31) / 32 * 32; }
+
+int launch_solve_smem(const float* l, const float* rhs, float* x, int n, int batch,
+                      long long l_sr, long long l_sc, long long l_sb,
+                      long long r_sn, long long r_sb, long long x_sn,
+                      long long x_sb, cudaStream_t stream) {
+  const size_t smem = smem_bytes(n);
+  static int have[MAX_DEVICES] = {};
+  const cudaError_t err = ensure_smem(chol_solve_smem_kernel, have, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  chol_solve_smem_kernel<<<batch, solve_smem_threads(n), smem, stream>>>(
+      l, rhs, x, n, l_sr, l_sc, l_sb, r_sn, r_sb, x_sn, x_sb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What `kernel` is compiled to (registers, local bytes, static shared
+// bytes) and, launched at n as its entry point launches it (threads, dynamic
+// shared bytes), how many of its blocks an SM holds.
+template <class K>
+int attributes(K kernel, int threads, size_t dyn, int (&have)[MAX_DEVICES],
+               int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = ensure_smem(kernel, have, dyn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int nb = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel, threads, dyn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes);
+  out[3] = static_cast<int>(dyn);
+  out[4] = threads;
+  out[5] = nb;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Largest n the kernels take: the matrix must fit a block's shared memory
-// (the shared-triangle factor and the solve).  Asked once, when the library
-// is loaded.
+// (the shared-triangle factor and the shared-memory solve).  Asked once,
+// when the library is loaded.
 int chol_max_n() {
   int n = 1;
-  while (smem_bytes(n + 1) <= 232448) ++n;
+  while (smem_bytes(n + 1) <= BLOCK_SMEM_MAX) ++n;
   return n;
 }
 
-// Largest n chol_factor gives the register-tile kernel; above it, the
-// shared-triangle kernel.
+// Largest n chol_factor and chol_solve give their register-tile kernels;
+// above it, the shared-memory ones.
 int chol_factor_tile_max_n() { return TILE_MAX_N; }
+
+// The kernel chol_factor launches at n: FACTOR_TILE or FACTOR_SHARED.
+int chol_factor_route(int n) { return n <= TILE_MAX_N ? FACTOR_TILE : FACTOR_SHARED; }
+
+// The kernel chol_solve launches at n: SOLVE_TILE or SOLVE_SHARED.
+int chol_solve_route(int n) { return n <= TILE_MAX_N ? SOLVE_TILE : SOLVE_SHARED; }
 
 // Factor `batch` matrices on `stream`.  Element (r, c) of matrix b is at
 // m[r * m_sr + c * m_sc + b * m_sb] (strides in elements); l likewise, and
-// l may be m.  n <= chol_factor_tile_max_n() launches the register-tile
-// kernel, a larger n the shared-triangle kernel.  Returns the CUDA error of
-// the launch (0 = launched).
+// l may be m.  The kernel is chol_factor_route(n)'s.  Returns the CUDA error
+// of the launch (0 = launched).
 int chol_factor(const float* m, float* l, int n, int batch, long long m_sr,
                 long long m_sc, long long m_sb, long long l_sr, long long l_sc,
                 long long l_sb, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= TILE_MAX_N)
+  if (chol_factor_route(n) == FACTOR_TILE)
     return launch_tile(m, l, n, batch, m_sr, m_sc, m_sb, l_sr, l_sc, l_sb, st);
   return launch_smem(m, l, n, batch, m_sr, m_sc, m_sb, l_sr, l_sc, l_sb, st);
 }
 
 // chol_factor through the shared-triangle kernel at any n (to compare the
-// two kernels on the same matrices).
+// kernels on the same matrices).
 int chol_factor_shared(const float* m, float* l, int n, int batch,
                        long long m_sr, long long m_sc, long long m_sb,
                        long long l_sr, long long l_sc, long long l_sb,
@@ -537,59 +857,67 @@ int chol_factor_shared(const float* m, float* l, int n, int batch,
                      static_cast<cudaStream_t>(stream));
 }
 
-// What the factor kernel that takes n (the shared-triangle kernel if
-// `shared` is not 0) is compiled to and how many of its blocks of that n
-// an SM holds: registers a thread, local bytes a thread, static and dynamic
-// shared bytes a block, threads a block, blocks an SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-int chol_factor_attributes(int n, int shared, int* num_regs, int* local_bytes,
-                           int* static_smem, int* dynamic_smem, int* threads,
-                           int* blocks_per_sm) {
-  const bool tile = !shared && n <= TILE_MAX_N;
-  cudaFuncAttributes fa;
-  cudaError_t err = tile ? cudaFuncGetAttributes(&fa, chol_factor_kernel)
-                         : cudaFuncGetAttributes(&fa, chol_factor_smem_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int nthreads = tile ? tile_threads(n) : FACTOR_THREADS;
-  const size_t dyn = tile ? CHOL_EXTRA_SMEM : smem_bytes(n);
-  static int have_tile[MAX_DEVICES] = {}, have_smem[MAX_DEVICES] = {};
-  err = tile ? ensure_smem(chol_factor_kernel, have_tile, dyn)
-             : ensure_smem(chol_factor_smem_kernel, have_smem, dyn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int nb = 0;
-  err = tile ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, chol_factor_kernel,
-                                                             nthreads, dyn)
-             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                   &nb, chol_factor_smem_kernel, nthreads, dyn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *num_regs = fa.numRegs;
-  *local_bytes = static_cast<int>(fa.localSizeBytes);
-  *static_smem = static_cast<int>(fa.sharedSizeBytes);
-  *dynamic_smem = static_cast<int>(dyn);
-  *threads = nthreads;
-  *blocks_per_sm = nb;
-  return 0;
-}
-
 // Solve L L^T x = rhs for `batch` matrices on `stream`; rhs element t of
-// matrix b at rhs[t * r_sn + b * r_sb], x likewise.
+// matrix b at rhs[t * r_sn + b * r_sb], x likewise, and x may be rhs.  The
+// kernel is chol_solve_route(n)'s.
 int chol_solve(const float* l, const float* rhs, float* x, int n, int batch,
                long long l_sr, long long l_sc, long long l_sb, long long r_sn,
                long long r_sb, long long x_sn, long long x_sb, void* stream) {
   if (batch <= 0 || n <= 0) return 0;
-  const size_t smem = smem_bytes(n);
-  static int have[MAX_DEVICES] = {};
-  cudaError_t err = ensure_smem(chol_solve_kernel, have, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = ((n + 31) / 32) * 32;
-  chol_solve_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      l, rhs, x, n, l_sr, l_sc, l_sb, r_sn, r_sb, x_sn, x_sb);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (chol_solve_route(n) == SOLVE_TILE)
+    return launch_solve_tile(l, rhs, x, n, batch, l_sr, l_sc, l_sb, r_sn, r_sb,
+                             x_sn, x_sb, st);
+  return launch_solve_smem(l, rhs, x, n, batch, l_sr, l_sc, l_sb, r_sn, r_sb,
+                           x_sn, x_sb, st);
+}
+
+// chol_solve through the shared-memory kernel at any n (to compare the two
+// solve kernels on the same matrices).
+int chol_solve_shared(const float* l, const float* rhs, float* x, int n, int batch,
+                      long long l_sr, long long l_sc, long long l_sb,
+                      long long r_sn, long long r_sb, long long x_sn,
+                      long long x_sb, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  return launch_solve_smem(l, rhs, x, n, batch, l_sr, l_sc, l_sb, r_sn, r_sb,
+                           x_sn, x_sb, static_cast<cudaStream_t>(stream));
+}
+
+// What kernel `kernel` (FACTOR_TILE ... SOLVE_SHARED) is compiled to and how
+// many of its blocks of that n an SM holds: out[0..5] = registers a thread,
+// local bytes a thread, static and dynamic shared bytes a block, threads a
+// block, blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+int chol_kernel_attributes(int kernel, int n, int* out) {
+  static int have[SOLVE_SHARED + 1][MAX_DEVICES] = {};
+  switch (kernel) {
+    case FACTOR_TILE:
+      return attributes(chol_factor_kernel, tile_threads(n), CHOL_EXTRA_SMEM,
+                        have[kernel], out);
+    case FACTOR_SHARED:
+      return attributes(chol_factor_smem_kernel, FACTOR_THREADS, smem_bytes(n),
+                        have[kernel], out);
+    case SOLVE_TILE:
+      return attributes(chol_solve_kernel, tile_threads(n), CHOL_EXTRA_SMEM,
+                        have[kernel], out);
+    case SOLVE_SHARED:
+      return attributes(chol_solve_smem_kernel, solve_smem_threads(n),
+                        smem_bytes(n), have[kernel], out);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* chol_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#ifdef CHOL_STEP_CLOCKS
+// The timelines g_chol_steps of the last launch of the register-tile solve:
+// out[b * CHOL_STEPS + i], the SM clock at step i of block b < 4096.
+int chol_step_clocks(long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_chol_steps, sizeof(g_chol_steps)));
+}
+#endif
 
 #ifdef CHOL_PHASE_CLOCKS
 // The tile kernel's cycles by phase since the last call, summed over the

@@ -17,17 +17,19 @@ per iteration.
 - A CUDA tensor launches the kernel (``hector_torch/csrc/chol.cu``, built
   with nvcc at first use into ``hector_torch/_build/``) or raises; a CPU
   tensor runs the plain version.  Nothing falls back from one to the other.
-- The factor has two kernels, chosen by n in the C entry point: register
-  tiles up to ``tile_max_n()`` (248; the interior point's n = 120), the
-  lower triangle in shared memory above it (up to 339).
-  :func:`factor_shared_cuda` launches the shared-memory one at any n, to
-  compare the two on the same matrices.
+- Each kernel is chosen by n in the C entry point (:func:`route`): the
+  factor and the solve on register tiles up to ``tile_max_n()`` (248; the
+  interior point's n = 120), on the lower triangle in shared memory above
+  it (up to 339; n = 288 at horizon 24). :func:`factor_shared_cuda` and
+  :func:`solve_shared_cuda` launch the shared-memory kernels at any n, to
+  hold the tile kernels to them on the same matrices.
 - :func:`cholesky_nnb_plain` and :func:`cholesky_solve_nnb_plain` are the
   textbook loops of the TPU kernels over the batch, in any float type.
 
 ``factor_launches`` and ``solve_launches`` count kernel launches (the plain
-versions never touch them); ``factor_shared_launches`` counts the factor
-launches that went to the shared-memory kernel.
+versions never touch them); ``factor_shared_launches`` and
+``solve_shared_launches`` count those of them that went to the
+shared-memory kernels.
 """
 
 from __future__ import annotations
@@ -44,9 +46,13 @@ SOURCE = _PKG / 'csrc' / 'chol.cu'
 BUILD_ROOT = _PKG / '_build'
 NVCC_FLAGS = _nvcc.NVCC_FLAGS
 
+# the kernels of csrc/chol.cu, numbered as its KernelId
+KERNELS = ('factor_tile', 'factor_shared', 'solve_tile', 'solve_shared')
+
 factor_launches = 0     # launches of a factor kernel since import or reset
-factor_shared_launches = 0  # of which the shared-memory factor kernel's
-solve_launches = 0      # launches of the solve kernel since import or reset
+factor_shared_launches = 0  # of which the shared-triangle factor kernel's
+solve_launches = 0      # launches of a solve kernel since import or reset
+solve_shared_launches = 0   # of which the shared-memory solve kernel's
 build_info = {}         # ptxas report; nvcc command and seconds if built here
 _lib = None
 _max_n = None
@@ -111,7 +117,7 @@ def build():
 
 def kernel_variant(defines=()):
     """csrc/chol.cu built with extra ``-D`` flags (the profiling switches
-    CHOL_PHASE_CLOCKS and CHOL_EXTRA_SMEM) and loaded: (library, build
+    CHOL_PHASE_CLOCKS, CHOL_STEP_CLOCKS and CHOL_EXTRA_SMEM) and loaded: (library, build
     record).  Install the library as ``_lib`` (after :func:`build`) to
     launch it through the wrappers."""
     so, info = _nvcc.compile_shared(SOURCE, BUILD_ROOT,
@@ -125,16 +131,19 @@ def _load(so):
     for fn in (lib.chol_factor, lib.chol_factor_shared):
         fn.argtypes = [ptr, ptr, i32, i32] + [i64] * 6 + [ptr]
         fn.restype = i32
-    lib.chol_solve.argtypes = [ptr, ptr, ptr, i32, i32] + [i64] * 7 + [ptr]
-    lib.chol_solve.restype = i32
+    for fn in (lib.chol_solve, lib.chol_solve_shared):
+        fn.argtypes = [ptr, ptr, ptr, i32, i32] + [i64] * 7 + [ptr]
+        fn.restype = i32
     lib.chol_error_string.argtypes = [i32]
     lib.chol_error_string.restype = ctypes.c_char_p
     for fn in (lib.chol_max_n, lib.chol_factor_tile_max_n):
         fn.argtypes = []
         fn.restype = i32
-    lib.chol_factor_attributes.argtypes = (
-        [i32, i32] + [ctypes.POINTER(i32)] * 6)
-    lib.chol_factor_attributes.restype = i32
+    for fn in (lib.chol_factor_route, lib.chol_solve_route):
+        fn.argtypes = [i32]
+        fn.restype = i32
+    lib.chol_kernel_attributes.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.chol_kernel_attributes.restype = i32
     return lib
 
 
@@ -187,10 +196,20 @@ def _raise_on(rc, what):
 
 
 def tile_max_n():
-    """The largest n the factor gives its register-tile kernel (the library
-    is built at first use)."""
+    """The largest n the factor and the solve give their register-tile
+    kernels (the library is built at first use)."""
     build()
     return _tile_max_n
+
+
+def route(n: int, op: str = 'factor'):
+    """The kernel (a name of :data:`KERNELS`) that the C entry point of
+    ``op`` ('factor' or 'solve') launches at n: the one it decides by."""
+    if op not in ('factor', 'solve'):
+        raise ValueError(f"op is 'factor' or 'solve', not {op!r}")
+    lib = build()
+    fn = lib.chol_factor_route if op == 'factor' else lib.chol_solve_route
+    return KERNELS[fn(n)]
 
 
 def _factor_launch(entry, m_bnn, l_bnn):
@@ -209,19 +228,18 @@ def _factor_launch(entry, m_bnn, l_bnn):
 
 
 def factor_cuda(m_bnn, l_bnn):
-    """Launch the factor on (B, n, n) views of any dense strides: the
-    register-tile kernel for n <= tile_max_n(), the shared-memory kernel
-    above (the C entry point chooses)."""
+    """Launch the factor on (B, n, n) views of any dense strides: the kernel
+    of ``route(n)`` (the C entry point chooses by n)."""
     global factor_launches, factor_shared_launches
     n = _factor_launch('chol_factor', m_bnn, l_bnn)
     factor_launches += 1
-    if n > _tile_max_n:
-        factor_shared_launches += 1
+    factor_shared_launches += (KERNELS[_lib.chol_factor_route(n)]
+                               == 'factor_shared')
     return l_bnn
 
 
 def factor_shared_cuda(m_bnn, l_bnn):
-    """Launch the shared-memory factor kernel at any n (it computes what
+    """Launch the shared-triangle factor kernel at any n (it computes what
     :func:`factor_cuda` computes, bit for bit)."""
     global factor_launches, factor_shared_launches
     _factor_launch('chol_factor_shared', m_bnn, l_bnn)
@@ -230,31 +248,27 @@ def factor_shared_cuda(m_bnn, l_bnn):
     return l_bnn
 
 
-def kernel_attributes(n: int = 120, kernel: str = 'tile'):
+def kernel_attributes(n: int = 120, kernel: str = 'factor_tile'):
     """What cudaFuncGetAttributes and
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor report for the factor
-    kernel at n: ``'tile'`` (the one :func:`factor_cuda` launches at n; the
-    shared-memory kernel if n > tile_max_n()) or ``'shared'``."""
-    if kernel not in ('tile', 'shared'):
-        raise ValueError(f"kernel is 'tile' or 'shared', not {kernel!r}")
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor report for ``kernel`` (a
+    name of :data:`KERNELS`) launched at n as its entry point launches it
+    (threads, dynamic shared memory)."""
+    if kernel not in KERNELS:
+        raise ValueError(f'kernel is one of {KERNELS}, not {kernel!r}')
     lib = _library(n)
-    vals = [ctypes.c_int() for _ in range(6)]
-    rc = lib.chol_factor_attributes(n, int(kernel == 'shared'),
-                                    *[ctypes.byref(v) for v in vals])
+    vals = (ctypes.c_int * 6)()
+    rc = lib.chol_kernel_attributes(KERNELS.index(kernel), n, vals)
     if rc != 0:
-        raise RuntimeError(f'chol_factor_attributes failed: CUDA error {rc} '
+        raise RuntimeError(f'chol_kernel_attributes failed: CUDA error {rc} '
                            f'({lib.chol_error_string(rc).decode()})')
-    regs, local, static, dynamic, threads, blocks = [v.value for v in vals]
-    return dict(kernel='tile' if kernel == 'tile' and n <= _tile_max_n
-                else 'shared', n=n, registers=regs, local_bytes=local,
+    regs, local, static, dynamic, threads, blocks = list(vals)
+    return dict(kernel=kernel, n=n, registers=regs, local_bytes=local,
                 static_smem_bytes=static, dynamic_smem_bytes=dynamic,
                 threads_per_block=threads, blocks_per_sm=blocks,
                 warps_per_sm=blocks * threads // 32)
 
 
-def solve_cuda(l_bnn, rhs_bn, x_bn):
-    """Launch the solve kernel on (B, n, n) / (B, n) views."""
-    global solve_launches
+def _solve_launch(entry, l_bnn, rhs_bn, x_bn):
     bsz, n = _dims(l_bnn)
     dev = l_bnn.device
     _check(dev, ('l', l_bnn, (bsz, n, n)), ('rhs', rhs_bn, (bsz, n)),
@@ -262,13 +276,33 @@ def solve_cuda(l_bnn, rhs_bn, x_bn):
     lib = _library(n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.chol_solve(
+        rc = getattr(lib, entry)(
             l_bnn.data_ptr(), rhs_bn.data_ptr(), x_bn.data_ptr(), n, bsz,
             l_bnn.stride(1), l_bnn.stride(2), l_bnn.stride(0),
             rhs_bn.stride(1), rhs_bn.stride(0),
             x_bn.stride(1), x_bn.stride(0), stream)
     _raise_on(rc, 'solve')
+    return n
+
+
+def solve_cuda(l_bnn, rhs_bn, x_bn):
+    """Launch the solve on (B, n, n) / (B, n) views: the kernel of
+    ``route(n, 'solve')``."""
+    global solve_launches, solve_shared_launches
+    n = _solve_launch('chol_solve', l_bnn, rhs_bn, x_bn)
     solve_launches += 1
+    solve_shared_launches += (KERNELS[_lib.chol_solve_route(n)]
+                              == 'solve_shared')
+    return x_bn
+
+
+def solve_shared_cuda(l_bnn, rhs_bn, x_bn):
+    """Launch the shared-memory solve kernel at any n (it computes what
+    :func:`solve_cuda` computes, bit for bit)."""
+    global solve_launches, solve_shared_launches
+    _solve_launch('chol_solve_shared', l_bnn, rhs_bn, x_bn)
+    solve_launches += 1
+    solve_shared_launches += 1
     return x_bn
 
 

@@ -1,18 +1,21 @@
-"""Where the time of the register-tile Cholesky factor goes, on one NVIDIA GPU.
+"""Where the time of the Cholesky tile kernels goes, on one NVIDIA GPU.
 
     python3 profile_chol_kernel.py
 
-Profiles chol_factor_kernel (hector_torch/csrc/chol.cu) on the KKT matrices
-of chip_smoke.py's chol phase (4,096 closed-loop lanes, n = 120, iteration
-5 of the dense interior point).  Builds the source four ways: as the port
-runs it; with -DCHOL_PHASE_CLOCKS (clock64 marks of the block's last warp,
-the one that stays in the panel loop to the end); and with
--DCHOL_EXTRA_SMEM set so that an SM holds 2 and 1 blocks instead of 4.
-Each build is held to the shared-memory factor kernel bit for bit, then
-the production build and the two capped ones are timed in turns (A B C C B
-A) with CUDA events, and the production build at 132 and 528 lanes (one
-block an SM; one full wave).  Prints one JSON line per build, the phase
-shares, the card's name and power limit, and {"ok": true, ...} last.
+Profiles chol_factor_kernel and chol_solve_kernel (hector_torch/csrc/chol.cu)
+on the KKT matrices of chip_smoke.py's chol phase (4,096 closed-loop lanes,
+n = 120, iteration 5 of the dense interior point).  Builds the source five
+ways: as the port runs it; with -DCHOL_PHASE_CLOCKS (clock64 marks of the
+factor block's last warp, the one that stays in the panel loop to the end);
+with -DCHOL_STEP_CLOCKS (the SM clock of each block of the solve after each
+barrier: a timeline of its panels); and with -DCHOL_EXTRA_SMEM set so
+that an SM holds fewer blocks of each tile kernel (the factor 2 and 1
+instead of 4, the solve 3 and 2).  Each build's kernels are held to the
+shared-memory kernels bit for bit, then the production build and the two
+capped ones are timed in turns (A B C C B A) with CUDA events, and the
+production build at 132 and 528 lanes (one block an SM; one full wave).
+Prints one JSON line per build, the phase shares, the timelines, the
+card's name and power limit, and {"ok": true, ...} last.
 
 How to read it: if the time grows as 1 / blocks an SM when the SM holds
 fewer, the blocks' own chains (latency) bound the kernel; if it does not
@@ -32,9 +35,11 @@ import chip_smoke as CS
 
 BATCH = 4096
 REPS = 20
-# the tile kernel's block: 8,224 B static shared memory and 1 KB reserved;
-# with these unused dynamic bytes 2 and 1 of them fit an SM's 228 KB
-EXTRA_SMEM = {'2 blocks an SM': 70000, '1 block an SM': 110000}
+# unused dynamic bytes a block of either tile kernel asks for: with the
+# factor's 8,224 B of static shared memory and 1 KB reserved, 2 and 1 of its
+# blocks fit an SM's 228 KB; of the solve's (1,984 B), 3 and 2
+EXTRA_SMEM = {'capped 70,000 B': 70000, 'capped 110,000 B': 110000}
+STEP_BLOCKS, STEPS = 4096, 96   # chol.cu's CHOL_STEP_BLOCKS, CHOL_STEPS
 PHASES = ('load', 'diagonal factor', 'waiting for the diagonal tile',
           'column solve', 'waiting for the panel', 'trailing update',
           'store')
@@ -53,39 +58,49 @@ def main():
     production = CH.build()
     builds = {'production': (production, CH.build_info)}
     builds['phase clocks'] = CH.kernel_variant(('-DCHOL_PHASE_CLOCKS',))
+    builds['step clocks'] = CH.kernel_variant(('-DCHOL_STEP_CLOCKS',))
     for name, extra in EXTRA_SMEM.items():
         builds[name] = CH.kernel_variant((f'-DCHOL_EXTRA_SMEM={extra}',))
     qp = CS.scenario_problem(BATCH, 5, dev, M.build_dense)
-    seen_m, _ = CS.kkt_matrices(qp, dataclasses.replace(
+    seen_m, seen_rhs = CS.kkt_matrices(qp, dataclasses.replace(
         CFG.solver, backend='auto', iterations=6))
-    m = seen_m[-1]
+    m, rhs = seen_m[-1], seen_rhs[-1]
     n = m.shape[1]
     ref = CH.factor_shared_cuda(m, torch.empty_like(m))
+    x_ref = CH.solve_shared_cuda(ref, rhs, torch.empty_like(rhs))
 
-    def run(lib, mm):
+    def with_lib(lib, fn):
         CH._lib = lib
         try:
-            return CH.cholesky_bnn(mm)
+            return fn()
         finally:
             CH._lib = production
 
+    def factor(lib, b=BATCH):
+        return with_lib(lib, lambda: CH.cholesky_bnn(m[:b]))
+
+    def solve(lib, b=BATCH):
+        return with_lib(lib, lambda: CH.cholesky_solve_bnn(ref[:b], rhs[:b]))
+
     times = {}
     for name, (lib, info) in builds.items():
-        if not torch.equal(run(lib, m), ref):
-            raise RuntimeError(f'{name}: the factor differs from the '
-                               f'shared-memory kernel')
-        CH._lib = lib
-        attr = CH.kernel_attributes(n, 'tile')
-        CH._lib = production
+        if not (CS.bit_equal(factor(lib), ref)
+                and CS.bit_equal(solve(lib), x_ref)):
+            raise RuntimeError(f'{name}: the factor or the solve differs '
+                               f'from the shared-memory kernels')
+        attr = {k: with_lib(lib, lambda: CH.kernel_attributes(n, k))
+                for k in ('factor_tile', 'solve_tile')}
         used = [ln.strip() for ln in info.get('ptxas', '').splitlines()
-                if 'chol_factor_kernel' in ln or 'Used' in ln]
+                if 'Used' in ln]
         CS.emit(dict(build=name, attributes=attr, ptxas=used))
-        times[name] = []
+        times[name] = {'factor': [], 'solve': []}
     timed = ['production', *EXTRA_SMEM]
     for name in timed + timed[::-1]:
         lib = builds[name][0]
-        times[name].append(CS.cuda_ms(lambda: run(lib, m), REPS))
-    by_batch = {b: CS.cuda_ms(lambda: run(production, m[:b]), REPS)
+        times[name]['factor'].append(CS.cuda_ms(lambda: factor(lib), REPS))
+        times[name]['solve'].append(CS.cuda_ms(lambda: solve(lib), REPS))
+    by_batch = {b: {'factor': CS.cuda_ms(lambda: factor(production, b), REPS),
+                    'solve': CS.cuda_ms(lambda: solve(production, b), REPS)}
                 for b in (132, 528, BATCH)}
     CS.emit(dict(batch=BATCH, n=n, ms_turns={k: times[k] for k in timed},
                  ms_by_batch=by_batch, card=card))
@@ -95,11 +110,11 @@ def main():
     clocks.chol_phase_cycles.restype = ctypes.c_int
     out = (ctypes.c_ulonglong * (len(PHASES) + 1))()
     for b in (132, BATCH):
-        run(clocks, m[:b])                       # warm-up
+        factor(clocks, b)                        # warm-up
         torch.cuda.synchronize()
         if clocks.chol_phase_cycles(out) != 0:
             raise RuntimeError('chol_phase_cycles failed')
-        run(clocks, m[:b])
+        factor(clocks, b)
         torch.cuda.synchronize()
         if clocks.chol_phase_cycles(out) != 0:
             raise RuntimeError('chol_phase_cycles failed')
@@ -112,6 +127,38 @@ def main():
                          p: c / blocks for p, c in zip(PHASES, cyc)},
                      phase_share={p: c / total
                                   for p, c in zip(PHASES, cyc)}))
+
+    # timelines: thread 0 of each block marks the SM clock after each
+    # barrier; the mean over the blocks of each step, grouped by phase
+    steps = builds['step clocks'][0]
+    steps.chol_step_clocks.argtypes = [ctypes.c_void_p]
+    steps.chol_step_clocks.restype = ctypes.c_int
+
+    def timeline(fn, blocks, used):
+        """Run fn; (mean cycles a block, mean cycles of each of its
+        used - 1 steps)."""
+        fn()
+        torch.cuda.synchronize()
+        buf = torch.zeros((STEP_BLOCKS, STEPS), dtype=torch.int64)
+        if steps.chol_step_clocks(buf.data_ptr()) != 0:
+            raise RuntimeError('chol_step_clocks failed')
+        marks = buf[:blocks, :used].double()
+        return ((marks[:, -1] - marks[:, 0]).mean().item(),
+                (marks[:, 1:] - marks[:, :-1]).mean(0).tolist())
+
+    nt = -(-n // 8)
+    # marks: start, load, 2 a panel forward and back but 1 for the first
+    # panel's back diagonal, end
+    total, d = timeline(lambda: solve(steps), BATCH, 4 * nt)
+    # load; the forward sweep's steps; the back sweep's; the store.  The
+    # marking thread's clock can slip across a panel's two barriers once
+    # its warp is idle, so only whole sweeps and panels are summed.
+    groups = {'load': d[0], 'forward sweep': sum(d[1:2 * nt - 1]),
+              'back sweep': sum(d[2 * nt - 1:4 * nt - 2]),
+              'store': d[4 * nt - 2]}
+    CS.emit(dict(kernel='chol_solve_kernel', batch=BATCH, n=n,
+                 cycles_per_block=total, phase_cycles_per_block=groups,
+                 step_cycles=[round(x) for x in d]))
     print(card, flush=True)
     CS.emit({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

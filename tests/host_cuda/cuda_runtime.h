@@ -17,6 +17,7 @@
 
 using std::max;
 using std::min;
+using std::signbit;
 
 #define __global__
 #define __device__
@@ -39,6 +40,7 @@ inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c,
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr int cudaSuccess = 0;
+constexpr int cudaErrorInvalidValue = 1;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 struct cudaFuncAttributes {
   int numRegs;

@@ -4,11 +4,13 @@ the CPU.
 ``hector_torch/csrc/chol.cu`` runs only on the card, where chip_smoke.py
 holds it to its plain versions.  Here g++ builds the same source against
 ``tests/host_cuda/cuda_runtime.h`` (threads of a block as std::threads,
-barriers as std::barrier), so that the register-tile factor's tile mapping,
-panel order, barrier counts, ragged edges, strides and aliasing are checked
-on every run: against ``chol.cholesky_nnb_plain`` lane by lane, and against
-the shared-memory factor kernel bit for bit (both take the same FMAs in the
-same order).  Speed says nothing here.
+barriers as std::barrier), so that the tile kernels' tile mapping, panel
+order, barrier counts, ragged edges, strides, aliasing and routes by n are
+checked on every run: against ``chol.cholesky_nnb_plain`` and
+``chol.cholesky_solve_nnb_plain`` lane by lane, and against the
+shared-memory kernels bit for bit (each pair takes the same FMAs in the same
+order; ``-ffp-contract=off`` keeps g++ from fusing any other).  Speed says
+nothing here.
 """
 
 import ctypes
@@ -26,8 +28,55 @@ from hector_torch.qp import chol
 torch.set_num_threads(1)
 
 SHIM = Path(__file__).resolve().parent / 'host_cuda'
+# Appended to the host build of chol.cu (the same translation unit, so it
+# reaches the solve's fast_divide): every significand of d in [1, 2) at two
+# exponents, against 4 seeded dividends each in and around the fast range,
+# plus signed zeros and subnormals.  Counts the pairs the fast path takes,
+# those where its quotient is not the IEEE divide's, and the pairs it must
+# refuse (-0, subnormal, out of range) but takes.
+FAST_DIVIDE_CHECK = r"""
+#include <cstdint>
+#include <cstring>
+extern "C" void fast_divide_check(long long* out) {
+  auto bits = [](uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; };
+  auto same = [](float a, float b) { return std::memcmp(&a, &b, 4) == 0; };
+  uint64_t state = 12345;
+  auto next = [&]() { state = state * 6364136223846793005ULL + 1442695040888963407ULL;
+                      return static_cast<uint32_t>(state >> 33); };
+  long long taken = 0, wrong = 0, unsafe = 0;
+  for (uint32_t m = 0; m < (1u << 23); ++m) {
+    for (int e : {-40, 7}) {
+      const float d = std::ldexp(bits(0x3f800000u | m), e);
+      const float r = 1.0f / d;
+      for (int k = 0; k < 4; ++k) {
+        const float x = std::ldexp(bits(0x3f800000u | (next() & 0x7fffff)),
+                                   static_cast<int>(next() % 120) - 60);
+        for (float xs : {x, -x}) {
+          bool ok = true;
+          const float q = fast_divide(xs, d, r, ok);
+          if (!ok) continue;
+          ++taken;
+          if (!same(q, xs / d)) ++wrong;
+        }
+      }
+      for (float xs : {0.0f, -0.0f, 1e-40f, 0x1p61f}) {
+        bool ok = true;
+        const float q = fast_divide(xs, d, r, ok);
+        if (ok && !same(q, xs / d)) ++wrong;
+        if (ok && xs != 0.0f) ++unsafe;
+        if (ok && std::signbit(xs)) ++unsafe;
+      }
+    }
+  }
+  out[0] = taken; out[1] = wrong; out[2] = unsafe;
+}
+"""
 # max |L_k - L_p| over max |L_p| on every lane: chip_smoke.CHOL_FACTOR_TOL
 FACTOR_TOL = 1e-4
+# max |x_k - x_p| over max |x_p| on every lane: chip_smoke's bar on the
+# first KKT matrices
+SOLVE_TOL = 1e-4
+TILE_MAX_N = 248
 
 
 def _host_source():
@@ -35,14 +84,15 @@ def _host_source():
     stand-in: dynamic shared memory, the kernel launch, the counting
     barrier."""
     src = chol.SOURCE.read_text()
-    src = src.replace('extern __shared__ float smem[];',
-                      'float* smem = host_smem();')
+    src = re.sub(r'extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];',
+                 r'float* \1 = host_smem();', src)
     src = re.sub(r'(\w+)<<<(.+?)>>>\(',
                  lambda m: f'host_launch({m.group(1)}, {m.group(2)}, ', src,
                  flags=re.S)
     src = src.replace('asm volatile("bar.sync 1, %0;" ::"r"(count) : "memory");',
                       'host_bar_sync(count);')
-    assert 'asm volatile' not in src and '<<<' not in src
+    assert ('asm volatile' not in src and '<<<' not in src
+            and 'extern __shared__' not in src)
     return src
 
 
@@ -53,7 +103,7 @@ def lib(tmp_path_factory):
         pytest.skip('no g++ to build the host stand-in')
     out = tmp_path_factory.mktemp('chol_host')
     cpp = out / 'chol_host.cpp'
-    cpp.write_text(_host_source())
+    cpp.write_text(_host_source() + FAST_DIVIDE_CHECK)
     so = out / 'libchol_host.so'
     subprocess.run([gxx, '-std=c++20', '-O1', '-ffp-contract=off', '-shared',
                     '-fPIC', '-pthread', f'-I{SHIM}', '-o', str(so),
@@ -63,10 +113,16 @@ def lib(tmp_path_factory):
     for fn in (lib.chol_factor, lib.chol_factor_shared):
         fn.argtypes = [ptr, ptr, i32, i32] + [i64] * 6 + [ptr]
         fn.restype = i32
-    lib.chol_solve.argtypes = [ptr, ptr, ptr, i32, i32] + [i64] * 7 + [ptr]
-    lib.chol_solve.restype = i32
+    for fn in (lib.chol_solve, lib.chol_solve_shared):
+        fn.argtypes = [ptr, ptr, ptr, i32, i32] + [i64] * 7 + [ptr]
+        fn.restype = i32
     lib.chol_factor_tile_max_n.argtypes = []
     lib.chol_factor_tile_max_n.restype = i32
+    for fn in (lib.chol_factor_route, lib.chol_solve_route):
+        fn.argtypes = [i32]
+        fn.restype = i32
+    lib.fast_divide_check.argtypes = [ptr]
+    lib.fast_divide_check.restype = None
     return lib
 
 
@@ -76,6 +132,15 @@ def _factor(fn, m_bnn, l_bnn):
               m_bnn.stride(1), m_bnn.stride(2), m_bnn.stride(0),
               l_bnn.stride(1), l_bnn.stride(2), l_bnn.stride(0), None) == 0
     return l_bnn
+
+
+def _solve(fn, l_bnn, rhs_bn, x_bn):
+    bsz, n, _ = l_bnn.shape
+    assert fn(l_bnn.data_ptr(), rhs_bn.data_ptr(), x_bn.data_ptr(), n, bsz,
+              l_bnn.stride(1), l_bnn.stride(2), l_bnn.stride(0),
+              rhs_bn.stride(1), rhs_bn.stride(0), x_bn.stride(1),
+              x_bn.stride(0), None) == 0
+    return x_bn
 
 
 def _spd(bsz, n, seed):
@@ -97,9 +162,11 @@ def _lane_rel(l_k, l_p):
 
 # 1 and 8: one tile; 7, 17, 117: ragged tile grids; 64: two full warps;
 # 120: the interior point's n; 249: above the tile kernel's 248, the
-# shared-memory kernel
-@pytest.mark.parametrize('n', [1, 7, 8, 17, 64, 117, 120, 249])
+# shared-memory kernel; 288: that kernel at horizon 24
+@pytest.mark.parametrize('n', [1, 7, 8, 17, 64, 117, 120, 249, 288])
 def test_factor_matches_plain_and_the_shared_kernel(lib, n):
+    want = 'factor_tile' if n <= TILE_MAX_N else 'factor_shared'
+    assert chol.KERNELS[lib.chol_factor_route(n)] == want
     m = _spd(3, n, seed=n)
     l_k = _factor(lib.chol_factor, m, torch.full_like(m, float('nan')))
     l_s = _factor(lib.chol_factor_shared, m, torch.full_like(m, float('nan')))
@@ -111,12 +178,10 @@ def test_factor_matches_plain_and_the_shared_kernel(lib, n):
     assert torch.equal(l_k, l_s)
 
 
-def test_factor_views_aliasing_and_a_bad_lane(lib):
+def _factor_views_aliasing_and_a_bad_lane(lib, n):
     """The batch-minor (n, n, B) view (strided, element by element) gives
     the (B, n, n) result bit for bit; m and l may alias; a matrix that is not
     positive definite goes non-finite alone."""
-    n = 40
-    assert lib.chol_factor_tile_max_n() == 248
     m = _spd(4, n, seed=1)
     l_k = _factor(lib.chol_factor, m, torch.empty_like(m))
     m_nnb = m.permute(1, 2, 0).contiguous()
@@ -131,6 +196,16 @@ def test_factor_views_aliasing_and_a_bad_lane(lib):
     l_bad = _factor(lib.chol_factor, bad, torch.empty_like(bad))
     assert not torch.isfinite(l_bad[2]).all()
     assert torch.equal(l_bad[[0, 1, 3]], l_k[[0, 1, 3]])
+
+
+def test_factor_views_aliasing_and_a_bad_lane(lib):
+    assert lib.chol_factor_tile_max_n() == TILE_MAX_N
+    _factor_views_aliasing_and_a_bad_lane(lib, 40)       # register tiles
+
+
+def test_shared_factor_views_aliasing_and_a_bad_lane(lib):
+    assert chol.KERNELS[lib.chol_factor_route(249)] == 'factor_shared'
+    _factor_views_aliasing_and_a_bad_lane(lib, 249)   # the packed triangle
 
 
 def test_solve_matches_plain(lib):
@@ -148,3 +223,65 @@ def test_solve_matches_plain(lib):
     x_p = chol.cholesky_solve_nnb_plain(l, rhs)
     rel = ((x - x_p).abs().amax(0) / x_p.abs().amax(0)).max()
     assert float(rel) <= 1e-4
+
+
+# 1 and 8: one tile; 7, 17, 117: ragged tile grids (the back sweep skips
+# the columns past the edge); 120: the interior point's n; 249: above the
+# register tiles, the shared-memory solve
+@pytest.mark.parametrize('n', [1, 7, 8, 17, 117, 120, 249])
+def test_solve_matches_plain_and_the_shared_kernel(lib, n):
+    """The solve against its plain version on every lane and against the
+    shared-memory solve bit for bit; the batch-minor views give the
+    (B, n, n) result bit for bit; x may alias rhs; a matrix with a zero
+    pivot goes non-finite alone."""
+    want = 'solve_tile' if n <= TILE_MAX_N else 'solve_shared'
+    assert chol.KERNELS[lib.chol_solve_route(n)] == want
+    bsz = 3
+    l_bnn = chol.cholesky_nnb_plain(
+        _spd(bsz, n, seed=n + 1).permute(1, 2, 0)).permute(2, 0, 1)
+    l_bnn = l_bnn.contiguous()
+    rhs = torch.tensor(np.random.default_rng(n).standard_normal((bsz, n)),
+                       dtype=torch.float32)
+    x_k = _solve(lib.chol_solve, l_bnn, rhs, torch.full_like(rhs, np.nan))
+    x_s = _solve(lib.chol_solve_shared, l_bnn, rhs,
+                 torch.full_like(rhs, np.nan))
+    x_p = chol.cholesky_solve_nnb_plain(l_bnn.permute(1, 2, 0), rhs.t()).t()
+    assert torch.isfinite(x_k).all()
+    rel = (x_k - x_p).abs().amax(1) / x_p.abs().amax(1)
+    assert float(rel.max()) <= SOLVE_TOL
+    assert torch.equal(x_k.view(torch.int32), x_s.view(torch.int32))
+    # (n, n, B) and (n, B) views: strided, element by element
+    l_nnb = l_bnn.permute(1, 2, 0).contiguous()
+    rhs_nb = rhs.t().contiguous()
+    x_nb = torch.full_like(rhs_nb, np.nan)
+    _solve(lib.chol_solve, l_nnb.permute(2, 0, 1), rhs_nb.t(), x_nb.t())
+    assert torch.equal(x_nb.t(), x_k)
+    both = rhs.clone()
+    _solve(lib.chol_solve, l_bnn, both, both)
+    assert torch.equal(both, x_k)
+    bad = l_bnn.clone()
+    bad[1, n // 2, n // 2] = 0.0
+    x_bad = _solve(lib.chol_solve, bad, rhs, torch.empty_like(rhs))
+    assert not torch.isfinite(x_bad[1]).all()
+    assert torch.equal(x_bad[[0, 2]], x_k[[0, 2]])
+    # the register-tile solve's fast divides hold only in a range: +0 goes
+    # through them; -0, subnormal entries (where the fast quotient would be
+    # off) and entries above 2^60 take the IEEE divides; the signs of zeros
+    # count too
+    zero = torch.zeros(n)
+    for odd in (torch.stack([zero, -zero, rhs[2] * 1e-40]), rhs * 1e25):
+        x_k = _solve(lib.chol_solve, l_bnn, odd, torch.empty_like(odd))
+        x_s = _solve(lib.chol_solve_shared, l_bnn, odd, torch.empty_like(odd))
+        assert torch.equal(x_k.view(torch.int32), x_s.view(torch.int32))
+
+
+def test_fast_divide_is_the_ieee_divide(lib):
+    """The register-tile solve's divide (a Markstein correction of x / d
+    from r = 1 / d) gives the IEEE quotient bit for bit wherever it does not
+    refuse the operands, over every significand of d; it refuses -0,
+    subnormal and out-of-range dividends."""
+    out = (ctypes.c_longlong * 3)()
+    lib.fast_divide_check(out)
+    taken, wrong, unsafe = list(out)
+    assert taken > 60_000_000
+    assert wrong == 0 and unsafe == 0

@@ -275,10 +275,12 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match='nvcc not found'):
         chol.build()
     with pytest.raises(RuntimeError, match='nvcc not found'):
-        chol.kernel_attributes(120, 'tile')
+        chol.kernel_attributes(120, 'factor_tile')
     with pytest.raises(RuntimeError, match='nvcc not found'):
         chol.tile_max_n()
-    with pytest.raises(ValueError, match="'tile' or 'shared'"):
+    with pytest.raises(RuntimeError, match='nvcc not found'):
+        chol.route(288)
+    with pytest.raises(ValueError, match='kernel is one of'):
         chol.kernel_attributes(120, 'smem')
 
 
@@ -291,14 +293,17 @@ def test_kernel_source_and_flags():
     assert 'hector/qp/pallas_chol.py' in src
     assert '_chol_kernel' in src and '_solve_kernel' in src
     assert 'What bounds them on the card' in src
-    # the register-tile factor, and the shared-memory one above its n; the
-    # C entry point chooses between them by n
+    # the register-tile factor and solve, and the shared-memory ones above
+    # their n; the C entry points choose by n
     assert ('__global__ void __launch_bounds__(TILE_MAX_THREADS, 1) '
             'chol_factor_kernel(') in src
     assert ('__global__ void __launch_bounds__(FACTOR_THREADS) '
             'chol_factor_smem_kernel(') in src
-    assert 'if (n <= TILE_MAX_N)' in src
-    assert '__global__ void chol_solve_kernel' in src
+    assert 'return n <= TILE_MAX_N ? FACTOR_TILE : FACTOR_SHARED;' in src
+    assert ('__global__ void __launch_bounds__(TILE_MAX_THREADS, 1) '
+            'chol_solve_kernel(') in src
+    assert '__global__ void chol_solve_smem_kernel' in src
+    assert 'return n <= TILE_MAX_N ? SOLVE_TILE : SOLVE_SHARED;' in src
     assert 'extern "C"' in src
     for banned in ('cusolver', 'cublas', 'rsqrtf'):
         assert banned not in src.lower()
