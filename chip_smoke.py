@@ -20,14 +20,35 @@ Phases, one JSON line each:
   kernel_time the kernel and its plain version at 32,768 lanes, beside
               the bound;
   check       one planning step on the card against the same step on the CPU
-              (the plain solver) on 256 closed-loop lanes, and the same step
-              on the card under backend='riccati_pallas_interpret' (the
-              plain solver on CUDA tensors: no kernel launch);
+              under backend='riccati_pallas' (the plain solver; the CPU's
+              'auto' is the Mehrotra stage solver) on 256 closed-loop lanes,
+              and the same step on the card under
+              backend='riccati_pallas_interpret' (the plain solver on CUDA
+              tensors: no kernel launch);
+  riccati     plan_step_fn with backend='riccati' (the Mehrotra stage solver,
+              batched PyTorch ops) at 4,096 closed-loop lanes, 8 chained
+              steps, timed: no kernel of the port launched; the first step
+              within 1e-2 N of the CPU's 'riccati' step, which the CPU's
+              default 'auto' step equals bit for bit; every step within
+              5e-2 N of the fused kernel's;
   main        runtime.plan_step_fn at 32,768 lanes, 16 chained steps as
               bench.py chains them, counting kernel launches;
+  stage_entry fused_riccati.solve_batched on the StageQPData of the main
+              path's states (32,768 lanes): one launch of each kernel; the
+              kernel held freeze-aware to solve_parts on the compact build
+              and to its plain version on the same slices, the polish to
+              solve_parts;
   loop        runtime.make_rollout for 200 MPC periods (1 s) at 1,024 lanes,
               half walking at 0.5 m/s, half standing: no fall, no quarantine,
               height in the band tests/test_closedloop.py asserts;
+  robust      make_rollout with pushes and a command/mode schedule for 300
+              periods (1.5 s) at 1,024 lanes in five groups (robust_inputs):
+              each group's checks from tests/test_robustness.py and
+              tests/test_fsm_transitions.py, 300 launches of the kernel
+              without polish and nothing else; the same rollout for 10
+              periods at 16 lanes on the card and on the CPU under
+              'riccati_pallas': every period's wrench within 1e-2 N, the
+              final plant state within ROBUST_SHORT_STATE_TOL;
   chol        the Cholesky factor and solve kernels against their plain
               versions on the KKT matrices the dense interior point meets on
               closed-loop states (at its start and at iteration 5), at 4,096
@@ -142,6 +163,34 @@ POLISH_ANY_TOL = 1e-2     # N, every lane (a flipped lane keeps the IP iterate)
 # thread, 16 warps an SM
 IP_MAX_REGISTERS = 128
 IP_WARPS_PER_SM = 16
+# the Mehrotra stage solver ('riccati') on the card: closed-loop lanes,
+# chained steps
+RICCATI_BATCH = 4096
+RICCATI_CHAIN = 8
+# 'riccati' (Mehrotra) against the fused kernel (fixed sigma) on the same
+# states: two different float32 interior points, which meet at their own
+# float32 floors, as the dense one and the fused one do
+# (DENSE_VS_RICCATI_TOL)
+RICCATI_VS_FUSED_TOL = DENSE_VS_RICCATI_TOL
+# the robustness rollout: five groups of lanes (robust_inputs), 300 MPC
+# periods (1.5 s), so that a push over periods 40-49 has 250 periods to
+# settle (tests/test_robustness.py gives it 290)
+ROBUST_BATCH = LOOP_BATCH
+ROBUST_PERIODS = 300
+ROBUST_EVENTS = dict(push=(40, 50), passive=60, walk_again=72,
+                     switches=(100, 200))
+# the same rollout, short, card against CPU
+ROBUST_SHORT_BATCH = 16
+ROBUST_SHORT_PERIODS = 10
+ROBUST_SHORT_EVENTS = dict(push=(2, 6), passive=3, walk_again=6,
+                           switches=(4, 7))
+# Card against CPU on that short rollout, both float32 and the same
+# algorithm (the kernel and its plain version): the wrench of every period
+# within STEP_TOL, the final plant state within these (m, m/s, rad, rad/s).
+# On the CPU the same rollout in float32 is 4.3e-7 m, 1.0e-5 m/s, 9.4e-7
+# rad and 3.6e-5 rad/s (qd) from float64 and its wrench 5.2e-3 N; the bars
+# are 3-200 times those.
+ROBUST_SHORT_STATE_TOL = {'*': 1e-4, 'qd': 1e-3}
 
 
 def emit(obj):
@@ -224,18 +273,23 @@ def scenarios(batch, seed, device, periods=20):
 
 
 def scenario_problem(batch, seed, device, build, cfg=None):
-    """The QP one planning step builds from scenarios(), through ``build``
-    (mpc.build_parts or mpc.build_dense): the same preamble as
-    runtime.controller_tick up to the QP.  Under ``cfg`` (default: the
-    default config); a horizon other than the gait's 10 segments takes the
-    gait table on periodically."""
+    """The QP one planning step builds from scenarios() (state_problem)."""
+    return state_problem(*scenarios(batch, seed, device), build, cfg)
+
+
+def state_problem(carry, plant, cmd, build, cfg=None):
+    """The QP one planning step builds from this state, through ``build``
+    (mpc.build_parts, mpc.build_stage or mpc.build_dense): the same
+    preamble as runtime.controller_tick up to the QP.  Under ``cfg``
+    (default: the default config); a horizon other than the gait's 10
+    segments takes the gait table on periodically."""
     from hector_torch import control as C, gait as G, mpc as M
     from hector_torch.config import DEFAULT_CONFIG, JOINT_OFFSETS
     from hector_torch.kinematics import foot_position
     from hector_torch.runtime import N_SEGMENTS
 
     CFG = cfg or DEFAULT_CONFIG
-    carry, plant, cmd = scenarios(batch, seed, device)
+    device = plant.position.device
     est = C.estimate_state(plant.position, plant.v_world, plant.quat,
                            plant.omega_world)
     q_data = plant.q + torch.tensor(JOINT_OFFSETS, dtype=plant.q.dtype,
@@ -389,20 +443,30 @@ def freeze_iterations(solve, parts, scfg, q_diag, r_diag):
     return sols, frozen
 
 
-def hold_to_plain(FR, parts, scfg, q_diag, r_diag):
-    """The warp kernel against the plain version on the same QPs.  Lanes
+def hold_to_plain(FR, parts, scfg, q_diag, r_diag, phase='kernel'):
+    """The warp kernel against the plain version on the same QPs
+    (hold_freeze_aware)."""
+    return hold_freeze_aware((FR.solve_parts_cuda, parts, q_diag, r_diag),
+                             (FR.solve_parts_plain, parts, q_diag, r_diag),
+                             scfg, phase)
+
+
+def hold_freeze_aware(side_k, side_p, scfg, phase):
+    """Two fixed-sigma solves, each (solve, parts, q_diag, r_diag): the
+    first on the card (the kernel), the second its reference (the plain
+    version, or the kernel on another build of the same QPs).  Lanes
     that freeze at the same iteration in both must agree to KERNEL_TOL.  A
     lane that freezes at iteration n in one and later in the other must
     have mu within FLIP_MU_REL of the floor at n in both (the test flipped
     on rounding), and agree to KERNEL_TOL with both stopped after n
     iterations.  The iterates after n = 1..iterations-1 iterations, on
-    lanes neither version has frozen by then, must agree to ITERATE_TOL.
-    Raises on a fault; returns the phase's record and the kernel's freeze
-    iteration of each lane."""
-    sols_k, fz_k = freeze_iterations(FR.solve_parts_cuda, parts, scfg,
-                                     q_diag, r_diag)
-    sols_p, fz_p = freeze_iterations(FR.solve_parts_plain, parts, scfg,
-                                     q_diag, r_diag)
+    lanes neither side has frozen by then, must agree to ITERATE_TOL.
+    Raises on a fault; returns the phase's record and the first side's
+    freeze iteration of each lane."""
+    solve_k, parts, q_k, r_k = side_k
+    sols_k, fz_k = freeze_iterations(solve_k, parts, scfg, q_k, r_k)
+    solve_p, parts_p, q_p, r_p = side_p
+    sols_p, fz_p = freeze_iterations(solve_p, parts_p, scfg, q_p, r_p)
     torch.cuda.synchronize()
     sol_k, sol_p = sols_k[-1], sols_p[-1]
     batch = parts.x0.shape[0]
@@ -433,7 +497,7 @@ def hold_to_plain(FR, parts, scfg, q_diag, r_diag):
         live = running >= n
         by_iter.append(float((sols_k[n].u[live] - sols_p[n].u[live]).abs()
                              .max()) if bool(live.any()) else 0.0)
-    rec = dict(phase='kernel', batch=batch, max_abs_du=err,
+    rec = dict(phase=phase, batch=batch, max_abs_du=err,
                max_abs_du_by_iteration=by_iter,
                max_abs_du_without_flips=float(du[same].max())
                if bool(same.any()) else 0.0,
@@ -448,16 +512,351 @@ def hold_to_plain(FR, parts, scfg, q_diag, r_diag):
                u_scale=float(sol_p.u.abs().max()))
     emit(rec)
     if not math.isfinite(err) or err > KERNEL_TOL:
-        raise RuntimeError(f'kernel vs plain max |du| {err} N > '
-                           f'{KERNEL_TOL} N at batch {batch}')
+        raise RuntimeError(f'{phase}: kernel vs reference max |du| {err} N '
+                           f'> {KERNEL_TOL} N at batch {batch}')
     if not max(by_iter, default=0.0) <= ITERATE_TOL:
-        raise RuntimeError(f'kernel vs plain iterates differ by up to '
-                           f'{max(by_iter)} N > {ITERATE_TOL} N at batch '
-                           f'{batch}: {by_iter}')
+        raise RuntimeError(f'{phase}: kernel vs reference iterates differ by '
+                           f'up to {max(by_iter)} N > {ITERATE_TOL} N at '
+                           f'batch {batch}: {by_iter}')
     if len(flips) > FLIP_SHARE_MAX * batch:
-        raise RuntimeError(f'{len(flips)} lanes freeze at another iteration '
-                           f'than in the plain version at batch {batch}')
+        raise RuntimeError(f'{phase}: {len(flips)} lanes freeze at another '
+                           f'iteration than in the reference at batch '
+                           f'{batch}')
     return rec, fz_k
+
+
+def hold_polish(side_k, side_p, pcfg, phase):
+    """Two polish solves, each (solve, parts, q_diag, r_diag), the first on
+    the card: run as configured and with the polish forced to reject
+    (polish_tol = -1, the interior point without freeze, which only the
+    kernel with polish runs).  What differs from the rejected run was
+    accepted.  At least POLISH_SAME_SET of the lanes must accept alike,
+    lanes both accept agree to POLISH_ACCEPTED_TOL, every lane to
+    POLISH_ANY_TOL, the rejected runs to KERNEL_TOL.  Raises on a fault;
+    returns the largest |du| over all lanes."""
+    pcfg_off = dataclasses.replace(pcfg, polish_tol=-1.0)
+    (solve_k, parts_k, q_k, r_k), (solve_p, parts_p, q_p, r_p) = side_k, side_p
+    sol_k = solve_k(parts_k, pcfg, q_k, r_k)
+    off_k = solve_k(parts_k, pcfg_off, q_k, r_k)
+    sol_p = solve_p(parts_p, pcfg, q_p, r_p)
+    off_p = solve_p(parts_p, pcfg_off, q_p, r_p)
+    torch.cuda.synchronize()
+    all_finite(polish_u=sol_k.u, polish_stats=torch.stack(
+        [sol_k.mu, sol_k.r_dual, sol_k.r_prim]), rejected_u=off_k.u)
+    acc_k = (sol_k.u != off_k.u).any(1)
+    acc_p = (sol_p.u != off_p.u).any(1)
+    both = acc_k & acc_p
+    same_set = float((acc_k == acc_p).float().mean())
+    du = (sol_k.u - sol_p.u).abs().amax(1)
+    du_both = float(du[both].max()) if bool(both.any()) else 0.0
+    du_any = float(du.max())
+    du_off = float((off_k.u - off_p.u).abs().max())
+    emit(dict(phase=phase, batch=parts_k.x0.shape[0],
+              accepted_share_kernel=float(acc_k.float().mean()),
+              accepted_share_plain=float(acc_p.float().mean()),
+              same_set_share=same_set,
+              max_abs_du_both_accept=du_both, max_abs_du_any=du_any,
+              max_r_prim=float(sol_k.r_prim.max()),
+              max_r_prim_accepted=float(sol_k.r_prim[acc_k].max())
+              if bool(acc_k.any()) else None,
+              max_abs_du_rejected=du_off))
+    if same_set < POLISH_SAME_SET:
+        raise RuntimeError(f'{phase}: the two sides accept the same lanes on '
+                           f'{same_set} < {POLISH_SAME_SET}')
+    if not du_both <= POLISH_ACCEPTED_TOL:
+        raise RuntimeError(f'{phase}: {du_both} N > {POLISH_ACCEPTED_TOL} N '
+                           f'on lanes both accept')
+    if not du_any <= POLISH_ANY_TOL:
+        raise RuntimeError(f'{phase}: {du_any} N > {POLISH_ANY_TOL} N')
+    if not du_off <= KERNEL_TOL:
+        raise RuntimeError(f'{phase}, polish forced to reject: {du_off} N > '
+                           f'{KERNEL_TOL} N')
+    return du_any
+
+
+def robust_inputs(batch, periods, events, device):
+    """The robustness rollout's inputs, five groups of lanes (from
+    tests/test_robustness.py and tests/test_fsm_transitions.py):
+      0 (a) walking at 0.3 m/s, a 40 N lateral push over events['push'];
+      1 (b) standing, the same push;
+      2 (c) walking at 0.3 m/s, passive at events['passive'] and left so;
+      3 (d) walking at 0.3 m/s, passive at events['passive'], walking
+            again at events['walk_again'];
+      4 (e) walking at 0.5 m/s, the standing gait between the two
+            events['switches'], then walking again.
+    Returns (group of each lane, cmd, disturbance (B, periods, 6),
+    schedule (cmd_t, mode_cmd_t))."""
+    from hector_torch import control as C
+    from hector_torch import runtime as RT
+    g = batch // 5
+    groups = torch.repeat_interleave(
+        torch.arange(5), torch.tensor([g, g, g, g, batch - 4 * g])).to(device)
+    options = [RT.walking_command(batch, vx=0.3, device=device),
+               RT.standing_command(batch, device=device),
+               RT.walking_command(batch, vx=0.5, device=device)]
+    t = torch.arange(periods, device=device)
+    which = torch.zeros((batch, periods), dtype=torch.long, device=device)
+    which[groups == 1] = 1
+    lo, hi = events['switches']
+    which[groups == 4] = torch.where((t >= lo) & (t < hi), 1, 2)
+    lanes = torch.arange(batch, device=device)[:, None]
+    cmd_t = RT.ScenarioCommand(*[torch.stack(f)[which, lanes]
+                                 for f in zip(*options)])
+    mode_t = torch.full((batch, periods), RT.MODE_CMD_NONE,
+                        dtype=torch.int32, device=device)
+    mode_t[(groups == 2) | (groups == 3), events['passive']] = C.MODE_PASSIVE
+    mode_t[groups == 3, events['walk_again']] = C.MODE_WALKING
+    dist = torch.zeros((batch, periods, 6), device=device)
+    push = (groups == 0) | (groups == 1)
+    dist[push, events['push'][0]:events['push'][1], 1] = 40.0
+    cmd = RT.ScenarioCommand(*[f[:, 0] for f in cmd_t])
+    return groups, cmd, dist, (cmd_t, mode_t)
+
+
+def robust_checks(groups, diags, plant, events):
+    """Each group of robust_inputs held to its test's checks: (per group the
+    measured values, the names of the groups that failed)."""
+    h = diags['height'].cpu()
+    mode = diags['mode'].cpu()
+    fallen = diags['fallen'].cpu()
+    pos = plant.position.cpu()
+    groups = groups.cpu()
+    p, w = events['passive'], events['walk_again']
+    res, ok = {}, {}
+    a, b, c, d, e = [groups == k for k in range(5)]
+    res['a_push_walking'] = dict(
+        fallen_lanes=int(fallen[a].any(1).sum()),
+        min_height=float(h[a].min()),
+        max_abs_y_final=float(pos[a, 1].abs().max()))
+    ok['a_push_walking'] = (res['a_push_walking']['fallen_lanes'] == 0
+                            and res['a_push_walking']['min_height'] > 0.4
+                            and res['a_push_walking']['max_abs_y_final'] < 0.2)
+    res['b_push_standing'] = dict(
+        min_abs_y_final=float(pos[b, 1].abs().min()))
+    ok['b_push_standing'] = res['b_push_standing']['min_abs_y_final'] > 0.2
+    res['c_passive'] = dict(
+        passive_from_command=bool((mode[c, p:] == 0).all()),
+        max_x_final=float(pos[c, 0].max()),
+        min_x_final_of_a=float(pos[a, 0].min()))
+    ok['c_passive'] = (res['c_passive']['passive_from_command']
+                       and res['c_passive']['max_x_final']
+                       < res['c_passive']['min_x_final_of_a'])
+    hd = h[d]
+    res['d_passive_then_walking'] = dict(
+        walking_before=bool((mode[d, :p] == 1).all()),
+        passive_between=bool((mode[d, p:w] == 0).all()),
+        walking_after=bool((mode[d, w + 3:] == 1).all()),
+        max_drop_height=float((hd[:, w - 1] - hd[:, p - 1]).max()),
+        fallen_last_20=int(fallen[d, -20:].sum()),
+        min_height_last_20=float(hd[:, -20:].min()),
+        min_rise_after=float((hd[:, -1] - hd[:, w + 8]).min()))
+    r = res['d_passive_then_walking']
+    ok['d_passive_then_walking'] = (
+        r['walking_before'] and r['passive_between'] and r['walking_after']
+        and r['max_drop_height'] <= -0.012 and r['fallen_last_20'] == 0
+        and r['min_height_last_20'] > 0.42 and r['min_rise_after'] > 0.0)
+    res['e_gait_schedule'] = dict(fallen_lanes=int(fallen[e].any(1).sum()),
+                                  min_height=float(h[e].min()))
+    ok['e_gait_schedule'] = res['e_gait_schedule']['fallen_lanes'] == 0
+    return res, [k for k, v in ok.items() if not v]
+
+
+def riccati_phase(card, dev):
+    """The Mehrotra stage solver ('riccati') on the card: RICCATI_CHAIN
+    chained planning steps at RICCATI_BATCH closed-loop lanes, timed; no
+    kernel of the port launched; the first step within STEP_TOL of the CPU's
+    'riccati' step, which the CPU's default 'auto' step equals bit for bit;
+    every step within RICCATI_VS_FUSED_TOL of the fused kernel's."""
+    from hector_torch import runtime as RT
+    from hector_torch.config import DEFAULT_CONFIG as CFG
+    from hector_torch.qp import chol as CH
+    from hector_torch.qp import fused_riccati as FR
+
+    plan = RT.plan_step_fn(CFG)
+    carry, plant, cmd = scenarios(RICCATI_BATCH, 11, dev)
+    plan_r = RT.plan_step_fn(with_solver(CFG, backend='riccati'))
+    chain(plan_r, carry, plant, cmd, 1)             # warm-up, not counted
+    counts_before = (FR.launches, FR.polish_launches, chol_counts(CH))
+    w_r = []
+    total_ms, _ = cuda_timed(
+        lambda: chain(plan_r, carry, plant, cmd, RICCATI_CHAIN, w_r))
+    r_counts = (FR.launches, FR.polish_launches, chol_counts(CH))
+    riccati_step_ms = total_ms / RICCATI_CHAIN
+    all_finite(riccati_wrench=torch.stack(w_r))
+    # the same chained states through the fused kernel on the card, and the
+    # first step on the CPU under 'riccati' and under the default 'auto'
+    w_f = []
+    chain(plan, carry, plant, cmd, RICCATI_CHAIN, w_f)
+    cpu_state = (to_cpu(carry), to_cpu(plant), to_cpu(cmd))
+    _, w_r_cpu, m_r_cpu = plan_r(*cpu_state)
+    _, w_auto_cpu, m_auto_cpu = plan(*cpu_state)
+    _, _, m_r0 = plan_r(carry, plant, cmd)
+    torch.cuda.synchronize()
+    d_cpu = max(float((w_r[0].cpu() - w_r_cpu).abs().max()),
+                float((m_r0.tau.cpu() - m_r_cpu.tau).abs().max()))
+    d_fused = float((torch.stack(w_r) - torch.stack(w_f)).abs().max())
+    auto_is_riccati = bool(torch.equal(w_auto_cpu, w_r_cpu)
+                           and torch.equal(m_auto_cpu.tau, m_r_cpu.tau))
+    emit(dict(phase='riccati', batch=RICCATI_BATCH, chain=RICCATI_CHAIN,
+              ms_per_step=riccati_step_ms,
+              solves_per_s=RICCATI_BATCH / riccati_step_ms * 1e3,
+              kernel_launches=r_counts[0] - counts_before[0]
+              + r_counts[1] - counts_before[1],
+              cholesky_launches=r_counts[2],
+              max_abs_vs_cpu=d_cpu, max_abs_vs_fused_kernel=d_fused,
+              cpu_auto_equals_riccati=auto_is_riccati,
+              wrench_scale=float(w_r_cpu.abs().max()), card=card))
+    if r_counts != counts_before:
+        raise RuntimeError(f"'riccati' launched kernels of the port: "
+                           f'{counts_before} -> {r_counts}')
+    if not d_cpu <= STEP_TOL:
+        raise RuntimeError(f"'riccati' on the card vs the CPU: {d_cpu} N > "
+                           f'{STEP_TOL} N')
+    if not d_fused <= RICCATI_VS_FUSED_TOL:
+        raise RuntimeError(f"'riccati' vs the fused kernel on the card: "
+                           f'{d_fused} N > {RICCATI_VS_FUSED_TOL} N')
+    if not auto_is_riccati:
+        raise RuntimeError("'auto' on the CPU is not the 'riccati' step")
+
+
+def stage_entry_phase(main_state, card):
+    """fused_riccati.solve_batched on the StageQPData of the main path's
+    states: one <false> launch, one <true> launch with the polish; held
+    freeze-aware to solve_parts on the compact build and to the plain
+    version on the same slices, the polish to solve_parts.  Returns the
+    largest |du| against the plain version."""
+    from hector_torch import mpc as M
+    from hector_torch.config import DEFAULT_CONFIG as CFG
+    from hector_torch.qp import fused_riccati as FR
+
+    scfg = CFG.solver
+    pcfg = dataclasses.replace(scfg, polish_rounds=POLISH_ROUNDS)
+    q_diag = tuple(CFG.mpc.weights) + (0.0,)
+    r_diag = tuple(CFG.mpc.alpha)
+    sqp = state_problem(*main_state, M.build_stage)
+    parts_main = state_problem(*main_state, M.build_parts)
+    # the weights as solve_batched reads them from the float32 tensors
+    q_t = tuple(sqp.q_diag[-1].tolist())
+    r_t = tuple(sqp.r_diag[-1].tolist())
+    FR.launches = FR.polish_launches = 0
+    sol_e = FR.solve_batched(sqp, scfg)
+    torch.cuda.synchronize()
+    entry_launches = (FR.launches, FR.polish_launches)
+    sol_ep = FR.solve_batched(sqp, pcfg)
+    torch.cuda.synchronize()
+    entry_polish_launches = (FR.launches, FR.polish_launches)
+    all_finite(entry_u=sol_e.u, entry_polish_u=sol_ep.u)
+    stage_slices = FR.stage_parts(sqp)
+    # the entry is the kernel on the stage form's slices, which the
+    # comparisons below hold
+    entry_is_slices = bit_equal(
+        sol_e.u, FR.solve_parts_cuda(stage_slices, scfg, q_t, r_t).u)
+    emit(dict(phase='stage_entry', batch=MAIN_BATCH,
+              launches=entry_launches[0],
+              polish_launches=entry_polish_launches[1],
+              entry_is_the_kernel_on_its_slices=entry_is_slices,
+              scal_equal=bit_equal(stage_slices.scal, parts_main.scal),
+              b69_equal=bit_equal(stage_slices.b69, parts_main.b69),
+              weights_from_tensors=dict(q_diag=q_t, r_diag=r_t)))
+    if entry_launches != (1, 0) or entry_polish_launches != (1, 1):
+        raise RuntimeError(f'stage entry launched <false>/<true> '
+                           f'{entry_launches} and then {entry_polish_launches}'
+                           f' times, expected (1, 0) and (1, 1)')
+    if not entry_is_slices:
+        raise RuntimeError('stage entry differs from the kernel on the '
+                           'stage form\'s slices')
+    # freeze-aware against solve_parts on the compact build, and against
+    # the plain version on the same slices
+    hold_freeze_aware((FR.solve_parts_cuda, stage_slices, q_t, r_t),
+                      (FR.solve_parts_cuda, parts_main, q_diag, r_diag),
+                      scfg, 'stage_entry_vs_solve_parts')
+    stage_rec, _ = hold_to_plain(FR, stage_slices, scfg, q_t, r_t,
+                                 'stage_entry_vs_plain')
+    hold_polish((FR.solve_parts_cuda, stage_slices, q_t, r_t),
+                (FR.solve_parts_cuda, parts_main, q_diag, r_diag), pcfg,
+                'stage_entry_polish_vs_solve_parts')
+    return stage_rec['max_abs_du']
+
+
+def robust_phase(card, dev):
+    """make_rollout with pushes and a command/mode schedule on the card
+    (robust_inputs, robust_checks), ROBUST_PERIODS at ROBUST_BATCH lanes
+    under the default config: ROBUST_PERIODS launches of <false> and
+    nothing else; then the same rollout, short, on the card and on the CPU
+    under 'riccati_pallas'."""
+    from hector_torch import runtime as RT
+    from hector_torch.plant import srb
+    from hector_torch.config import DEFAULT_CONFIG as CFG
+    from hector_torch.qp import chol as CH
+    from hector_torch.qp import fused_riccati as FR
+
+    groups, cmd, dist, sched = robust_inputs(ROBUST_BATCH, ROBUST_PERIODS,
+                                             ROBUST_EVENTS, dev)
+    plant = srb.init_plant_state(ROBUST_BATCH, CFG, device=dev)
+    carry = RT.init_controller_carry(plant, CFG)
+    roll = RT.make_rollout(ROBUST_PERIODS, CFG, with_disturbance=True,
+                           with_schedule=True)
+    torch.cuda.synchronize()
+    FR.launches = FR.polish_launches = 0
+    reset_chol_counts(CH)
+    t0 = time.perf_counter()
+    carry, plant, diags = roll(carry, plant, cmd, dist, sched)
+    torch.cuda.synchronize()
+    robust_s = time.perf_counter() - t0
+    robust_launches = (FR.launches, FR.polish_launches, chol_counts(CH))
+    all_finite(robust_position=plant.position, robust_height=diags['height'])
+    res, failed = robust_checks(groups, diags, plant, ROBUST_EVENTS)
+    emit(dict(phase='robust', batch=ROBUST_BATCH, periods=ROBUST_PERIODS,
+              launches=robust_launches[0],
+              other_launches=[robust_launches[1], robust_launches[2]],
+              seconds=robust_s,
+              sim_s_per_wall_s=ROBUST_PERIODS * 5 * CFG.plant.dt / robust_s,
+              groups=res, failed=failed, card=card))
+    if robust_launches != (ROBUST_PERIODS, 0, dict.fromkeys(CHOL_COUNTS, 0)):
+        raise RuntimeError(f'robust rollout launched {robust_launches}, '
+                           f'expected {ROBUST_PERIODS} <false> and nothing '
+                           f'else')
+    if failed:
+        raise RuntimeError(f'robust rollout: groups {failed} failed their '
+                           f'checks')
+    # the same rollout, short, on the card and on the CPU (the fused solver
+    # on both: the kernel and its plain version)
+    short_cfg = with_solver(CFG, backend='riccati_pallas')
+    short = {}
+    for where in ('card', 'cpu'):
+        d = dev if where == 'card' else torch.device('cpu')
+        _, cmd_s, dist_s, sched_s = robust_inputs(
+            ROBUST_SHORT_BATCH, ROBUST_SHORT_PERIODS, ROBUST_SHORT_EVENTS, d)
+        plant_s = srb.init_plant_state(ROBUST_SHORT_BATCH, CFG, device=d)
+        roll_s = RT.make_rollout(ROBUST_SHORT_PERIODS, short_cfg,
+                                 with_disturbance=True, with_schedule=True)
+        _, p_s, d_s = roll_s(RT.init_controller_carry(plant_s, CFG),
+                             plant_s, cmd_s, dist_s, sched_s)
+        short[where] = (to_cpu(p_s), {k: v.cpu() for k, v in d_s.items()})
+    (p_card, d_card), (p_cpu, d_cpu) = short['card'], short['cpu']
+    d_wrench = float((d_card['wrench'] - d_cpu['wrench']).abs().max())
+    d_state = {name: float((a.double() - b.double()).abs().max())
+               for name, a, b in zip(p_card._fields, p_card, p_cpu)
+               if a.dtype.is_floating_point}
+    same_flags = bool(torch.equal(p_card.contact, p_cpu.contact)
+                      and torch.equal(d_card['mode'], d_cpu['mode'])
+                      and torch.equal(d_card['contact'], d_cpu['contact']))
+    re_entered = bool(((d_cpu['mode'][:, ROBUST_SHORT_EVENTS['passive']]
+                        == 0)
+                       & (d_cpu['mode'][:, -1] == 1)).any())
+    emit(dict(phase='robust_card_vs_cpu', batch=ROBUST_SHORT_BATCH,
+              periods=ROBUST_SHORT_PERIODS, max_abs_wrench=d_wrench,
+              max_abs_state=d_state, flags_equal=same_flags,
+              a_lane_re_entered=re_entered,
+              wrench_scale=float(d_cpu['wrench'].abs().max())))
+    state_bad = {k: v for k, v in d_state.items()
+                 if not v <= ROBUST_SHORT_STATE_TOL.get(
+                     k, ROBUST_SHORT_STATE_TOL['*'])}
+    if not (d_wrench <= STEP_TOL and not state_bad and same_flags
+            and re_entered):
+        raise RuntimeError(f'robust rollout, card vs CPU: wrench {d_wrench} '
+                           f'N (bar {STEP_TOL}), state {state_bad}, flags '
+                           f'equal {same_flags}, re-entered {re_entered}')
 
 
 def main():
@@ -476,6 +875,7 @@ def main():
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     scfg = CFG.solver
+    pcfg = dataclasses.replace(scfg, polish_rounds=POLISH_ROUNDS)
     q_diag = tuple(CFG.mpc.weights) + (0.0,)
     r_diag = tuple(CFG.mpc.alpha)
 
@@ -556,14 +956,18 @@ def main():
               share_of_bound=ip_bound_ms / kernel_ms, card=card))
 
     # ---- card vs CPU on one planning step ----
+    # the default 'auto' is the kernel on the card and the Mehrotra stage
+    # solver on the CPU, so the CPU side names the fused solver: its plain
+    # version, the same algorithm
     carry, plant, cmd = scenarios(256, 4, dev)
     plan = RT.plan_step_fn(CFG)
+    plan_fused = RT.plan_step_fn(with_solver(CFG, backend='riccati_pallas'))
     _, w_gpu, m_gpu = plan(carry, plant, cmd)
-    _, w_cpu, m_cpu = plan(to_cpu(carry), to_cpu(plant), to_cpu(cmd))
+    _, w_cpu, m_cpu = plan_fused(to_cpu(carry), to_cpu(plant), to_cpu(cmd))
     step_err = max(float((w_gpu.cpu() - w_cpu).abs().max()),
                    float((m_gpu.tau.cpu() - m_cpu.tau).abs().max()))
-    emit(dict(phase='check', batch=256, max_abs_diff=step_err,
-              wrench_scale=float(w_cpu.abs().max())))
+    emit(dict(phase='check', batch=256, cpu_backend='riccati_pallas',
+              max_abs_diff=step_err, wrench_scale=float(w_cpu.abs().max())))
     if not (math.isfinite(step_err) and step_err <= STEP_TOL):
         raise RuntimeError(f'card vs CPU planning step differs by {step_err}')
     # the reference's interpreted-kernel name: the plain solver on the card
@@ -581,6 +985,9 @@ def main():
         raise RuntimeError(f"'riccati_pallas_interpret' on the card launched "
                            f'{int_launches} kernels and differs from the CPU '
                            f'step by {int_err}')
+
+    # ---- the Mehrotra stage solver on the card ----
+    riccati_phase(card, dev)
 
     # ---- main path: chained planning steps at full width ----
     plant = srb.init_plant_state(MAIN_BATCH, CFG, device=dev)
@@ -611,6 +1018,9 @@ def main():
               launches=main_launches, ms_per_step=step_ms,
               warp_kernel_share_of_step=kernel_ms / step_ms,
               solves_per_s=MAIN_BATCH / step_ms * 1e3, card=card))
+
+    # ---- the fused kernel's StageQPData entry on the main path's states ----
+    max_err = max(max_err, stage_entry_phase(main_state, card))
 
     # ---- tier-1 closed loop ----
     half = LOOP_BATCH // 2
@@ -656,6 +1066,9 @@ def main():
     if not (res['walk_min_height'] > 0.4 and res['walk_vx_last50'] > 0.25
             and res['walk_x_final'] > 0.15):
         raise RuntimeError('closed loop: walking lanes out of band')
+
+    # ---- robustness: pushes, gait and mode schedules, FSM re-entry ----
+    robust_phase(card, dev)
 
     # ---- Cholesky kernels vs plain versions on the path's KKT matrices ----
     dense_scfg = dataclasses.replace(scfg, backend='auto')
@@ -1081,52 +1494,14 @@ def main():
     del rhs_long_col, qp_long
 
     # ---- polish: the kernel with polish_rounds=8 vs its plain version ----
-    pcfg = dataclasses.replace(scfg, polish_rounds=POLISH_ROUNDS)
-    # with a negative tolerance no lane can accept the polish: what differs
-    # from that run was accepted, and that run is the interior point without
-    # freeze, which only the kernel with polish runs
-    pcfg_off = dataclasses.replace(pcfg, polish_tol=-1.0)
     polish_err = 0.0
     # at 4,096 and ragged 4,099 lanes, and on the QPs of the main path
     for batch, parts in ((4096, scenario_parts(4096, 8, dev)),
                          (RAGGED_BATCH, scenario_parts(RAGGED_BATCH, 9, dev)),
                          (MAIN_BATCH, main_parts)):
-        sol_k = FR.solve_parts_cuda(parts, pcfg, q_diag, r_diag)
-        off_k = FR.solve_parts_cuda(parts, pcfg_off, q_diag, r_diag)
-        sol_p = FR.solve_parts_plain(parts, pcfg, q_diag, r_diag)
-        off_p = FR.solve_parts_plain(parts, pcfg_off, q_diag, r_diag)
-        torch.cuda.synchronize()
-        all_finite(polish_u=sol_k.u, polish_stats=torch.stack(
-            [sol_k.mu, sol_k.r_dual, sol_k.r_prim]), rejected_u=off_k.u)
-        acc_k = (sol_k.u != off_k.u).any(1)
-        acc_p = (sol_p.u != off_p.u).any(1)
-        both = acc_k & acc_p
-        same_set = float((acc_k == acc_p).float().mean())
-        du = (sol_k.u - sol_p.u).abs().amax(1)
-        du_both = float(du[both].max()) if bool(both.any()) else 0.0
-        du_any = float(du.max())
-        du_off = float((off_k.u - off_p.u).abs().max())
-        emit(dict(phase='polish', batch=batch,
-                  accepted_share_kernel=float(acc_k.float().mean()),
-                  accepted_share_plain=float(acc_p.float().mean()),
-                  same_set_share=same_set,
-                  max_abs_du_both_accept=du_both, max_abs_du_any=du_any,
-                  max_r_prim=float(sol_k.r_prim.max()),
-                  max_r_prim_accepted=float(sol_k.r_prim[acc_k].max())
-                  if bool(acc_k.any()) else None,
-                  max_abs_du_rejected=du_off))
-        if same_set < POLISH_SAME_SET:
-            raise RuntimeError(f'polish: kernel and plain accept the same '
-                               f'lanes on {same_set} < {POLISH_SAME_SET}')
-        if not du_both <= POLISH_ACCEPTED_TOL:
-            raise RuntimeError(f'polish: {du_both} N > {POLISH_ACCEPTED_TOL} '
-                               f'N on lanes both accept')
-        if not du_any <= POLISH_ANY_TOL:
-            raise RuntimeError(f'polish: {du_any} N > {POLISH_ANY_TOL} N')
-        if not du_off <= KERNEL_TOL:
-            raise RuntimeError(f'polish forced to reject: {du_off} N > '
-                               f'{KERNEL_TOL} N')
-        polish_err = max(polish_err, du_any)
+        polish_err = max(polish_err, hold_polish(
+            (FR.solve_parts_cuda, parts, q_diag, r_diag),
+            (FR.solve_parts_plain, parts, q_diag, r_diag), pcfg, 'polish'))
 
     def polish_run():
         return FR.solve_parts_cuda(main_parts, pcfg, q_diag, r_diag)

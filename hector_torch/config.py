@@ -261,17 +261,21 @@ class SolverConfig:
     polish_rho: float = 300.0
     polish_tol: float = 1e-6
     # solver backend (hector_torch.mpc.mpc_update):
-    #   'auto' | 'riccati_pallas' -> the fused Riccati interior point
+    #   'auto'                -> by the problem's device, as the reference
+    #                         resolves it by jax.default_backend()
+    #                         (hector/mpc.py:160-164): 'riccati_pallas' on
+    #                         the card, 'riccati' on the CPU
+    #   'riccati_pallas'      -> the fused Riccati interior point
     #                         (hector_torch/qp/fused_riccati.py): the CUDA
     #                         kernel for CUDA tensors, its plain PyTorch
     #                         version for CPU tensors; with polish_rounds > 0
-    #                         the kernel that carries the polish (the
-    #                         reference's 'auto' on a CPU backend is the
-    #                         Mehrotra 'riccati' instead, which is not ported
-    #                         yet: on CPU tensors the two differ by their
-    #                         float32 floors, a few mN)
+    #                         the kernel that carries the polish; horizon 10
     #   'riccati_pallas_interpret' -> the fused plain version on any device
     #                         (no kernel launch), with or without the polish
+    #   'riccati'             -> the stage solver (hector_torch/qp/riccati.py;
+    #                         Mehrotra unless mehrotra=False, polish when
+    #                         polish_rounds > 0) on any device, batched
+    #                         PyTorch ops, no kernel of its own
     #   the condensed dense interior point (hector_torch/qp/pdip.py):
     #   'dense_auto' | 'pallas' -> the CUDA Cholesky factor and solve kernels
     #                         (hector_torch/qp/chol.py) for CUDA tensors,
@@ -279,8 +283,7 @@ class SolverConfig:
     #   'pallas_interpret'    -> the plain versions on any device, in the
     #                         batch-minor layout of the TPU kernels
     #   'xla'                 -> torch.linalg on (B, n, n); only by name
-    #   'riccati' (the Mehrotra stage solver) and 'qpoases' are not ported
-    #   yet and raise NotImplementedError
+    #   'qpoases' is not ported yet and raises NotImplementedError
     backend: str = 'auto'
 
 

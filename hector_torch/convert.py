@@ -2,12 +2,16 @@
 
 This system has no weights; what crosses between ``hector`` and
 ``hector_torch`` is state: ``PlantState``, ``ControllerCarry``,
-``ScenarioCommand``, ``StageQPParts`` and ``QPData``.  A caller flattens a
-JAX pytree into a dict of numpy arrays keyed by the JAX field names (nested
-NamedTuples as nested dicts); ``from_numpy(cls, arrays, dtype, device)``
-builds the port's NamedTuple ``cls`` from it (e.g. ``srb.PlantState``,
-``runtime.ControllerCarry``, ``qp.builder.QPData``).  Nothing here touches
-JAX.
+``ScenarioCommand``, ``StageQPParts``, ``StageQPData``, ``QPData``, and the
+inputs of a rollout: a push (``disturbance``) and a command/mode schedule.
+A caller flattens a JAX pytree into a dict of numpy arrays keyed by the JAX
+field names (nested NamedTuples as nested dicts); ``from_numpy(cls, arrays,
+dtype, device)`` builds the port's NamedTuple ``cls`` from it (e.g.
+``srb.PlantState``, ``runtime.ControllerCarry``, ``qp.riccati.StageQPData``).
+``cls`` may also be ``torch.Tensor`` (one floating array, e.g. a
+disturbance), an integer torch dtype (one integer array, e.g. the mode
+commands) or a tuple of these (e.g. ``SCHEDULE``, a schedule given as
+``(cmd_t dict, mode_cmd_t array)``).  Nothing here touches JAX.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from . import control as C
 from . import estimation as EST
 from . import mpc as M
 from . import swing as SW
-from .runtime import ControllerCarry
+from .runtime import ControllerCarry, ScenarioCommand
 
 # NamedTuple fields that hold NamedTuples
 NESTED = {
@@ -29,17 +33,28 @@ NESTED = {
     EST.EstimatorState: dict(filt=EST.FilterState, kf=EST.KFState,
                              mahony=EST.MahonyState),
 }
+# a rollout schedule: (cmd_t, mode_cmd_t), runtime.make_rollout
+SCHEDULE = (ScenarioCommand, torch.int32)
 # integer fields keep their integer type (the FSM counters are int32)
 INT_FIELDS = {(ControllerCarry, 'tick'): torch.int32,
               (ControllerCarry, 'mode'): torch.int32,
               (EST.EstimatorState, 'key'): torch.int64}
 
 
-def from_numpy(cls, arrays: dict, dtype=torch.float32, device='cuda'):
+def from_numpy(cls, arrays, dtype=torch.float32, device='cuda'):
     """Build ``cls`` (a port NamedTuple) from a dict of numpy arrays keyed
-    by its field names.  Floating arrays become ``dtype``, booleans stay
-    booleans, the integer counters keep their integer type."""
+    by its field names, or a tensor or tuple as the module docstring says.
+    Floating arrays become ``dtype``, booleans stay booleans, the integer
+    counters keep their integer type."""
     dev = resolve_device(device)
+    if isinstance(cls, tuple):
+        return tuple(from_numpy(c, a, dtype, dev)
+                     for c, a in zip(cls, arrays, strict=True))
+    if cls is torch.Tensor:
+        return torch.tensor(np.asarray(arrays), device=dev).to(dtype)
+    if isinstance(cls, torch.dtype):
+        return torch.tensor(np.asarray(arrays).astype(np.int64),
+                            device=dev).to(cls)
     missing = set(cls._fields) - set(arrays)
     if missing:
         raise KeyError(f'{cls.__name__}: missing fields {sorted(missing)}')
@@ -63,7 +78,10 @@ def from_numpy(cls, arrays: dict, dtype=torch.float32, device='cuda'):
 
 def to_numpy(tree):
     """A port NamedTuple (nested allowed) as a dict of numpy arrays keyed by
-    field names, the inverse of :func:`from_numpy`."""
+    field names, a plain tuple as a tuple, a tensor as an array: the
+    inverse of :func:`from_numpy`."""
     if isinstance(tree, tuple) and hasattr(tree, '_fields'):
         return {k: to_numpy(v) for k, v in zip(tree._fields, tree)}
+    if isinstance(tree, tuple):
+        return tuple(to_numpy(v) for v in tree)
     return tree.detach().cpu().numpy()

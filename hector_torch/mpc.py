@@ -19,16 +19,18 @@ import torch
 from .config import HectorConfig, DEFAULT_CONFIG, JOINT_OFFSETS
 from . import math as hm
 from .kinematics import foot_rotation, hip_yaw_locations
-from .qp.builder import QPData, StageQPParts, build_qp, build_stage_parts
-from .qp import fused_riccati, pdip
+from .qp.builder import (QPData, StageQPParts, build_qp, build_stage_parts,
+                         build_stage_qp)
+from .qp import fused_riccati, pdip, riccati
 
-# SolverConfig.backend values by the problem form they solve
-RICCATI_BACKENDS = ('auto', 'riccati_pallas', 'riccati_pallas_interpret')
+# SolverConfig.backend values by the problem form they solve; 'auto' is one
+# of the first two by the problem's device (resolve_backend)
+RICCATI_BACKENDS = ('riccati_pallas', 'riccati_pallas_interpret')
+STAGE_BACKENDS = ('riccati',)
+DENSE_BACKENDS = ('dense_auto', 'pallas', 'pallas_interpret', 'xla')
 # not ported yet, with the ROADMAP.md queue item that ports each
 UNPORTED_BACKENDS = {
-    'riccati': "the Mehrotra stage solver, ROADMAP.md queue A item 6",
     'qpoases': "the qpOASES path, ROADMAP.md queue A item 14"}
-DENSE_BACKENDS = ('dense_auto', 'pallas', 'pallas_interpret', 'xla')
 
 
 class PlannerState(NamedTuple):
@@ -145,6 +147,18 @@ def build_parts(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
     return wpd, build_stage_parts(*args)
 
 
+def build_stage(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
+                yaw_rate, roll_des, pitch_des, gait_table,
+                cfg: HectorConfig = DEFAULT_CONFIG, i_body=None):
+    """One MPC solve up to the QP, in the full stage form: the
+    drift-clamped desired position (B, 3) and the ``StageQPData`` of the
+    batch (the Mehrotra stage solver, backend 'riccati')."""
+    wpd, args = _qp_inputs(state, est, leg_q, p_foot_w, v_des_robot,
+                           yaw_rate, roll_des, pitch_des, gait_table, cfg,
+                           i_body)
+    return wpd, build_stage_qp(*args)
+
+
 def build_dense(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
                 yaw_rate, roll_des, pitch_des, gait_table,
                 cfg: HectorConfig = DEFAULT_CONFIG, i_body=None):
@@ -157,44 +171,69 @@ def build_dense(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
     return wpd, build_qp(*args)
 
 
-def solve(problem, cfg: HectorConfig = DEFAULT_CONFIG):
-    """The backend switch (mpc.py:159-209).
+def resolve_backend(backend: str, device) -> str:
+    """'auto' by the device the problem lives on, as the reference resolves
+    it by ``jax.default_backend()`` (mpc.py:160-164): the fused Riccati
+    solver ('riccati_pallas') on the card, the Mehrotra stage solver
+    ('riccati') on the CPU.  Any other name is returned as it is."""
+    if backend != 'auto':
+        return backend
+    return 'riccati' if torch.device(device).type == 'cpu' else \
+        'riccati_pallas'
 
-    'auto' and 'riccati_pallas' run the fused Riccati interior point on
-    ``StageQPParts``: the CUDA kernel for CUDA tensors, its plain version
-    for CPU tensors, with the active-set polish when
-    ``cfg.solver.polish_rounds > 0``.  'riccati_pallas_interpret' runs the
-    plain version on any device (the reference runs the Pallas kernel in
-    interpret mode under that name).  'dense_auto', 'pallas',
-    'pallas_interpret' and 'xla' run the dense interior point
-    (hector_torch/qp/pdip.py) on ``QPData``; 'dense_auto' stands for the
-    solver's own 'auto'."""
-    backend = cfg.solver.backend
+
+def _builder(backend: str):
+    """The QP builder of a resolved backend name: (build function, the
+    problem type it returns)."""
     if backend in DENSE_BACKENDS:
-        if not isinstance(problem, QPData):
-            raise TypeError(f'backend {backend!r} solves QPData (build_dense)'
-                            f', got {type(problem).__name__}')
-        scfg = cfg.solver
-        if backend == 'dense_auto':
-            scfg = dataclasses.replace(scfg, backend='auto')
-        return pdip.solve_batched(problem, scfg)
+        return build_dense, QPData
+    if backend in STAGE_BACKENDS:
+        return build_stage, riccati.StageQPData
     if backend in UNPORTED_BACKENDS:
         raise NotImplementedError(
             f'solver backend {backend!r} is not ported yet: '
             f'{UNPORTED_BACKENDS[backend]}')
-    if backend not in RICCATI_BACKENDS:
-        raise ValueError(
-            f'unknown solver backend {backend!r}: one of '
-            f'{RICCATI_BACKENDS + DENSE_BACKENDS}')
-    if not isinstance(problem, StageQPParts):
-        raise TypeError(f'backend {backend!r} solves StageQPParts '
-                        f'(build_parts), got {type(problem).__name__}')
+    if backend in RICCATI_BACKENDS:
+        return build_parts, StageQPParts
+    raise ValueError(
+        f'unknown solver backend {backend!r}: one of '
+        f"{('auto',) + RICCATI_BACKENDS + STAGE_BACKENDS + DENSE_BACKENDS}")
+
+
+def solve(problem, cfg: HectorConfig = DEFAULT_CONFIG):
+    """The backend switch (mpc.py:159-209).
+
+    'auto' resolves by the problem's device (:func:`resolve_backend`).
+    'riccati_pallas' runs the fused Riccati interior point on
+    ``StageQPParts``: the CUDA kernel for CUDA tensors, its plain version
+    for CPU tensors, with the active-set polish when
+    ``cfg.solver.polish_rounds > 0``.  'riccati_pallas_interpret' runs the
+    plain version on any device (the reference runs the Pallas kernel in
+    interpret mode under that name).  'riccati' runs the stage solver
+    (hector_torch/qp/riccati.py, Mehrotra unless ``cfg.solver.mehrotra``
+    is off) on ``StageQPData`` on any device, at any horizon.
+    'dense_auto', 'pallas', 'pallas_interpret' and 'xla' run the dense
+    interior point (hector_torch/qp/pdip.py) on ``QPData``; 'dense_auto'
+    stands for the solver's own 'auto'."""
+    backend = resolve_backend(cfg.solver.backend, problem[0].device)
+    build, form = _builder(backend)
+    if not isinstance(problem, form):
+        raise TypeError(f'backend {backend!r} solves {form.__name__} '
+                        f'({build.__name__}), got {type(problem).__name__}')
+    if backend in DENSE_BACKENDS:
+        scfg = cfg.solver
+        if backend == 'dense_auto':
+            scfg = dataclasses.replace(scfg, backend='auto')
+        return pdip.solve_batched(problem, scfg)
+    if backend in STAGE_BACKENDS:
+        return riccati.solve_batched(problem, cfg.solver)
     # the kernel is built for the reference's fixed problem shape; a config
     # change must fail loudly here, not deep inside the kernel
     if cfg.mpc.horizon != fused_riccati.H:
         raise ValueError(
             f'the fused Riccati solver is built for horizon '
-            f'{fused_riccati.H}, config has {cfg.mpc.horizon}')
+            f'{fused_riccati.H}, config has {cfg.mpc.horizon}; use '
+            f"backend='riccati' for other horizons")
     solve_parts = (fused_riccati.solve_parts_plain
                    if backend == 'riccati_pallas_interpret'
                    else fused_riccati.solve_parts)
@@ -212,8 +251,8 @@ def mpc_update(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
     leg_q: (B, 2, 5) the offset-corrected data.q.  Returns (new
     PlannerState, per-leg world GRF/GRM (B, 2, 6), QPSolution).
     """
-    build = (build_dense if cfg.solver.backend in DENSE_BACKENDS
-             else build_parts)
+    build, _ = _builder(resolve_backend(cfg.solver.backend,
+                                        est.position.device))
     wpd, problem = build(state, est, leg_q, p_foot_w, v_des_robot, yaw_rate,
                          roll_des, pitch_des, gait_table, cfg, i_body)
     sol = solve(problem, cfg)

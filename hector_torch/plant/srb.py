@@ -83,14 +83,10 @@ def step(state: PlantState, cmd, wrench_world, contact_sched,
 
     cmd: MotorCommand ((B, 2, 5) arrays); wrench_world: (B, 2, 6) world
     GRF+GRM for stance legs; contact_sched: (B, 2) scheduled contact;
-    terrain: optional (step_height (B,), step_length (B,)).  The external
-    push input of the JAX plant (``disturbance``) is not ported yet
-    (ROADMAP.md queue A item 11) and raises.
+    disturbance: optional (B, 6) world wrench [force, torque] added to the
+    body's on this tick (a push); terrain: optional (step_height (B,),
+    step_length (B,)).
     """
-    if disturbance is not None:
-        raise NotImplementedError(
-            'srb.step(disturbance=...) is not ported yet (ROADMAP.md queue '
-            'A item 11)')
     dtype, dev = state.position.dtype, state.position.device
     pcfg = cfg.plant
     dt = torch.tensor(pcfg.dt, dtype=dtype, device=dev)
@@ -153,6 +149,9 @@ def step(state: PlantState, cmd, wrench_world, contact_sched,
     force = torch.cat([force[:, :2], (force[:, 2] + n_trunk)[:, None]], -1)
     r_arm = state.foot_anchor - state.position[:, None, :]
     torque = (hm.cross(r_arm, grf) + grm).sum(1)
+    if disturbance is not None:
+        force = force + disturbance[:, 0:3]
+        torque = torque + disturbance[:, 3:6]
 
     i_body = torch.diag(torch.tensor(pcfg.inertia_body, dtype=dtype,
                                      device=dev))

@@ -19,8 +19,10 @@ pipeline (SolverMPC.cpp:371-586) for the dense interior point
 where B~ is B_qp with the swing-leg columns zeroed, the static-shape
 equivalent of the reference's variable elimination (SolverMPC.cpp:589-697).
 
-The full stage form ``build_stage_qp`` serves the general stage solver,
-which is not ported yet (ROADMAP.md queue A item 6).
+The full stage form (``StageQPData``, ``build_stage_qp``) serves the
+general stage solver (hector_torch/qp/riccati.py): the one-step discrete
+dynamics Acd = I + dt A, Bcd = dt B (SolverMPC.cpp:145-146), with no
+condensing.
 """
 
 from __future__ import annotations
@@ -133,3 +135,33 @@ def build_stage_parts(x0, traj, r_body, r_foot, r_feet, i_body, gait_table,
     c_block = constraint_block(r_body, r_foot, cfg).to(dtype)
     lb, ub = constraint_bounds(gait_table.to(dtype), cfg)
     return StageQPParts(s69, scal, b69, u_mask, x0, xd, c_block, lb, ub)
+
+
+def build_stage_qp(x0, traj, r_body, r_foot, r_feet, i_body, gait_table,
+                   cfg: MPCConfig):
+    """Assemble the same MPC problems in stage form for the Riccati solver
+    (hector_torch/qp/riccati.py).  Inputs as in :func:`build_stage_parts`;
+    the horizon is the gait table's and the reference's row count."""
+    from .riccati import StageQPData
+
+    dtype, dev = x0.dtype, x0.device
+    bsz = x0.shape[0]
+    i_world = r_body @ i_body @ r_body.transpose(-1, -2)
+    a_ct, b_ct = ct_dynamics(
+        i_world, torch.tensor(cfg.mass, dtype=dtype, device=dev), r_feet,
+        euler_rate_matrix(x0[:, 0:3]))
+    dt = torch.tensor(cfg.dt_mpc, dtype=dtype, device=dev)
+    a_dt = torch.eye(13, dtype=dtype, device=dev) + dt * a_ct  # Acd
+    b_dt = dt * b_ct                                           # Bcd
+
+    u_mask = input_mask(gait_table).to(dtype)                  # (B, h, 12)
+    xd = torch.cat([traj, torch.zeros(traj.shape[:-1] + (1,), dtype=dtype,
+                                      device=dev)], dim=-1)    # (B, h, 13)
+    q_diag = torch.tensor(tuple(cfg.weights) + (0.0,), dtype=dtype,
+                          device=dev).expand(bsz, 13).contiguous()
+    r_diag = torch.tensor(cfg.alpha, dtype=dtype,
+                          device=dev).expand(bsz, 12).contiguous()
+    c_block = constraint_block(r_body, r_foot, cfg).to(dtype)
+    lb, ub = constraint_bounds(gait_table.to(dtype), cfg)
+    return StageQPData(a_dt, b_dt, u_mask, x0, xd, q_diag, r_diag, c_block,
+                       lb, ub)

@@ -10,6 +10,8 @@ active-set polish (``:542-610``):
 - :func:`solve_parts` is the entry point.  A CUDA tensor goes to a kernel
   (built with nvcc at first use into ``hector_torch/_build/``), a CPU tensor
   to :func:`solve_parts_plain`.  Nothing falls back from one to the other.
+  :func:`solve_batched` (and :func:`make_solver`) is the same on the full
+  stage form ``riccati.StageQPData``, whose slices it hands on.
 - :func:`solve_parts_plain` is the same algorithm in batched PyTorch ops on
   (B, ...) tensors, with the kernel's policies: one-sided rows, the pivot
   floor, s_floor, d_cap, the 1e8 clip, the rate form of the primal step and
@@ -97,6 +99,45 @@ def solve_parts(parts, scfg: SolverConfig, q_diag, r_diag) -> QPSolution:
     if dev.type == 'cpu':
         return solve_parts_plain(parts, scfg, q_diag, r_diag)
     raise ValueError(f'fused_riccati runs on cuda or cpu tensors, not {dev}')
+
+
+def stage_parts(sqp):
+    """The slices of a full stage form (``riccati.StageQPData``) that the
+    kernel reads, as ``StageQPParts`` (pallas_riccati.py:698-702): s69 =
+    a_dt[0:3, 6:9], scal = (a_dt[3, 9], a_dt[11, 12], b_dt[9, 0]), b69 =
+    b_dt[6:9, :].  ``build_stage_parts`` computes the same values directly
+    (b_dt[9, 0] = dt (1/m) there is dt/m, which may differ by an ulp)."""
+    from .builder import StageQPParts
+    a_dt, b_dt, u_mask, x0, xd, _, _, c_blk, lb, ub = sqp
+    scal = torch.stack([a_dt[:, 3, 9], a_dt[:, 11, 12], b_dt[:, 9, 0]], 1)
+    return StageQPParts(a_dt[:, 0:3, 6:9], scal, b_dt[:, 6:9, :], u_mask, x0,
+                        xd, c_blk, lb, ub)
+
+
+def solve_batched(sqp, scfg: SolverConfig = SolverConfig(), q_diag=None,
+                  r_diag=None) -> QPSolution:
+    """Solve a batch of stage QPs given in the full stage form
+    (``riccati.StageQPData``) with the fused solver: :func:`solve_parts`
+    on :func:`stage_parts`, so a CUDA tensor launches the kernel and a CPU
+    tensor runs the plain version.  ``q_diag`` / ``r_diag`` parameterize
+    the kernel; when not given they are read from the last row of
+    ``sqp.q_diag`` / ``sqp.r_diag`` (pallas_riccati.py:687-708)."""
+    if q_diag is None:
+        q_diag = tuple(sqp.q_diag.reshape(-1)[-NX:].tolist())
+    if r_diag is None:
+        r_diag = tuple(sqp.r_diag.reshape(-1)[-NU:].tolist())
+    return solve_parts(stage_parts(sqp), scfg, q_diag, r_diag)
+
+
+def make_solver(scfg: SolverConfig = SolverConfig(), q_diag=None,
+                r_diag=None):
+    """:func:`solve_batched` as one callable ``solver(sqp)`` (the JAX
+    ``make_solver`` is its vmappable form, pallas_riccati.py:782-806)."""
+
+    def solver(sqp) -> QPSolution:
+        return solve_batched(sqp, scfg, q_diag, r_diag)
+
+    return solver
 
 
 # --------------------------------------------------------------------------

@@ -25,6 +25,14 @@ from .kinematics import foot_position, leg_jacobians
 
 N_SEGMENTS = 10  # gait table length == MPC horizon (GaitGenerator ctor args)
 
+# user mode commands, per lane and period (the batched analog of the
+# UserCommand keys, src/interface/KeyBoard.cpp:31-93, and FSM
+# checkTransition): MODE_CMD_NONE keeps the mode; C.MODE_PASSIVE (0) goes
+# limp (FSMState_Walking.cpp:49-51); C.MODE_WALKING (1) re-enters walking
+# (FSMState_Passive.cpp:33-39, where the reference lacks a `return`; the
+# intended transition is implemented, as in the JAX package)
+MODE_CMD_NONE = -1
+
 
 class ScenarioCommand(NamedTuple):
     """Per-scenario teleop command + gait selection; every field (B,) except
@@ -110,6 +118,55 @@ def init_controller_carry(plant: srb.PlantState,
         command=C.CommandState(yaw_des=torch.zeros((bsz,), dtype=dtype,
                                                    device=dev)),
         est=EST.est_init(plant, cfg))
+
+
+def reentry_estimate(estimator: str, carry: ControllerCarry,
+                     plant: srb.PlantState) -> C.StateEstimate:
+    """The state estimate available at an FSM re-entry, per estimator kind:
+    the cheater re-enters from ground truth, as the reference does.  The
+    'kf' and 'filtered' kinds re-enter from their own filter state, which
+    is not ported yet (ROADMAP.md queue A item 12), and raise."""
+    if estimator in ('kf', 'filtered'):
+        raise NotImplementedError(
+            f'reentry_estimate({estimator!r}) is not ported yet (ROADMAP.md '
+            f'queue A item 12)')
+    return C.estimate_state(plant.position, plant.v_world, plant.quat,
+                            plant.omega_world)
+
+
+def reenter_walking(carry: ControllerCarry, plant: srb.PlantState,
+                    cfg: HectorConfig = DEFAULT_CONFIG,
+                    est: C.StateEstimate = None) -> ControllerCarry:
+    """FSMState_Walking::enter() + ConvexMPCLocomotion firstRun
+    (ConvexMPCLocomotion.cpp:66-111): the planner, swing and command carry
+    re-initialized at the current state of every lane.  est: the estimate
+    to re-enter from (reentry_estimate); None = ground truth."""
+    dtype = plant.position.dtype
+    if est is None:
+        est = C.estimate_state(plant.position, plant.v_world, plant.quat,
+                               plant.omega_world)
+    p_foot_w = M.foot_positions_world(est, foot_position(plant.q, cfg), cfg)
+    return carry._replace(
+        planner=M.init_planner_state(est.position, dtype),
+        swing=SW.init_swing_state(p_foot_w, dtype),
+        command=C.CommandState(yaw_des=torch.zeros_like(est.position[:, 0])))
+
+
+def apply_mode_command(carry: ControllerCarry, plant: srb.PlantState,
+                       mode_cmd, cfg: HectorConfig = DEFAULT_CONFIG,
+                       estimator: str = 'cheater') -> ControllerCarry:
+    """The FSM NORMAL/CHANGE step (FSM.cpp:37-54) per lane: a non-negative
+    mode_cmd (B,) requests that mode; a lane entering WALKING re-runs the
+    walking enter() initialization from the estimate its estimator kind
+    provides (reentry_estimate)."""
+    req = torch.as_tensor(mode_cmd, dtype=carry.mode.dtype,
+                          device=carry.mode.device).expand_as(carry.mode)
+    new_mode = torch.where(req >= 0, req, carry.mode)
+    entering_walk = ((new_mode == C.MODE_WALKING)
+                     & (carry.mode != C.MODE_WALKING))
+    fresh = reenter_walking(carry, plant, cfg,
+                            est=reentry_estimate(estimator, carry, plant))
+    return _where_tree(entering_walk, fresh, carry)._replace(mode=new_mode)
 
 
 def controller_tick(carry: ControllerCarry, plant: srb.PlantState,
@@ -216,34 +273,51 @@ def make_rollout(n_periods: int, cfg: HectorConfig = DEFAULT_CONFIG,
                  with_disturbance: bool = False, estimator: str = 'cheater',
                  with_schedule: bool = False):
     """A rollout of ``n_periods`` MPC periods (5 ticks each) over the tier-1
-    plant: rollout(carry, plant, cmd) -> (carry', plant', diagnostics), the
-    diagnostics stacked as (B, n_periods, ...).
+    plant, returning (carry', plant', diagnostics), the diagnostics stacked
+    as (B, n_periods, ...).  Its call form follows the two switches, as in
+    the JAX package (runtime.py:356-367):
+
+        rollout(carry, plant, cmd[, disturbance][, schedule])
+
+    with_disturbance: ``disturbance`` (B, n_periods, 6) is a world wrench
+    [force, torque] added to the body on every tick of its period (pushes;
+    the analog of external_force teleop, external_force.cpp).
+
+    with_schedule: ``schedule = (cmd_t, mode_cmd_t)``.  cmd_t is a
+    ScenarioCommand with (B, n_periods, ...) fields that replaces ``cmd``
+    in each period (teleop trajectories, gait switches, terrain);
+    mode_cmd_t (B, n_periods) int32 holds the user mode commands
+    (MODE_CMD_NONE, C.MODE_PASSIVE, C.MODE_WALKING), applied before each
+    period's ticks (apply_mode_command).
 
     Lanes that go non-finite in a period are frozen at their last finite
     state and flipped passive (NaN quarantine, runtime.py:330-347).  The
-    push input, the command/mode schedule and the non-cheater estimators
-    are not ported yet (ROADMAP.md queue A items 11 and 12) and raise.
+    non-cheater estimators are not ported yet (ROADMAP.md queue A item 12)
+    and raise.
     """
-    if with_disturbance or with_schedule:
-        raise NotImplementedError(
-            'make_rollout(with_disturbance/with_schedule) is not ported yet '
-            '(ROADMAP.md queue A item 11)')
     EST.require_cheater(estimator)
 
-    def rollout(carry, plant, cmd):
-        terrain = (cmd.terrain_step_height, cmd.terrain_step_length)
+    def rollout(carry, plant, cmd, disturbance=None, schedule=None):
         diags = []
-        for _ in range(n_periods):
+        for t in range(n_periods):
+            cmd_t = (ScenarioCommand(*[f[:, t] for f in schedule[0]])
+                     if with_schedule else cmd)
+            dist = disturbance[:, t] if with_disturbance else None
+            terrain = (cmd_t.terrain_step_height, cmd_t.terrain_step_length)
             c0, p0 = carry, plant
             c, p = c0, p0
+            if with_schedule:
+                c = apply_mode_command(c, p, schedule[1][:, t], cfg,
+                                       estimator=estimator)
             diag0 = None
             for k in range(cfg.mpc.mpc_cadence):
                 c, motor_cmd, wrench, stance, diag = controller_tick(
-                    c, p, cmd, do_mpc=(k == 0), cfg=cfg, estimator=estimator)
+                    c, p, cmd_t, do_mpc=(k == 0), cfg=cfg,
+                    estimator=estimator)
                 if k == 0:
                     diag0 = {**diag, 'wrench': wrench, 'contact': stance}
-                p = srb.step(p, motor_cmd, wrench, stance, terrain=terrain,
-                             cfg=cfg)
+                p = srb.step(p, motor_cmd, wrench, stance, disturbance=dist,
+                             terrain=terrain, cfg=cfg)
             healthy = (C.finite_lanes(p.position) & C.finite_lanes(p.v_world)
                        & C.finite_lanes(p.quat) & C.finite_lanes(p.q))
             plant = _where_tree(healthy, p, p0)
@@ -258,4 +332,17 @@ def make_rollout(n_periods: int, cfg: HectorConfig = DEFAULT_CONFIG,
                    for key in diags[0]}
         return carry, plant, stacked
 
-    return rollout
+    if with_disturbance and with_schedule:
+        return rollout
+    if with_disturbance:
+        def pushed(carry, plant, cmd, disturbance):
+            return rollout(carry, plant, cmd, disturbance=disturbance)
+        return pushed
+    if with_schedule:
+        def scheduled(carry, plant, cmd, schedule):
+            return rollout(carry, plant, cmd, schedule=schedule)
+        return scheduled
+
+    def plain(carry, plant, cmd):
+        return rollout(carry, plant, cmd)
+    return plain

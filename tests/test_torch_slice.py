@@ -2,9 +2,11 @@
 short tier-1 closed loop, and the port importing without JAX.
 
 Main path: JAX runs ``backend='riccati'`` with ``mehrotra=False``, the
-fixed-sigma interior point that the fused kernel (and so the port's solver)
-computes.  JAX's own CPU default would pick the Mehrotra solver
-(mpc.py:163-164).  Dense path: both sides run the condensed dense interior
+fixed-sigma interior point that the fused kernel computes, and the port
+runs ``backend='riccati_pallas'``, the fused solver (its plain version on
+CPU tensors).  The default ``'auto'`` is the Mehrotra stage solver on a CPU
+on both sides (mpc.py:163-164), held to JAX in tests/test_torch_riccati.py.
+Dense path: both sides run the condensed dense interior
 point under the same backend name, ``'xla'`` or ``'pallas_interpret'``.
 """
 
@@ -36,6 +38,7 @@ from hector_torch import runtime as TRT
 from hector_torch.plant import srb as TSRB
 from hector_torch.config import DEFAULT_CONFIG as TCFG
 from hector_torch.qp import builder as TB
+from hector_torch.qp import riccati as TR
 
 # the batches here are tiny; one intra-op thread per test worker keeps
 # parallel test workers from oversubscribing the CPU
@@ -49,6 +52,11 @@ REPO = Path(__file__).resolve().parent.parent
 def _with_solver(cfg, **kw):
     return dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver,
                                                                **kw))
+
+
+# the port's side of JCFG_FS: the fused solver by name ('auto' on CPU
+# tensors is the Mehrotra stage solver)
+TCFG_FS = _with_solver(TCFG, backend='riccati_pallas')
 
 
 def todict(tree):
@@ -126,7 +134,7 @@ def test_plan_step_chain_matches_jax(jdtype, tdtype, tol):
     carry, plant, cmd = _jax_batch(8, jdtype, seed=0)
     t_carry, t_plant, t_cmd = _to_port(carry, plant, cmd, tdtype)
     j_step = jax.jit(jax.vmap(JRT.plan_step_fn(JCFG_FS)))
-    t_step = TRT.plan_step_fn(TCFG)
+    t_step = TRT.plan_step_fn(TCFG_FS)
     for _ in range(3):
         carry, j_wrench, j_motor = j_step(carry, plant, cmd)
         t_carry, t_wrench, t_motor = t_step(t_carry, t_plant, t_cmd)
@@ -235,7 +243,7 @@ def test_dense_matches_fused_riccati_in_closed_loop():
     plant = TSRB.init_plant_state(2, TCFG, dtype=torch.float64, device='cpu')
     cmd = TRT.walking_command(2, vx=0.4, dtype=torch.float64, device='cpu')
     cfg_d = _with_solver(TCFG, backend='dense_auto')
-    cfg_r = TCFG
+    cfg_r = TCFG_FS
     c_d = c_r = TRT.init_controller_carry(plant, TCFG)
     for tick in range(6):
         do = tick % TCFG.mpc.mpc_cadence == 0
@@ -249,22 +257,31 @@ def test_dense_matches_fused_riccati_in_closed_loop():
         plant = TSRB.step(plant, motor_d, w_d, s_d, cfg=TCFG)
 
 
-@pytest.mark.parametrize('backend', ['dense_auto', 'pallas', 'auto',
-                                     'riccati_pallas'])
+# what each backend name solves on CPU tensors: (builder, problem form)
+FORMS = {'dense_auto': (TM.build_dense, TB.QPData),
+         'pallas': (TM.build_dense, TB.QPData),
+         'auto': (TM.build_stage, TR.StageQPData),
+         'riccati': (TM.build_stage, TR.StageQPData),
+         'riccati_pallas': (TM.build_parts, TB.StageQPParts)}
+
+
+@pytest.mark.parametrize('backend', list(FORMS))
 def test_solve_checks_its_problem_form(backend):
-    """mpc.solve takes QPData under the dense backends and StageQPParts
-    under the fused Riccati backends, and says so when handed the other."""
+    """mpc.solve takes QPData under the dense backends, StageQPData under
+    'riccati' (and 'auto' on CPU tensors) and StageQPParts under the fused
+    Riccati backends, and says so when handed another form."""
     carry, plant, cmd = _to_port(*_jax_batch(2, jnp.float64, 6),
                                  torch.float64)
     args = _port_mpc_args(carry, plant, cmd)
     cfg = _with_solver(TCFG, backend=backend)
-    dense = backend in TM.DENSE_BACKENDS
-    _, right = (TM.build_dense if dense else TM.build_parts)(*args, cfg)
-    _, wrong = (TM.build_parts if dense else TM.build_dense)(*args, cfg)
-    assert isinstance(right, TB.QPData if dense else TB.StageQPParts)
+    build, form = FORMS[backend]
+    _, right = build(*args, cfg)
+    wrong_build = TM.build_parts if form is TB.QPData else TM.build_dense
+    _, wrong = wrong_build(*args, cfg)
+    assert isinstance(right, form)
     sol = TM.solve(right, cfg)
     assert sol.u.shape == (2, 120) and torch.isfinite(sol.u).all()
-    with pytest.raises(TypeError, match='QPData' if dense else 'StageQPParts'):
+    with pytest.raises(TypeError, match=form.__name__):
         TM.solve(wrong, cfg)
 
 
@@ -274,7 +291,7 @@ def test_rollout_matches_jax_period_by_period():
     t_carry, t_plant, t_cmd = _to_port(carry, plant, cmd, torch.float64)
     j_roll = JRT.make_rollout(n_periods, JCFG_FS, batched=True)
     carry, plant, j_diags = j_roll(carry, plant, cmd)
-    t_carry, t_plant, t_diags = TRT.make_rollout(n_periods, TCFG)(
+    t_carry, t_plant, t_diags = TRT.make_rollout(n_periods, TCFG_FS)(
         t_carry, t_plant, t_cmd)
     t_diags = {k: v.numpy() for k, v in t_diags.items()}
     j_diags = todict(j_diags)
@@ -308,21 +325,19 @@ def test_rollout_quarantines_non_finite_lane():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match='item 11'):
-        TRT.make_rollout(2, TCFG, with_disturbance=True)
+    """What is still to port says which ROADMAP item ports it; the fused
+    backends keep their horizon guard."""
     with pytest.raises(NotImplementedError, match='item 12'):
         TRT.make_rollout(2, TCFG, estimator='kf')
-    cfg = dataclasses.replace(TCFG, solver=dataclasses.replace(
-        TCFG.solver, backend='riccati'))
     carry, plant, cmd = _to_port(*_jax_batch(2, jnp.float64, 3),
                                  torch.float64)
-    with pytest.raises(NotImplementedError, match='item 6'):
-        TRT.plan_step_fn(cfg)(carry, plant, cmd)
+    with pytest.raises(NotImplementedError, match='item 12'):
+        TRT.reentry_estimate('kf', carry, plant)
     with pytest.raises(NotImplementedError, match='item 14'):
         TRT.plan_step_fn(_with_solver(TCFG, backend='qpoases'))(
             carry, plant, cmd)
-    cfg = dataclasses.replace(TCFG, mpc=dataclasses.replace(TCFG.mpc,
-                                                            horizon=8))
+    cfg = dataclasses.replace(TCFG_FS, mpc=dataclasses.replace(TCFG.mpc,
+                                                               horizon=8))
     with pytest.raises(ValueError, match='horizon'):
         TRT.plan_step_fn(cfg)(carry, plant, cmd)
 
@@ -336,7 +351,7 @@ import dataclasses
 import torch
 from hector_torch import runtime as RT
 from hector_torch import srbd, convert
-from hector_torch.qp import builder, chol, pdip, fused_riccati
+from hector_torch.qp import builder, chol, pdip, fused_riccati, riccati
 from hector_torch.plant import srb
 from hector_torch.config import DEFAULT_CONFIG as CFG
 
@@ -347,12 +362,25 @@ carry, wrench, motor = RT.plan_step_fn(CFG)(carry, plant, cmd)
 carry, wrench, motor = RT.plan_step_fn(CFG)(carry, plant, cmd)
 assert torch.isfinite(wrench).all() and torch.isfinite(motor.tau).all()
 for kw in (dict(backend='dense_auto'), dict(backend='xla'),
+           dict(backend='riccati'), dict(backend='riccati_pallas'),
            dict(polish_rounds=2)):
     cfg = dataclasses.replace(CFG, solver=dataclasses.replace(CFG.solver,
                                                               **kw))
     _, w2, _ = RT.plan_step_fn(cfg)(carry, plant, cmd)
     assert torch.isfinite(w2).all()
     assert float((w2 - wrench).abs().max()) < 1.0
+# a push and a schedule: a gait switch, passive and walking again
+n = 4
+sched_cmd = RT.ScenarioCommand(*[f[:, None].expand((2, n) + f.shape[1:])
+                                 for f in RT.standing_command(2, device='cpu')])
+modes = torch.tensor([[0, -1, 1, -1], [-1, -1, -1, -1]], dtype=torch.int32)
+push = torch.zeros((2, n, 6))
+push[:, 1, 1] = 40.0
+roll = RT.make_rollout(n, CFG, with_disturbance=True, with_schedule=True)
+c2, p2, d2 = roll(RT.init_controller_carry(plant, CFG), plant, cmd, push,
+                  (sched_cmd, modes))
+assert d2['mode'][0].tolist() == [0, 0, 1, 1]
+assert torch.isfinite(p2.position).all() and not d2['quarantined'].any()
 assert not any(m == 'jax' or m.startswith(('jax.', 'hector.'))
                or m == 'hector' for m in sys.modules if sys.modules[m])
 print('ok')
