@@ -49,6 +49,25 @@ Phases, one JSON line each:
               periods at 16 lanes on the card and on the CPU under
               'riccati_pallas': every period's wrench within 1e-2 N, the
               final plant state within ROBUST_SHORT_STATE_TOL;
+  estimators  make_rollout driven by the noisy estimators 'kf' (Mahony +
+              contact-aided KF) and 'filtered', EST_PERIODS periods (1 s) at
+              EST_BATCH lanes walking at 0.5 m/s, each lane's noise keyed
+              fold_in(PRNGKey(7), lane): the checks of
+              tests/test_estimation.py:149-178, one launch of the kernel
+              without polish a period and nothing else, the tier-1 loop's
+              speed; one est_update('kf') tick timed, and run under
+              torch.cuda.set_sync_debug_mode('error'); the same rollout for
+              10 periods at 16 lanes on the card and on the CPU under
+              'riccati_pallas' with the same keys (estimators_card_vs_cpu);
+  whole_body  make_rollout_whole_body (the articulated tier-2 plant) for
+              WB_PERIODS periods (0.5 s) at WB_BATCH lanes, half standing
+              and half walking at 0.3 m/s under the cheater, then every lane
+              walking at 0.5 m/s under 'kf': the checks of
+              tests/test_whole_body.py:79-96,154-181 that hold at that
+              horizon, one launch a period, the loop's speed; one WB.step
+              timed and run without a synchronisation; the 'kf' rollout for
+              10 periods at 16 lanes on the card and on the CPU
+              (whole_body_card_vs_cpu);
   chol        the Cholesky factor and solve kernels against their plain
               versions on the KKT matrices the dense interior point meets on
               closed-loop states (at its start and at iteration 5), at 4,096
@@ -191,6 +210,37 @@ ROBUST_SHORT_EVENTS = dict(push=(2, 6), passive=3, walk_again=6,
 # rad and 3.6e-5 rad/s (qd) from float64 and its wrench 5.2e-3 N; the bars
 # are 3-200 times those.
 ROBUST_SHORT_STATE_TOL = {'*': 1e-4, 'qd': 1e-3}
+# the noisy estimators on the tier-1 loop: every lane walking at 0.5 m/s,
+# its sensor noise keyed fold_in(PRNGKey(7), lane) as
+# tests/test_estimation.py keys its lanes
+EST_BATCH = LOOP_BATCH
+EST_PERIODS = 200
+# the KF's position error is checked at the test's own horizon, 150 periods:
+# x is its unobservable gauge mode and drifts (a float32 CPU rehearsal at 32
+# lanes: at most 0.059 m after 150 periods, 0.074 m after 200; bar 0.08)
+EST_CHECK_PERIODS = 150
+EST_SHORT_BATCH = 16
+EST_SHORT_PERIODS = 10
+# the tier-2 plant: half the lanes standing and half walking at 0.3 m/s under
+# the cheater, then every lane walking at 0.5 m/s under 'kf' (keys
+# fold_in(PRNGKey(5), lane)); 100 periods (0.5 s)
+WB_BATCH = LOOP_BATCH
+WB_PERIODS = 100
+WB_SHORT_BATCH = 16
+WB_SHORT_PERIODS = 10
+# tests/test_whole_body.py's progress bars pro rata to WB_PERIODS: x > 0.15
+# m after 300 periods at 0.3 m/s, x > 0.8 m after 600 periods at 0.5 m/s
+# under 'kf'.  A float32 CPU rehearsal with the plain solver reached 0.083
+# and 0.154 m (8 and 4 lanes)
+WB_WALK_X_MIN = 0.15 * WB_PERIODS / 300
+WB_KF_X_MIN = 0.8 * WB_PERIODS / 600
+WB_VY_SHARE = 0.99
+# Card against CPU on the short rollouts, both float32 with the same noise
+# keys: the bars of the robust phase.  With the noise off, the same short
+# rollouts in float32 on the CPU are within 4.2e-3 N (wrench), 1.8e-7 m,
+# 1.1e-6 m/s, 6.3e-6 rad/s (omega), 3.7e-5 rad/s (qd), 1.5e-6 (KF state) of
+# float64 (tier 2; tier 1 'kf' 1.1e-4 N and 1.3e-5 rad/s qd), every contact
+# flag equal
 
 
 def emit(obj):
@@ -859,6 +909,289 @@ def robust_phase(card, dev):
                            f'equal {same_flags}, re-entered {re_entered}')
 
 
+def estimator_checks(kind, diags, carry, plant):
+    """The checks of tests/test_estimation.py:149-178 on a walk at 0.5 m/s
+    driven by ``kind`` (carry and plant: the state after EST_CHECK_PERIODS
+    periods): (measured values, failed check names)."""
+    h = diags['height'].cpu()
+    vx = diags['vx'].cpu()
+    res = dict(fallen_lanes=int(diags['fallen'].any(1).sum()),
+               min_vx_last50=float(vx[:, -50:].mean(1).min()),
+               min_height_last50=float(h[:, -50:].min()))
+    bars = dict(fallen_lanes=lambda v: v == 0,
+                min_vx_last50=lambda v: v > 0.2,
+                min_height_last50=lambda v: v > (0.38 if kind == 'kf'
+                                                 else 0.4))
+    if kind == 'kf':
+        res['max_kf_position_error'] = float(
+            (carry.est.kf.x[:, 0:3] - plant.position).abs().max())
+        bars['max_kf_position_error'] = lambda v: v < 0.08
+    return res, [k for k, ok in bars.items() if not ok(res[k])]
+
+
+def card_vs_cpu(phase, make, periods, batch, keys_seed, make_plant,
+                make_cmd, dev, **labels):
+    """The same short rollout (``make(cfg)``) on the card and on the CPU,
+    float32, the fused solver on both (the kernel and its plain version),
+    the same per-lane noise keys: every period's wrench within STEP_TOL,
+    the final plant state and the estimator's KF state and quaternion
+    within ROBUST_SHORT_STATE_TOL, every mode, contact and fall flag equal.
+    Emits the phase's line; raises when a bar is missed."""
+    from hector_torch import prng
+    from hector_torch.config import DEFAULT_CONFIG as CFG
+    out = {}
+    for where in ('card', 'cpu'):
+        d = dev if where == 'card' else torch.device('cpu')
+        plant = make_plant(batch, d)
+        roll = make(with_solver(CFG, backend='riccati_pallas'))
+        carry = roll.init(plant, prng.fold_in(prng.PRNGKey(keys_seed, d),
+                                              torch.arange(batch, device=d)))
+        c, p, diags = roll(carry, plant, make_cmd(batch, d))
+        out[where] = (to_cpu(c), to_cpu(p),
+                      {k: v.cpu() for k, v in diags.items()})
+    (c_k, p_k, d_k), (c_c, p_c, d_c) = out['card'], out['cpu']
+    d_w = float((d_k['wrench'] - d_c['wrench']).abs().max())
+    d_state = {name: float((a.double() - b.double()).abs().max())
+               for name, a, b in zip(p_k._fields, p_k, p_c)
+               if a.dtype.is_floating_point}
+    d_est = {'kf_x': float((c_k.est.kf.x - c_c.est.kf.x).abs().max()),
+             'mahony_quat': float((c_k.est.mahony.quat
+                                   - c_c.est.mahony.quat).abs().max())}
+    flags = bool(torch.equal(d_k['mode'], d_c['mode'])
+                 and torch.equal(d_k['contact'], d_c['contact'])
+                 and torch.equal(d_k['fallen'], d_c['fallen'])
+                 and all(torch.equal(a, b) for a, b in zip(p_k, p_c)
+                         if a.dtype == torch.bool))
+    emit(dict(phase=phase, **labels, batch=batch, periods=periods,
+              max_abs_wrench=d_w, max_abs_state=d_state,
+              max_abs_estimator=d_est, flags_equal=flags,
+              wrench_scale=float(d_c['wrench'].abs().max())))
+    bad = {k: v for k, v in {**d_state, **d_est}.items()
+           if not v <= ROBUST_SHORT_STATE_TOL.get(
+               k, ROBUST_SHORT_STATE_TOL['*'])}
+    if not (d_w <= STEP_TOL and not bad and flags):
+        raise RuntimeError(f'{phase} {labels}: wrench {d_w} N (bar '
+                           f'{STEP_TOL}), out of bar {bad}, flags equal '
+                           f'{flags}')
+
+
+def timed_rollout(roll, carry, plant, cmd, periods, CFG):
+    """One rollout on the card, host clock, synchronised: (carry, plant,
+    diagnostics, seconds, simulated s per wall s, launches of <false>, of
+    everything else)."""
+    from hector_torch.qp import chol as CH
+    from hector_torch.qp import fused_riccati as FR
+    torch.cuda.synchronize()
+    FR.launches = FR.polish_launches = 0
+    reset_chol_counts(CH)
+    t0 = time.perf_counter()
+    carry, plant, diags = roll(carry, plant, cmd)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    others = FR.polish_launches + sum(chol_counts(CH).values())
+    return (carry, plant, diags, sec,
+            periods * CFG.mpc.mpc_cadence * CFG.plant.dt / sec,
+            FR.launches, others)
+
+
+def check_launches(phase, launches, others, periods):
+    if (launches, others) != (periods, 0):
+        raise RuntimeError(f'{phase}: <false> launched {launches} times and '
+                           f'the other kernels {others}, expected {periods} '
+                           f'and 0')
+
+
+def without_sync(name, fn):
+    """fn() under torch.cuda.set_sync_debug_mode('error'): a call that
+    waits on the card raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        fn()
+    except RuntimeError as err:
+        raise RuntimeError(f'{name} synchronises with the card: {err}')
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def estimators_phase(card, dev):
+    """The tier-1 loop driven by the noisy estimators ('kf', 'filtered') at
+    EST_BATCH lanes for EST_PERIODS periods, each lane walking at 0.5 m/s
+    with its own noise key: the checks of tests/test_estimation.py, one
+    <false> launch a period; the 'kf' tick timed and run without a
+    synchronisation; the same rollout short on the card and the CPU."""
+    from hector_torch import estimation as EST
+    from hector_torch import prng
+    from hector_torch import runtime as RT
+    from hector_torch.plant import srb
+    from hector_torch.config import DEFAULT_CONFIG as CFG
+
+    for kind in ('kf', 'filtered'):
+        plant = srb.init_plant_state(EST_BATCH, CFG, device=dev)
+        first = RT.make_rollout(EST_CHECK_PERIODS, CFG, estimator=kind)
+        rest = RT.make_rollout(EST_PERIODS - EST_CHECK_PERIODS, CFG,
+                               estimator=kind)
+        carry = first.init(plant, prng.fold_in(
+            prng.PRNGKey(7, dev), torch.arange(EST_BATCH, device=dev)))
+        cmd = RT.walking_command(EST_BATCH, vx=0.5, device=dev)
+        c_mid, p_mid, d_a, sec_a, _, launches, others = timed_rollout(
+            first, carry, plant, cmd, EST_CHECK_PERIODS, CFG)
+        carry, plant, d_b, sec_b, _, launches_b, others_b = timed_rollout(
+            rest, c_mid, p_mid, cmd, EST_PERIODS - EST_CHECK_PERIODS, CFG)
+        diags = {k: torch.cat([d_a[k], d_b[k]], dim=1) for k in d_a}
+        sec, launches = sec_a + sec_b, launches + launches_b
+        others += others_b
+        rate = EST_PERIODS * CFG.mpc.mpc_cadence * CFG.plant.dt / sec
+        all_finite(est_position=plant.position, est_height=diags['height'])
+        res, failed = estimator_checks(kind, diags, c_mid, p_mid)
+        rec = dict(phase='estimators', estimator=kind, batch=EST_BATCH,
+                   periods=EST_PERIODS, launches=launches,
+                   other_launches=others, seconds=sec, sim_s_per_wall_s=rate,
+                   checks=res, failed=failed, card=card)
+        if kind == 'kf':
+            obs = plant
+            rec['kf_tick_ms'] = cuda_ms(
+                lambda: EST.est_update('kf', carry.est, obs, CFG), 20)
+            without_sync("est_update('kf')",
+                         lambda: EST.est_update('kf', carry.est, obs, CFG))
+            rec['kf_tick_synchronises'] = False
+        emit(rec)
+        check_launches(f'estimators ({kind})', launches, others, EST_PERIODS)
+        if failed:
+            raise RuntimeError(f'estimators ({kind}): {failed} failed')
+
+        card_vs_cpu(
+            'estimators_card_vs_cpu',
+            lambda cfg: RT.make_rollout(EST_SHORT_PERIODS, cfg,
+                                        estimator=kind),
+            EST_SHORT_PERIODS, EST_SHORT_BATCH, 7,
+            lambda b, d: srb.init_plant_state(b, CFG, device=d),
+            lambda b, d: RT.walking_command(b, vx=0.5, device=d), dev,
+            estimator=kind)
+
+
+def whole_body_checks(diags, plant, walking, carry=None):
+    """The checks of tests/test_whole_body.py:79-96 (cheater: standing
+    lanes hold their height, walking lanes stay up and move) and :154-181
+    ('kf', carry given: the estimate tracks the truth) that hold at
+    WB_PERIODS periods: (measured values, failed check names)."""
+    from hector_torch import math as hm
+    h = diags['height'].cpu()
+    fallen = diags['fallen'].cpu().any(1)
+    pos = plant.position.cpu()
+    res, bars = {}, {}
+    if carry is None:
+        stand = ~walking.cpu()
+        res.update(
+            fallen_lanes=int(fallen.sum()),
+            stand_height_last50=[float(h[stand, -50:].mean(1).min()),
+                                 float(h[stand, -50:].mean(1).max())],
+            walk_min_height=float(h[~stand].min()),
+            walk_min_x_final=float(pos[~stand, 0].min()))
+        bars.update(
+            fallen_lanes=lambda v: v == 0,
+            stand_height_last50=lambda v: 0.5 < v[0] and v[1] < 0.6,
+            walk_min_height=lambda v: v > 0.4,
+            walk_min_x_final=lambda v: v > WB_WALK_X_MIN)
+    else:
+        est = carry.est.kf.x.cpu()
+        v = plant.v_world.cpu()
+        rpy_err = (hm.quat_to_rpy(carry.est.mahony.quat)
+                   - hm.quat_to_rpy(plant.quat)).cpu()
+        vy_err = (est[:, 4] - v[:, 1]).abs()
+        res.update(
+            fallen_lanes=int(fallen.sum()),
+            min_x_final=float(pos[:, 0].min()),
+            min_z_final=float(pos[:, 2].min()),
+            max_z_error=float((est[:, 2] - pos[:, 2]).abs().max()),
+            max_y_error=float((est[:, 1] - pos[:, 1]).abs().max()),
+            max_vy_error=float(vy_err.max()),
+            vy_error_share_within_bar=float((vy_err < 0.05).double().mean()),
+            max_roll_pitch_error=float(rpy_err[:, :2].abs().max()),
+            max_yaw_error=float(rpy_err[:, 2].abs().max()))
+        # the vy estimate error at the last tick is a noisy per-tick
+        # quantity, whose tail over many lanes can cross the one-lane test's
+        # bar (a float32 CPU rehearsal: at most 0.028 over 4 lanes, 0.039
+        # over 32): it is held on WB_VY_SHARE of the lanes, the rest on all
+        bars.update(
+            fallen_lanes=lambda v: v == 0,
+            min_x_final=lambda v: v > WB_KF_X_MIN,
+            min_z_final=lambda v: v > 0.5,
+            max_z_error=lambda v: v < 0.02, max_y_error=lambda v: v < 0.03,
+            vy_error_share_within_bar=lambda v: v >= WB_VY_SHARE,
+            max_roll_pitch_error=lambda v: v < 0.05,
+            max_yaw_error=lambda v: v < 0.08)
+    return res, [k for k, ok in bars.items() if not ok(res[k])]
+
+
+def whole_body_phase(card, dev):
+    """make_rollout_whole_body on the card: WB_BATCH lanes for WB_PERIODS
+    periods, half standing and half walking at 0.3 m/s under the cheater,
+    then every lane walking at 0.5 m/s under 'kf'; the checks of
+    tests/test_whole_body.py that hold at that horizon, one <false> launch
+    a period; WB.step timed and run without a synchronisation; 'kf' short
+    on the card and the CPU."""
+    from hector_torch import prng
+    from hector_torch import runtime as RT
+    from hector_torch.plant import whole_body as WB
+    from hector_torch.config import DEFAULT_CONFIG as CFG
+
+    half = WB_BATCH // 2
+    walking = torch.arange(WB_BATCH, device=dev) < half
+    plant = WB.init_whole_body_state(0.545, WB_BATCH, device=dev)
+    roll = RT.make_rollout_whole_body(WB_PERIODS, CFG)
+    carry = roll.init(plant)
+    cmd = RT.concat(RT.walking_command(half, vx=0.3, device=dev),
+                    RT.standing_command(WB_BATCH - half, device=dev))
+    carry, plant, diags, sec, rate, launches, others = timed_rollout(
+        roll, carry, plant, cmd, WB_PERIODS, CFG)
+    all_finite(wb_position=plant.position, wb_height=diags['height'])
+    res, failed = whole_body_checks(diags, plant, walking)
+    # one plant tick at this state under the controller's last command
+    _, motor, _, _, _ = RT.controller_tick(
+        carry, RT.whole_body_observation(plant), cmd, False, CFG)
+    step_ms = cuda_ms(lambda: WB.step(plant, motor, CFG), 10)
+    without_sync('WB.step', lambda: WB.step(plant, motor, CFG))
+    emit(dict(phase='whole_body', estimator='cheater', batch=WB_BATCH,
+              periods=WB_PERIODS, launches=launches, other_launches=others,
+              seconds=sec, sim_s_per_wall_s=rate, step_ms=step_ms,
+              step_synchronises=False, checks=res, failed=failed, card=card))
+    check_launches('whole_body (cheater)', launches, others, WB_PERIODS)
+    if failed:
+        raise RuntimeError(f'whole_body (cheater): {failed} failed')
+
+    plant = WB.init_whole_body_state(0.545, WB_BATCH, device=dev)
+    roll = RT.make_rollout_whole_body(WB_PERIODS, CFG, estimator='kf')
+    carry = roll.init(plant, prng.fold_in(
+        prng.PRNGKey(5, dev), torch.arange(WB_BATCH, device=dev)))
+    cmd = RT.walking_command(WB_BATCH, vx=0.5, device=dev)
+    carry, plant, diags, sec, rate, launches, others = timed_rollout(
+        roll, carry, plant, cmd, WB_PERIODS, CFG)
+    all_finite(wb_kf_position=plant.position, wb_kf_x=carry.est.kf.x)
+    res, failed = whole_body_checks(diags, plant, None, carry)
+    emit(dict(phase='whole_body', estimator='kf', batch=WB_BATCH,
+              periods=WB_PERIODS, launches=launches, other_launches=others,
+              seconds=sec, sim_s_per_wall_s=rate, checks=res, failed=failed,
+              card=card))
+    check_launches('whole_body (kf)', launches, others, WB_PERIODS)
+    if failed:
+        raise RuntimeError(f'whole_body (kf): {failed} failed')
+
+    # short, card against CPU: half walking, half standing, under 'kf'
+    def short_cmd(b, d):
+        return RT.concat(RT.walking_command(b // 2, vx=0.5, device=d),
+                         RT.standing_command(b - b // 2, device=d))
+
+    card_vs_cpu(
+        'whole_body_card_vs_cpu',
+        lambda cfg: RT.make_rollout_whole_body(WB_SHORT_PERIODS, cfg,
+                                               estimator='kf'),
+        WB_SHORT_PERIODS, WB_SHORT_BATCH, 5,
+        lambda b, d: WB.init_whole_body_state(0.545, b, device=d), short_cmd,
+        dev, estimator='kf')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1069,6 +1402,10 @@ def main():
 
     # ---- robustness: pushes, gait and mode schedules, FSM re-entry ----
     robust_phase(card, dev)
+
+    # ---- the noisy estimators on the tier-1 loop, and the tier-2 plant ----
+    estimators_phase(card, dev)
+    whole_body_phase(card, dev)
 
     # ---- Cholesky kernels vs plain versions on the path's KKT matrices ----
     dense_scfg = dataclasses.replace(scfg, backend='auto')

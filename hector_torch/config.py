@@ -19,7 +19,9 @@ Everything here is a frozen dataclass: hashable, serializable with every run.
 
 This is the PyTorch port's own copy of ``hector/config.py``: importing that
 module would run ``hector/__init__.py`` and with it JAX.  The values and
-field names are identical (tests/test_torch_modules.py holds them equal).
+field names are identical (tests/test_torch_modules.py holds them equal);
+``PlantConfig`` also carries the tier-2 plant's joint damping and limits,
+which the JAX package writes inline in its whole-body step.
 """
 
 from __future__ import annotations
@@ -196,7 +198,9 @@ class SwingConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PlantConfig:
-    """Tier-1 batched SRB plant (replaces Gazebo ODE; SURVEY.md §2.3)."""
+    """Tier-1 batched SRB plant (replaces Gazebo ODE; SURVEY.md §2.3), and
+    the two constants of the tier-2 plant that the JAX package keeps
+    inline."""
 
     dt: float = 0.001
     mass: float = 13.856
@@ -216,6 +220,13 @@ class PlantConfig:
     contact_kd: float = 500.0         # N s/m (zeta ~ 0.4 at 13.856 kg)
     trunk_radius: float = 0.10        # m, trunk collision backstop
     ground_mu: float = 1.0            # ground friction (plant-side cap)
+    # the tier-2 articulated plant (plant/whole_body.py), which the JAX
+    # package writes inline (hector/plant/whole_body.py:159,209-210):
+    # URDF <dynamics damping> of every joint, N m s/rad
+    joint_damping: float = 0.1
+    # URDF joint limits, +-rad, per joint of a leg (hip yaw, hip roll
+    # +-45 deg; thigh, calf, toe +-100 deg)
+    joint_limit: Tuple[float, ...] = (0.785, 0.785, 1.745, 1.745, 1.745)
 
 
 @dataclasses.dataclass(frozen=True)

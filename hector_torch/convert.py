@@ -1,9 +1,13 @@
 """State carried across from the JAX package.
 
 This system has no weights; what crosses between ``hector`` and
-``hector_torch`` is state: ``PlantState``, ``ControllerCarry``,
-``ScenarioCommand``, ``StageQPParts``, ``StageQPData``, ``QPData``, and the
-inputs of a rollout: a push (``disturbance``) and a command/mode schedule.
+``hector_torch`` is state: ``PlantState``, ``WholeBodyState``,
+``ControllerCarry`` (its ``EstimatorState.key`` as the two uint32 words of
+the JAX key, in int64), ``ScenarioCommand``, ``StageQPParts``,
+``StageQPData``, ``QPData``, the inputs of a rollout (a push,
+``disturbance``, and a command/mode schedule), and the parameter tuples of
+the sensor and contact models (``SensorNoise``, ``KFNoise``,
+``ContactConfig``: Python floats, as in JAX).
 A caller flattens a JAX pytree into a dict of numpy arrays keyed by the JAX
 field names (nested NamedTuples as nested dicts); ``from_numpy(cls, arrays,
 dtype, device)`` builds the port's NamedTuple ``cls`` from it (e.g.
@@ -24,6 +28,7 @@ from . import control as C
 from . import estimation as EST
 from . import mpc as M
 from . import swing as SW
+from .plant import whole_body as WB
 from .runtime import ControllerCarry, ScenarioCommand
 
 # NamedTuple fields that hold NamedTuples
@@ -35,6 +40,8 @@ NESTED = {
 }
 # a rollout schedule: (cmd_t, mode_cmd_t), runtime.make_rollout
 SCHEDULE = (ScenarioCommand, torch.int32)
+# NamedTuples of Python floats (model parameters, not state)
+PARAMS = (EST.SensorNoise, EST.KFNoise, WB.ContactConfig)
 # integer fields keep their integer type (the FSM counters are int32)
 INT_FIELDS = {(ControllerCarry, 'tick'): torch.int32,
               (ControllerCarry, 'mode'): torch.int32,
@@ -58,6 +65,8 @@ def from_numpy(cls, arrays, dtype=torch.float32, device='cuda'):
     missing = set(cls._fields) - set(arrays)
     if missing:
         raise KeyError(f'{cls.__name__}: missing fields {sorted(missing)}')
+    if cls in PARAMS:
+        return cls(*[float(arrays[name]) for name in cls._fields])
     out = []
     for name in cls._fields:
         value = arrays[name]

@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from . import constant
 from .config import HectorConfig, DEFAULT_CONFIG, JOINT_OFFSETS
 
 # side sign per leg for the FK / Jacobian models (LegController.cpp:122-126)
@@ -30,13 +31,13 @@ IK_SIDE = (-1.0, 1.0)
 def hip_yaw_locations(cfg: HectorConfig, like):
     """(2, 3) hip-yaw joint locations in the body frame (Biped.h), with the
     dtype and device of ``like``."""
-    return torch.tensor(
-        [cfg.robot.hip_yaw_location(0), cfg.robot.hip_yaw_location(1)],
-        dtype=like.dtype, device=like.device)
+    return constant(
+        ('hip_yaw_locations', cfg.robot),
+        [cfg.robot.hip_yaw_location(0), cfg.robot.hip_yaw_location(1)], like)
 
 
 def _offsets(like):
-    return torch.tensor(JOINT_OFFSETS, dtype=like.dtype, device=like.device)
+    return constant('JOINT_OFFSETS', JOINT_OFFSETS, like)
 
 
 def apply_joint_offsets(q):
@@ -164,6 +165,12 @@ def foot_rotation(q_eff):
         -c1 * ss, s1, c1 * cs,
     ], dim=-1)
     return r.reshape(q_eff.shape[:-1] + (3, 3))
+
+
+def foot_velocity(q_raw, qd, cfg: HectorConfig = DEFAULT_CONFIG):
+    """v = J_force @ qd for both legs (LegController.cpp:52); (..., 2, 3)."""
+    _, jf = leg_jacobians(q_raw, cfg)
+    return torch.matmul(jf, qd.unsqueeze(-1)).squeeze(-1)
 
 
 def leg_ik(p_foot_b, q_data, cfg: HectorConfig = DEFAULT_CONFIG):

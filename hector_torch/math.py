@@ -35,6 +35,43 @@ def quat_to_rpy(q):
     return torch.stack([roll, pitch, yaw], dim=-1)
 
 
+def rpy_to_quat(rpy):
+    """Inverse of quat_to_rpy (ZYX convention), for plant state init."""
+    half = rpy * 0.5
+    cr, cp, cy = (torch.cos(half[..., i]) for i in range(3))
+    sr, sp, sy = (torch.sin(half[..., i]) for i in range(3))
+    return torch.stack([
+        cr * cp * cy + sr * sp * sy,
+        sr * cp * cy - cr * sp * sy,
+        cr * sp * cy + sr * cp * sy,
+        cr * cp * sy - sr * sp * cy,
+    ], dim=-1)
+
+
+def _rot(t, entries):
+    c, s = torch.cos(t), torch.sin(t)
+    o, i = torch.zeros_like(t), torch.ones_like(t)
+    r = torch.stack(entries(c, s, o, i), dim=-1)
+    return r.reshape(t.shape + (3, 3))
+
+
+def rot_x(t):
+    return _rot(t, lambda c, s, o, i: [i, o, o, o, c, -s, o, s, c])
+
+
+def rot_y(t):
+    return _rot(t, lambda c, s, o, i: [c, o, s, o, i, o, -s, o, c])
+
+
+def rot_z(t):
+    return _rot(t, lambda c, s, o, i: [c, -s, o, s, c, o, o, o, i])
+
+
+def yaw_rot(yaw):
+    """R_yaw as in ``RobotState.cpp:36-40``."""
+    return rot_z(yaw)
+
+
 def euler_rate_matrix(rpy):
     """omega_world -> rpy-rate map, the closed form of ``Rb.inverse()`` at
     ``SolverMPC.cpp:65-89``:
@@ -91,6 +128,13 @@ def cubic_bezier(y0, yf, x):
     """``Interpolate::cubicBezier`` (``Math/Interpolation.h:53-60``)."""
     bezier = x * x * x + 3.0 * (x * x * (1.0 - x))
     return y0 + bezier * (yf - y0)
+
+
+def cubic_bezier_d(y0, yf, x):
+    """``Interpolate::cubicBezierFirstDerivative`` (``Interpolation.h:67-74``):
+    the derivative with respect to phase, not time (the reference never
+    divides by swingTime, ``SwingLegController.cpp:141``)."""
+    return 6.0 * x * (1.0 - x) * (yf - y0)
 
 
 def quat_integrate(q, omega_world, dt):

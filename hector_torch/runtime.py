@@ -13,7 +13,8 @@ from typing import NamedTuple
 
 import torch
 
-from . import resolve_device
+from . import constant, resolve_device
+from . import prng
 from .config import HectorConfig, DEFAULT_CONFIG, JOINT_OFFSETS
 from . import gait as G
 from . import control as C
@@ -99,12 +100,22 @@ class ControllerCarry(NamedTuple):
 
 
 def init_controller_carry(plant: srb.PlantState,
-                          cfg: HectorConfig = DEFAULT_CONFIG
+                          cfg: HectorConfig = DEFAULT_CONFIG, key=None,
+                          noise: EST.SensorNoise = EST.SensorNoise()
                           ) -> ControllerCarry:
     """firstRun initialization (ConvexMPCLocomotion.cpp:66-111), on the
-    plant's device."""
+    plant's device.
+
+    key: (B, 2) or (2,) PRNG key seeding each lane's sensor-noise stream
+    (prng; unused by the cheater); None is PRNGKey(0) on every lane, what
+    a vmapped ``None`` gives in the JAX package.  noise: the sensor noise
+    model; the lane's TRUE gyro bias is drawn here (est_init), so pass the
+    same model to the rollout (``make_rollout(noise=)``)."""
     dtype, dev = plant.position.dtype, plant.position.device
     bsz = plant.position.shape[0]
+    if key is None:
+        key = prng.PRNGKey(0, dev)
+    key = key.to(dev).expand(bsz, 2)
     est = C.estimate_state(plant.position, plant.v_world, plant.quat,
                            plant.omega_world)
     p_leg = foot_position(plant.q, cfg)
@@ -117,19 +128,24 @@ def init_controller_carry(plant: srb.PlantState,
         swing=SW.init_swing_state(p_foot_w, dtype),
         command=C.CommandState(yaw_des=torch.zeros((bsz,), dtype=dtype,
                                                    device=dev)),
-        est=EST.est_init(plant, cfg))
+        est=EST.est_init(plant, key, cfg, noise=noise))
 
 
 def reentry_estimate(estimator: str, carry: ControllerCarry,
                      plant: srb.PlantState) -> C.StateEstimate:
     """The state estimate available at an FSM re-entry, per estimator kind:
-    the cheater re-enters from ground truth, as the reference does.  The
-    'kf' and 'filtered' kinds re-enter from their own filter state, which
-    is not ported yet (ROADMAP.md queue A item 12), and raise."""
-    if estimator in ('kf', 'filtered'):
-        raise NotImplementedError(
-            f'reentry_estimate({estimator!r}) is not ported yet (ROADMAP.md '
-            f'queue A item 12)')
+    the honest 'kf' path re-enters from its own filter state (KF position
+    and velocity, Mahony attitude; omega does not enter the re-init and is
+    zero), never from plant truth; 'filtered' from its IIR state (its quat
+    channel is that path's documented staging cheat); the cheater from
+    ground truth, as the reference does."""
+    if estimator == 'kf':
+        x = carry.est.kf.x
+        return C.estimate_state(x[:, 0:3], x[:, 3:6], carry.est.mahony.quat,
+                                torch.zeros_like(x[:, 0:3]))
+    if estimator == 'filtered':
+        return C.estimate_state(carry.est.filt.pos, carry.est.filt.vel,
+                                plant.quat, plant.omega_world)
     return C.estimate_state(plant.position, plant.v_world, plant.quat,
                             plant.omega_world)
 
@@ -172,17 +188,24 @@ def apply_mode_command(carry: ControllerCarry, plant: srb.PlantState,
 def controller_tick(carry: ControllerCarry, plant: srb.PlantState,
                     cmd: ScenarioCommand, do_mpc: bool,
                     cfg: HectorConfig = DEFAULT_CONFIG,
-                    estimator: str = 'cheater'):
+                    estimator: str = 'cheater', est_ground_z: float = 0.0,
+                    noise: EST.SensorNoise = EST.SensorNoise()):
     """One 1 kHz FSM tick (FSM.cpp:28-57, FSMState_Walking.cpp:26-41).
 
-    Returns (carry', MotorCommand, wrench_world (B,2,6), stance_mask (B,2),
-    diagnostics dict).
+    estimator: 'cheater' | 'filtered' | 'kf' (estimation.py); the
+    controller consumes only the estimate.  est_ground_z: the KF's FK-foot
+    height on flat ground (estimation.est_update).  Returns (carry',
+    MotorCommand, wrench_world (B,2,6), stance_mask (B,2), diagnostics
+    dict).
     """
-    dtype, dev = plant.position.dtype, plant.position.device
-    offsets = torch.tensor(JOINT_OFFSETS, dtype=dtype, device=dev)
+    dtype = plant.position.dtype
+    offsets = constant('JOINT_OFFSETS', JOINT_OFFSETS, plant.q)
 
-    # --- state estimation ---
-    est_state, est = EST.est_update(estimator, carry.est, plant, cfg)
+    # --- state estimation; the KF's foot-height rows read the commanded
+    # terrain map at its own foot-x estimates, never the plant's ground ---
+    est_state, est = EST.est_update(
+        estimator, carry.est, plant, cfg, noise=noise, ground_z=est_ground_z,
+        terrain=(cmd.terrain_step_height, cmd.terrain_step_length))
     mode = C.apply_safety(carry.mode, est)
 
     # --- LegController::updateData (+ the data.q mutation quirk) ---
@@ -269,9 +292,83 @@ def _where_tree(cond, new, old):
     return torch.where(c, new, old)
 
 
+def _rollout(n_periods, cfg, with_disturbance, estimator, with_schedule,
+             noise, observe, plant_step, est_ground_z):
+    """The closed loop of both tiers: the controller sees ``observe(plant)``
+    and ``plant_step(plant, motor_cmd, wrench, stance, push, terrain)``
+    advances the plant one tick.  Returns the rollout in the call form the
+    two switches select, with ``.init(plant, key=None)``."""
+    if estimator not in EST.KINDS:
+        raise ValueError(f'unknown estimator kind {estimator!r}; expected '
+                         f'{EST.KINDS}')
+
+    def rollout(carry, plant, cmd, disturbance=None, schedule=None):
+        diags = []
+        for t in range(n_periods):
+            cmd_t = (ScenarioCommand(*[f[:, t] for f in schedule[0]])
+                     if with_schedule else cmd)
+            dist = disturbance[:, t] if with_disturbance else None
+            terrain = (cmd_t.terrain_step_height, cmd_t.terrain_step_length)
+            c0, p0 = carry, plant
+            c, p = c0, p0
+            if with_schedule:
+                c = apply_mode_command(c, observe(p), schedule[1][:, t], cfg,
+                                       estimator=estimator)
+            diag0 = None
+            for k in range(cfg.mpc.mpc_cadence):
+                c, motor_cmd, wrench, stance, diag = controller_tick(
+                    c, observe(p), cmd_t, do_mpc=(k == 0), cfg=cfg,
+                    estimator=estimator, est_ground_z=est_ground_z,
+                    noise=noise)
+                if k == 0:
+                    # the per-period GRF/contact telemetry (the
+                    # foot_contact_plugin wrench topics)
+                    diag0 = {**diag, 'wrench': wrench, 'contact': stance}
+                p = plant_step(p, motor_cmd, wrench, stance, dist, terrain)
+            # NaN quarantine: a lane this period drove non-finite is frozen
+            # at its last finite state and flipped passive
+            healthy = (C.finite_lanes(p.position) & C.finite_lanes(p.v_world)
+                       & C.finite_lanes(p.quat) & C.finite_lanes(p.q))
+            plant = _where_tree(healthy, p, p0)
+            mode = torch.where(healthy, c.mode,
+                               torch.full_like(c.mode, C.MODE_PASSIVE))
+            carry = _where_tree(healthy, c, c0)._replace(mode=mode,
+                                                          tick=c.tick)
+            diag0.update(mode=mode, fallen=diag0['fallen'] | ~healthy,
+                         quarantined=~healthy)
+            diags.append(diag0)
+        stacked = {key: torch.stack([d[key] for d in diags], dim=1)
+                   for key in diags[0]}
+        return carry, plant, stacked
+
+    if with_disturbance and with_schedule:
+        def fn(carry, plant, cmd, disturbance, schedule):
+            return rollout(carry, plant, cmd, disturbance, schedule)
+    elif with_disturbance:
+        def fn(carry, plant, cmd, disturbance):
+            return rollout(carry, plant, cmd, disturbance=disturbance)
+    elif with_schedule:
+        def fn(carry, plant, cmd, schedule):
+            return rollout(carry, plant, cmd, schedule=schedule)
+    else:
+        def fn(carry, plant, cmd):
+            return rollout(carry, plant, cmd)
+
+    def init(plant, key=None):
+        """init_controller_carry bound to this rollout's cfg and noise model
+        (the lane's true gyro bias and its per-tick noise come from the same
+        SensorNoise)."""
+        return init_controller_carry(observe(plant), cfg, key=key,
+                                     noise=noise)
+
+    fn.init = init
+    return fn
+
+
 def make_rollout(n_periods: int, cfg: HectorConfig = DEFAULT_CONFIG,
                  with_disturbance: bool = False, estimator: str = 'cheater',
-                 with_schedule: bool = False):
+                 with_schedule: bool = False,
+                 noise: EST.SensorNoise = EST.SensorNoise()):
     """A rollout of ``n_periods`` MPC periods (5 ticks each) over the tier-1
     plant, returning (carry', plant', diagnostics), the diagnostics stacked
     as (B, n_periods, ...).  Its call form follows the two switches, as in
@@ -290,59 +387,66 @@ def make_rollout(n_periods: int, cfg: HectorConfig = DEFAULT_CONFIG,
     (MODE_CMD_NONE, C.MODE_PASSIVE, C.MODE_WALKING), applied before each
     period's ticks (apply_mode_command).
 
+    estimator: 'cheater' | 'filtered' | 'kf', the kind that drives the
+    controller (estimation.py).  noise: the sensor noise model of the
+    non-cheater kinds; ``rollout.init(plant, key=None)`` builds the carry
+    with the same model (init_controller_carry).
+
     Lanes that go non-finite in a period are frozen at their last finite
-    state and flipped passive (NaN quarantine, runtime.py:330-347).  The
-    non-cheater estimators are not ported yet (ROADMAP.md queue A item 12)
-    and raise.
+    state and flipped passive (NaN quarantine, runtime.py:330-347).
     """
-    EST.require_cheater(estimator)
+    def plant_step(p, motor_cmd, wrench, stance, dist, terrain):
+        return srb.step(p, motor_cmd, wrench, stance, disturbance=dist,
+                        terrain=terrain, cfg=cfg)
 
-    def rollout(carry, plant, cmd, disturbance=None, schedule=None):
-        diags = []
-        for t in range(n_periods):
-            cmd_t = (ScenarioCommand(*[f[:, t] for f in schedule[0]])
-                     if with_schedule else cmd)
-            dist = disturbance[:, t] if with_disturbance else None
-            terrain = (cmd_t.terrain_step_height, cmd_t.terrain_step_length)
-            c0, p0 = carry, plant
-            c, p = c0, p0
-            if with_schedule:
-                c = apply_mode_command(c, p, schedule[1][:, t], cfg,
-                                       estimator=estimator)
-            diag0 = None
-            for k in range(cfg.mpc.mpc_cadence):
-                c, motor_cmd, wrench, stance, diag = controller_tick(
-                    c, p, cmd_t, do_mpc=(k == 0), cfg=cfg,
-                    estimator=estimator)
-                if k == 0:
-                    diag0 = {**diag, 'wrench': wrench, 'contact': stance}
-                p = srb.step(p, motor_cmd, wrench, stance, disturbance=dist,
-                             terrain=terrain, cfg=cfg)
-            healthy = (C.finite_lanes(p.position) & C.finite_lanes(p.v_world)
-                       & C.finite_lanes(p.quat) & C.finite_lanes(p.q))
-            plant = _where_tree(healthy, p, p0)
-            mode = torch.where(healthy, c.mode,
-                               torch.full_like(c.mode, C.MODE_PASSIVE))
-            carry = _where_tree(healthy, c, c0)._replace(mode=mode,
-                                                          tick=c.tick)
-            diag0.update(mode=mode, fallen=diag0['fallen'] | ~healthy,
-                         quarantined=~healthy)
-            diags.append(diag0)
-        stacked = {key: torch.stack([d[key] for d in diags], dim=1)
-                   for key in diags[0]}
-        return carry, plant, stacked
+    return _rollout(n_periods, cfg, with_disturbance, estimator,
+                    with_schedule, noise, lambda p: p, plant_step, 0.0)
 
-    if with_disturbance and with_schedule:
-        return rollout
-    if with_disturbance:
-        def pushed(carry, plant, cmd, disturbance):
-            return rollout(carry, plant, cmd, disturbance=disturbance)
-        return pushed
-    if with_schedule:
-        def scheduled(carry, plant, cmd, schedule):
-            return rollout(carry, plant, cmd, schedule=schedule)
-        return scheduled
 
-    def plain(carry, plant, cmd):
-        return rollout(carry, plant, cmd)
-    return plain
+def whole_body_observation(p) -> srb.PlantState:
+    """What the controller and the estimators observe of the articulated
+    plant: each leg's contact flag is the plant's own stick state (any of
+    the leg's toe-box corners in ground contact, the foot_contact_plugin's
+    ContactSensor) and foot_anchor is the mean world position of the leg's
+    toe-box corners."""
+    from .plant import whole_body as WB
+    pts = WB.foot_positions(p)                       # (B, 2, 4, 3) world
+    bsz = p.position.shape[0]
+    contact = p.sticking[:, :WB.N_TOE].reshape(bsz, 2, -1).any(dim=-1)
+    return srb.PlantState(
+        position=p.position, quat=p.quat, v_world=p.v_world,
+        omega_world=p.omega_world, q=p.q, qd=p.qd,
+        foot_anchor=pts.mean(dim=2), contact=contact)
+
+
+def make_rollout_whole_body(n_periods: int,
+                            cfg: HectorConfig = DEFAULT_CONFIG,
+                            with_disturbance: bool = False,
+                            estimator: str = 'cheater',
+                            with_schedule: bool = False,
+                            ccfg=None, n_substeps: int = 4,
+                            noise: EST.SensorNoise = EST.SensorNoise()):
+    """The tier-2 rollout: the same controller over the articulated plant
+    (plant/whole_body.py), the same call forms, estimator kinds, noise
+    model and NaN quarantine as make_rollout.  The controller observes the
+    plant through whole_body_observation; contact emerges from the penalty
+    model, and only the joint torques act (no commanded-wrench shortcut).
+    The KF's foot-height rows expect the FK foot point at
+    WB.FK_FOOT_CLEARANCE above the ground.  ``rollout.init(plant_wb,
+    key=None)`` builds the carry from the observation.
+
+    ccfg / n_substeps: the contact model (WB.ContactConfig, default the
+    production model) and the integrator's substeps a tick, passed to
+    WB.step.
+    """
+    from .plant import whole_body as WB
+    if ccfg is None:
+        ccfg = WB.ContactConfig()
+
+    def plant_step(p, motor_cmd, wrench, stance, dist, terrain):
+        return WB.step(p, motor_cmd, cfg=cfg, terrain=terrain,
+                       disturbance=dist, ccfg=ccfg, n_substeps=n_substeps)
+
+    return _rollout(n_periods, cfg, with_disturbance, estimator,
+                    with_schedule, noise, whole_body_observation, plant_step,
+                    WB.FK_FOOT_CLEARANCE)

@@ -66,8 +66,14 @@ def unit_quats(rng, n):
 @pytest.mark.parametrize('name', ['robot', 'mpc', 'swing', 'plant', 'solver',
                                   'fk', 'jac', 'ik'])
 def test_config_matches_jax(name):
-    assert dataclasses.asdict(getattr(TCFG, name)) == \
-        dataclasses.asdict(getattr(JCFG, name))
+    port = dataclasses.asdict(getattr(TCFG, name))
+    if name == 'plant':
+        # the tier-2 plant's constants, inline in the JAX package's
+        # whole-body step (hector/plant/whole_body.py:159,209-210); the
+        # step itself is held to JAX in tests/test_torch_whole_body.py
+        assert port.pop('joint_damping') == 0.1
+        assert port.pop('joint_limit') == (0.785, 0.785, 1.745, 1.745, 1.745)
+    assert port == dataclasses.asdict(getattr(JCFG, name))
 
 
 def test_config_constants_match_jax():
@@ -108,6 +114,14 @@ MATH_CASES = {
         mod.cubic_bezier(c(v), c(rpy), c(x)),
     'quat_integrate': lambda mod, q, rpy, m, v, x, c:
         mod.quat_integrate(c(q), c(v), 0.001),
+    # the helpers the estimators' tests use
+    'rpy_to_quat': lambda mod, q, rpy, m, v, x, c: mod.rpy_to_quat(c(rpy)),
+    'rot_x': lambda mod, q, rpy, m, v, x, c: mod.rot_x(c(rpy)),
+    'rot_y': lambda mod, q, rpy, m, v, x, c: mod.rot_y(c(rpy)),
+    'rot_z': lambda mod, q, rpy, m, v, x, c: mod.rot_z(c(rpy)),
+    'yaw_rot': lambda mod, q, rpy, m, v, x, c: mod.yaw_rot(c(rpy[:, 2])),
+    'cubic_bezier_d': lambda mod, q, rpy, m, v, x, c:
+        mod.cubic_bezier_d(c(v), c(rpy), c(x)),
 }
 
 
@@ -146,6 +160,13 @@ def test_leg_jacobians_match_jax_and_golden():
     jm_g, jf_g = tkin.leg_jacobians(tt(GOLD['q_raw']))
     close(GOLD['J_fm'], jm_g, 2e-5)
     close(GOLD['J_f'], jf_g, 2e-5)
+
+
+def test_foot_velocity_matches_jax():
+    q = _joint_angles(8)
+    qd = np.random.default_rng(9).normal(0.0, 2.0, q.shape)
+    close(jkin.foot_velocity(jnp.asarray(q), jnp.asarray(qd)),
+          tkin.foot_velocity(tt(q), tt(qd)))
 
 
 def test_foot_rotation_matches_jax_and_golden():

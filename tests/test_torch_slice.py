@@ -325,14 +325,11 @@ def test_rollout_quarantines_non_finite_lane():
 
 
 def test_unported_paths_raise():
-    """What is still to port says which ROADMAP item ports it; the fused
-    backends keep their horizon guard."""
-    with pytest.raises(NotImplementedError, match='item 12'):
-        TRT.make_rollout(2, TCFG, estimator='kf')
+    """What is still to port says which ROADMAP item ports it (the
+    estimators, item 12, are ported: tests/test_torch_estimation.py); the
+    fused backends keep their horizon guard."""
     carry, plant, cmd = _to_port(*_jax_batch(2, jnp.float64, 3),
                                  torch.float64)
-    with pytest.raises(NotImplementedError, match='item 12'):
-        TRT.reentry_estimate('kf', carry, plant)
     with pytest.raises(NotImplementedError, match='item 14'):
         TRT.plan_step_fn(_with_solver(TCFG, backend='qpoases'))(
             carry, plant, cmd)
@@ -352,7 +349,8 @@ import torch
 from hector_torch import runtime as RT
 from hector_torch import srbd, convert
 from hector_torch.qp import builder, chol, pdip, fused_riccati, riccati
-from hector_torch.plant import srb
+from hector_torch import estimation, prng
+from hector_torch.plant import srb, whole_body
 from hector_torch.config import DEFAULT_CONFIG as CFG
 
 plant = srb.init_plant_state(2, CFG, device='cpu')
@@ -381,6 +379,12 @@ c2, p2, d2 = roll(RT.init_controller_carry(plant, CFG), plant, cmd, push,
                   (sched_cmd, modes))
 assert d2['mode'][0].tolist() == [0, 0, 1, 1]
 assert torch.isfinite(p2.position).all() and not d2['quarantined'].any()
+# the sensor-honest estimator and the articulated plant
+est = estimation.est_init(plant, prng.split(prng.PRNGKey(3, 'cpu'), 2), CFG)
+est, e = estimation.est_update('kf', est, plant, CFG)
+wb = whole_body.init_whole_body_state(0.545, 2, device='cpu')
+wb = whole_body.step(wb, motor, CFG)
+assert torch.isfinite(e.position).all() and torch.isfinite(wb.q).all()
 assert not any(m == 'jax' or m.startswith(('jax.', 'hector.'))
                or m == 'hector' for m in sys.modules if sys.modules[m])
 print('ok')
