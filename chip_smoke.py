@@ -103,6 +103,25 @@ Phases, one JSON line each:
               at 32,768 lanes beside the kernel without polish, and
               plan_step_fn with the polish on at 32,768 lanes, 4 chained
               steps (the kernel with polish only);
+  cli         the entry-point layer (hector_torch.cli, parallel, io):
+              `batch` at 1,024 lanes for 1 s in this process (the sharded
+              rollout on the one-card mesh: 200 launches of the kernel
+              without polish and nothing else, the metrics finite, the
+              mean height in the band of tests/test_parallel.py, the JSONL
+              line equal to the printed record, a checkpoint), the same
+              command at 16 lanes on the card and on --device cpu
+              (cli_card_vs_cpu), the checkpoint restored on the card bit for
+              bit and 10 periods resumed from a mid-run checkpoint bit for
+              bit those run straight on (cli_checkpoint), four
+              ScenarioStream batches at 1,024 lanes equal to
+              generate_host's rows with next() run under
+              set_sync_debug_mode('error'), one period timed with and
+              without the next batch in flight (cli_stream), the float64
+              oracle (native/qp_oracle.cpp) against both Riccati kernels on
+              32 closed-loop lanes: without polish within 0.05 N, with it
+              within 1e-3 N on the lanes that accept (cli_oracle), and
+              `python -m hector_torch run --seconds 0.5` as a process
+              (cli_module);
 then the kernels line, the card's name and power limit, and the result
 line.  Any failure raises, so the exit code is not 0 and no result line is
 printed.  Needs one CUDA device; imports nothing of JAX or of hector/.
@@ -115,6 +134,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -241,6 +261,41 @@ WB_VY_SHARE = 0.99
 # 1.1e-6 m/s, 6.3e-6 rad/s (omega), 3.7e-5 rad/s (qd), 1.5e-6 (KF state) of
 # float64 (tier 2; tier 1 'kf' 1.1e-4 N and 1.3e-5 rad/s qd), every contact
 # flag equal
+# the CLI (python -m hector_torch): `batch` at CLI_BATCH lanes for 1 s (200
+# periods, one <false> launch each); its mean height in the band of
+# tests/test_parallel.py:18-28
+CLI_BATCH = LOOP_BATCH
+CLI_SECONDS = 1.0
+CLI_HEIGHT_BAND = (0.4, 0.6)
+# `batch` at 16 lanes for 10 periods on the card and on --device cpu, with
+# the bars tests/test_torch_cli.py holds the port's CPU CLI to against JAX's
+# (mean height 1e-5 m, qp_mu_max 1 %, fallen counts equal).  'auto' is the
+# fused kernel on the card and the Mehrotra stage solver on the CPU, as in
+# the JAX package; a CPU rehearsal of the two solvers at this size gave
+# equal mean heights and mu 0.7 % apart
+CLI_SHORT_BATCH = 16
+CLI_SHORT_SECONDS = 0.05
+CLI_HEIGHT_TOL = 1e-5
+CLI_MU_RTOL = 1e-2
+# checkpoint resume: periods before and after the mid-run checkpoint
+RESUME_PERIODS = 10
+# the host pipeline: batches drawn from ScenarioStream, and the one-period
+# rollouts timed with and without the next batch in flight (in turns)
+STREAM_BATCH = 1024
+STREAM_STEPS = 4
+STREAM_TIMED = 4
+# the float64 oracle (native/qp_oracle.cpp) holds the card's kernels on
+# ORACLE_LANES closed-loop lanes: <false> within the float32 bar of
+# tests/test_qp.py:107-117 on every lane, <true> within the bar of
+# tests/test_qpoases_parity.py:146 on the lanes that accept the polish.  A
+# CPU rehearsal with the plain versions on these lanes: 0.0116 N and
+# 3.8e-5 N (every lane accepted)
+ORACLE_LANES = 32
+ORACLE_TOL = 0.05
+ORACLE_POLISH_TOL = 1e-3
+# the keys `python -m hector run` prints (hector/cli.py:66-70)
+RUN_KEYS = ['mean_height', 'min_height', 'fallen_frac', 'qp_mu_max',
+            'qp_r_dual_max', 'x_traveled']
 
 
 def emit(obj):
@@ -1192,6 +1247,235 @@ def whole_body_phase(card, dev):
         dev, estimator='kf')
 
 
+def run_cli(argv):
+    """hector_torch.cli.main(argv) in this process, its standard output
+    captured: (what main returned, the output, seconds on the host clock,
+    synchronised, launches of <false>, of every other kernel)."""
+    import contextlib
+    import io
+    from hector_torch import cli
+    from hector_torch.qp import chol as CH
+    from hector_torch.qp import fused_riccati as FR
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    FR.launches = FR.polish_launches = 0
+    reset_chol_counts(CH)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rec = cli.main(argv)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    others = FR.polish_launches + sum(chol_counts(CH).values())
+    return rec, buf.getvalue(), sec, FR.launches, others
+
+
+def tree_to(tree, device=None, dtype=None):
+    """A (nested) NamedTuple of tensors moved to ``device`` and its
+    floating tensors cast to ``dtype``."""
+    if isinstance(tree, tuple):
+        return type(tree)(*[tree_to(x, device, dtype) for x in tree])
+    if dtype is not None and tree.is_floating_point():
+        tree = tree.to(dtype)
+    return tree.to(device) if device is not None else tree
+
+
+def tree_equal(a, b):
+    if isinstance(a, tuple):
+        return all(tree_equal(x, y) for x, y in zip(a, b, strict=True))
+    return (a.dtype == b.dtype and a.device == b.device
+            and torch.equal(a, b))
+
+
+def same_as_saved(tree, saved, dev):
+    """Every tensor of ``tree`` on ``dev``, with the dtype and the bits of
+    the field of the same name in a checkpoint's dict."""
+    if isinstance(tree, tuple):
+        return all(same_as_saved(getattr(tree, k), saved[k], dev)
+                   for k in tree._fields)
+    return (tree.device.type == dev.type and tree.dtype == saved.dtype
+            and torch.equal(tree.cpu(), saved))
+
+
+def cli_phase(card, dev, work):
+    """The entry-point layer on the card: the CLI's `batch` (the sharded
+    rollout over the one-card mesh, the metrics log and a checkpoint), the
+    same command card against CPU, a checkpoint resumed mid-run bit for
+    bit, the host pipeline's stream without a synchronisation, the float64
+    oracle holding both Riccati kernels, and `python -m hector_torch run`
+    as a process.  ``work``: a directory of the checkout for the log and
+    the checkpoints.  Every check raises."""
+    import shutil
+    from hector_torch import mpc as M
+    from hector_torch import parallel as PAR
+    from hector_torch import prng
+    from hector_torch import runtime as RT
+    from hector_torch.config import DEFAULT_CONFIG as CFG
+    from hector_torch.io import checkpoint as CKPT
+    from hector_torch.io import host_pipeline as HP
+    from hector_torch.io import scenarios as SC
+    from hector_torch.qp import fused_riccati as FR
+    from hector_torch.qp import ref_check
+
+    shutil.rmtree(work, ignore_errors=True)
+    Path(work).mkdir(parents=True)
+    log, ckpt = f'{work}/batch.jsonl', f'{work}/ckpt'
+    period = CFG.mpc.dt * CFG.mpc.mpc_cadence
+
+    # ---- batch at full width: 200 <false> launches and nothing else ----
+    periods = int(CLI_SECONDS / period)
+    rec, out, sec, launches, others = run_cli(
+        ['batch', '--batch', str(CLI_BATCH), '--seconds', str(CLI_SECONDS),
+         '--seed', '0', '--log', log, '--checkpoint', ckpt])
+    logged = [json.loads(line) for line in open(log)]
+    printed = json.JSONDecoder().raw_decode(out)[0]
+    metrics = {k: rec[k] for k in ('mean_height', 'fallen_count',
+                                   'qp_mu_max')}
+    emit(dict(phase='cli', command='batch', batch=CLI_BATCH,
+              periods=periods, launches=launches, other_launches=others,
+              seconds=sec, sim_s_per_wall_s=CLI_SECONDS / sec,
+              record=rec, card=card))
+    check_launches('cli batch', launches, others, periods)
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f'cli batch: metrics not finite: {metrics}')
+    if not CLI_HEIGHT_BAND[0] < rec['mean_height'] < CLI_HEIGHT_BAND[1]:
+        raise RuntimeError(f"cli batch: mean height {rec['mean_height']} "
+                           f'out of {CLI_HEIGHT_BAND}')
+    if logged != [rec] or printed != rec or rec['devices'] != 1.0:
+        raise RuntimeError(f'cli batch: the log {logged}, the printed '
+                           f'record {printed} and the record {rec} differ')
+
+    # ---- the same command, short, card against CPU ----
+    short = ['batch', '--batch', str(CLI_SHORT_BATCH), '--seconds',
+             str(CLI_SHORT_SECONDS), '--seed', '0']
+    rec_k, _, _, launches, others = run_cli(short)
+    rec_c, _, _, _, _ = run_cli(['--device', 'cpu'] + short)
+    d_h = abs(rec_k['mean_height'] - rec_c['mean_height'])
+    d_mu = abs(rec_k['qp_mu_max'] / rec_c['qp_mu_max'] - 1.0)
+    emit(dict(phase='cli_card_vs_cpu', batch=CLI_SHORT_BATCH,
+              periods=int(CLI_SHORT_SECONDS / period), card_record=rec_k,
+              cpu_record=rec_c, abs_mean_height=d_h, rel_qp_mu_max=d_mu))
+    check_launches('cli batch (short)', launches, others,
+                   int(CLI_SHORT_SECONDS / period))
+    if not (d_h <= CLI_HEIGHT_TOL and d_mu <= CLI_MU_RTOL
+            and rec_k['fallen_count'] == rec_c['fallen_count']):
+        raise RuntimeError(f'cli card vs cpu: mean height {d_h} m (bar '
+                           f'{CLI_HEIGHT_TOL}), qp_mu_max {d_mu} (bar '
+                           f'{CLI_MU_RTOL}), fallen {rec_k["fallen_count"]} '
+                           f'against {rec_c["fallen_count"]}')
+
+    # ---- checkpoint: restored on the card bit for bit, resumed mid-run ----
+    template = PAR.make_batch(CLI_BATCH, device=dev)
+    step, restored = CKPT.restore(ckpt, template)
+    saved = torch.load(f'{ckpt}/{step}/{CKPT.FILE}', weights_only=True)
+    state = tuple(restored[k] for k in ('carry', 'plant', 'cmd'))
+    exact = step == periods and all(
+        same_as_saved(x, saved[k], dev)
+        for k, x in zip(('carry', 'plant', 'cmd'), state))
+    roll = RT.make_rollout(RESUME_PERIODS, CFG)
+    c_mid, p_mid, _ = roll(*state)
+    CKPT.save(f'{work}/resume', periods + RESUME_PERIODS, c_mid, p_mid,
+              state[2])
+    c_on, p_on, d_on = roll(c_mid, p_mid, state[2])
+    _, again = CKPT.restore(f'{work}/resume', template)
+    c_re, p_re, d_re = roll(again['carry'], again['plant'], again['cmd'])
+    resumed = (tree_equal(c_on, c_re) and tree_equal(p_on, p_re)
+               and all(torch.equal(d_on[k], d_re[k]) for k in d_on))
+    emit(dict(phase='cli_checkpoint', batch=CLI_BATCH, step=step,
+              restored_bit_for_bit=exact, resume_periods=RESUME_PERIODS,
+              resumed_bit_for_bit=resumed))
+    if not (exact and resumed):
+        raise RuntimeError(f'checkpoint: restored exactly {exact}, resumed '
+                           f'exactly {resumed}')
+
+    # ---- the host pipeline: the stream's batches, next() without a sync ----
+    stream = HP.ScenarioStream(STREAM_BATCH, seed=7, device=dev)
+    batches = []
+    for _ in range(STREAM_STEPS):
+        without_sync('ScenarioStream.__next__',
+                     lambda: batches.append(next(stream)))
+    rows_equal = all(
+        torch.equal(torch.stack(list(cmd[:5]) + [cmd.terrain_step_height,
+                                                 cmd.terrain_step_length], 1)
+                    .cpu(), torch.from_numpy(
+                        HP.generate_host(7 + (k << 32), STREAM_BATCH)
+                        [:, [0, 1, 2, 3, 4, 9, 10]]))
+        and torch.equal(cmd.gait_offsets.cpu(), torch.from_numpy(
+            HP.generate_host(7 + (k << 32), STREAM_BATCH)[:, 5:7]))
+        for k, cmd in enumerate(batches))
+    one = RT.make_rollout(1, CFG)
+    plant = PAR.make_batch(STREAM_BATCH, device=dev)[1]
+    carry = RT.init_controller_carry(plant, CFG)
+
+    def timed_period(in_flight):
+        cmd = next(stream)
+        if not in_flight:
+            stream.wait()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one(carry, plant, cmd)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    timed_period(True)                      # warm-up
+    times = {True: [], False: []}
+    for in_flight in (True, False) * STREAM_TIMED:
+        times[in_flight].append(timed_period(in_flight))
+    stream.close()
+    emit(dict(phase='cli_stream', batch=STREAM_BATCH, steps=STREAM_STEPS,
+              rows_equal_generate_host=rows_equal, next_synchronises=False,
+              period_ms_next_in_flight=times[True],
+              period_ms_nothing_in_flight=times[False], card=card))
+    if not rows_equal:
+        raise RuntimeError("ScenarioStream: a batch differs from "
+                           "generate_host's rows")
+
+    # ---- the float64 oracle holds both Riccati kernels ----
+    carry, plant, cmd = scenarios(ORACLE_LANES, 17, dev)
+    parts = state_problem(carry, plant, cmd, M.build_parts)
+    q_diag, r_diag = tuple(CFG.mpc.weights) + (0.0,), tuple(CFG.mpc.alpha)
+    pcfg = dataclasses.replace(CFG.solver, polish_rounds=POLISH_ROUNDS)
+    sol = FR.solve_parts(parts, CFG.solver, q_diag, r_diag)
+    pol = FR.solve_parts(parts, pcfg, q_diag, r_diag)
+    off = FR.solve_parts(parts, dataclasses.replace(pcfg, polish_tol=-1.0),
+                         q_diag, r_diag)
+    accepted = (pol.u != off.u).any(1).cpu()
+    state64 = [tree_to(x, 'cpu', torch.float64) for x in (carry, plant, cmd)]
+    qp = state_problem(*state64, M.build_dense)
+    x_opt = torch.from_numpy(ref_check.solve_qpdata(qp))
+    du = (sol.u.cpu().double() - x_opt).abs().amax(1)
+    du_pol = (pol.u.cpu().double() - x_opt).abs().amax(1)
+    err, err_pol = float(du.max()), float(du_pol[accepted].max())
+    emit(dict(phase='cli_oracle', lanes=ORACLE_LANES,
+              max_abs_du_false=err, bar_false=ORACLE_TOL,
+              accepted_lanes=int(accepted.sum()),
+              max_abs_du_true_accepted=err_pol, bar_true=ORACLE_POLISH_TOL,
+              force_scale=float(x_opt.abs().max()), card=card))
+    if not (err <= ORACLE_TOL and err_pol <= ORACLE_POLISH_TOL
+            and bool(accepted.any())):
+        raise RuntimeError(f'oracle: <false> {err} N (bar {ORACLE_TOL}), '
+                           f'<true> {err_pol} N on {int(accepted.sum())} '
+                           f'accepted lanes (bar {ORACLE_POLISH_TOL})')
+
+    # ---- the module entry point as a process ----
+    t0 = time.perf_counter()
+    # from this script's checkout, so that `-m` finds its hector_torch
+    proc = subprocess.run([sys.executable, '-m', 'hector_torch', 'run',
+                           '--seconds', '0.5'],
+                          cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=300)
+    sec = time.perf_counter() - t0
+    ok = proc.returncode == 0
+    rec = json.JSONDecoder().raw_decode(proc.stdout)[0] if ok else None
+    emit(dict(phase='cli_module', command='python -m hector_torch run '
+              '--seconds 0.5', returncode=proc.returncode, seconds=sec,
+              record=rec))
+    if not ok or list(rec) != RUN_KEYS or not all(
+            math.isfinite(v) for v in rec.values()):
+        raise RuntimeError(f'python -m hector_torch run: rc '
+                           f'{proc.returncode}, {rec}, {proc.stderr[-2000:]}')
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1892,6 +2176,10 @@ def main():
     emit(dict(phase='polish_path', batch=MAIN_BATCH, chain=POLISH_CHAIN,
               launches=polish_path_launches, ms_per_step=polish_step_ms,
               card=card))
+
+    # ---- the entry points: the CLI, parallel, checkpoints, the stream ----
+    cli_phase(card, dev, str(Path(__file__).resolve().parent / 'hector_torch'
+                             / '_build' / 'chip_smoke_cli'))
 
     emit({'kernels': [
         dict(name='fused_riccati', route='cuda',

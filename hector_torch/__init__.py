@@ -49,3 +49,8 @@ def constant(key, values, like) -> torch.Tensor:
         t = _CONSTANTS[k] = torch.as_tensor(values, dtype=like.dtype).to(
             like.device)
     return t
+
+
+# the data-parallel layer, exported as hector/__init__.py exports its own
+# (imported last: it builds on the helpers above)
+from . import parallel  # noqa: E402

@@ -294,7 +294,9 @@ class SolverConfig:
     #   'pallas_interpret'    -> the plain versions on any device, in the
     #                         batch-minor layout of the TPU kernels
     #   'xla'                 -> torch.linalg on (B, n, n); only by name
-    #   'qpoases' is not ported yet and raises NotImplementedError
+    #   'qpoases'             -> the reference's qpOASES on the host, one
+    #                         lane after another (hector_torch/qp/
+    #                         ref_check.py); raises without its sources
     backend: str = 'auto'
 
 

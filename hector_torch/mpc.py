@@ -21,16 +21,17 @@ from . import math as hm
 from .kinematics import foot_rotation, hip_yaw_locations
 from .qp.builder import (QPData, StageQPParts, build_qp, build_stage_parts,
                          build_stage_qp)
-from .qp import fused_riccati, pdip, riccati
+from .qp import fused_riccati, pdip, ref_check, riccati
 
 # SolverConfig.backend values by the problem form they solve; 'auto' is one
 # of the first two by the problem's device (resolve_backend)
 RICCATI_BACKENDS = ('riccati_pallas', 'riccati_pallas_interpret')
 STAGE_BACKENDS = ('riccati',)
 DENSE_BACKENDS = ('dense_auto', 'pallas', 'pallas_interpret', 'xla')
-# not ported yet, with the ROADMAP.md queue item that ports each
-UNPORTED_BACKENDS = {
-    'qpoases': "the qpOASES path, ROADMAP.md queue A item 14"}
+# the reference's own qpOASES on the host (qp/ref_check.py)
+QPOASES_BACKENDS = ('qpoases',)
+BACKENDS = (('auto',) + RICCATI_BACKENDS + STAGE_BACKENDS + DENSE_BACKENDS
+            + QPOASES_BACKENDS)
 
 
 class PlannerState(NamedTuple):
@@ -171,6 +172,19 @@ def build_dense(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
     return wpd, build_qp(*args)
 
 
+def build_qpoases(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
+                  yaw_rate, roll_des, pitch_des, gait_table,
+                  cfg: HectorConfig = DEFAULT_CONFIG, i_body=None):
+    """One MPC solve up to the QP, for the 'qpoases' backend: the
+    drift-clamped desired position (B, 3) and the dense ``QPData`` of the
+    batch with its gait table (``ref_check.GaitQPData``), which the
+    reference's swing-variable elimination reads."""
+    wpd, args = _qp_inputs(state, est, leg_q, p_foot_w, v_des_robot,
+                           yaw_rate, roll_des, pitch_des, gait_table, cfg,
+                           i_body)
+    return wpd, ref_check.GaitQPData(*build_qp(*args), gait_table)
+
+
 def resolve_backend(backend: str, device) -> str:
     """'auto' by the device the problem lives on, as the reference resolves
     it by ``jax.default_backend()`` (mpc.py:160-164): the fused Riccati
@@ -189,15 +203,12 @@ def _builder(backend: str):
         return build_dense, QPData
     if backend in STAGE_BACKENDS:
         return build_stage, riccati.StageQPData
-    if backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f'solver backend {backend!r} is not ported yet: '
-            f'{UNPORTED_BACKENDS[backend]}')
+    if backend in QPOASES_BACKENDS:
+        ref_check.require_qpoases()     # before the QP is even built
+        return build_qpoases, ref_check.GaitQPData
     if backend in RICCATI_BACKENDS:
         return build_parts, StageQPParts
-    raise ValueError(
-        f'unknown solver backend {backend!r}: one of '
-        f"{('auto',) + RICCATI_BACKENDS + STAGE_BACKENDS + DENSE_BACKENDS}")
+    raise ValueError(f'unknown solver backend {backend!r}: one of {BACKENDS}')
 
 
 def solve(problem, cfg: HectorConfig = DEFAULT_CONFIG):
@@ -214,7 +225,10 @@ def solve(problem, cfg: HectorConfig = DEFAULT_CONFIG):
     is off) on ``StageQPData`` on any device, at any horizon.
     'dense_auto', 'pallas', 'pallas_interpret' and 'xla' run the dense
     interior point (hector_torch/qp/pdip.py) on ``QPData``; 'dense_auto'
-    stands for the solver's own 'auto'."""
+    stands for the solver's own 'auto'.  'qpoases' runs the reference's
+    qpOASES on the host, one lane after another, on ``GaitQPData``
+    (hector_torch/qp/ref_check.py); it raises when the qpOASES sources are
+    missing."""
     backend = resolve_backend(cfg.solver.backend, problem[0].device)
     build, form = _builder(backend)
     if not isinstance(problem, form):
@@ -227,6 +241,8 @@ def solve(problem, cfg: HectorConfig = DEFAULT_CONFIG):
         return pdip.solve_batched(problem, scfg)
     if backend in STAGE_BACKENDS:
         return riccati.solve_batched(problem, cfg.solver)
+    if backend in QPOASES_BACKENDS:
+        return ref_check.solve_batched_qpoases(problem)
     # the kernel is built for the reference's fixed problem shape; a config
     # change must fail loudly here, not deep inside the kernel
     if cfg.mpc.horizon != fused_riccati.H:

@@ -34,13 +34,21 @@ class PlantState(NamedTuple):
     contact: torch.Tensor      # (B, 2) bool, previous-tick contact
 
 
+def nominal_joint_angles(batch: int, dtype=torch.float32,
+                         device='cuda') -> torch.Tensor:
+    """Raw motor angles (batch, 2, 5) of the nominal knee-bent stance (the
+    xacro spawn configuration is near the offset-corrected zero pose)."""
+    return torch.zeros((batch, 2, 5), dtype=dtype,
+                       device=resolve_device(device))
+
+
 def init_plant_state(batch: int, cfg: HectorConfig = DEFAULT_CONFIG,
                      height=None, dtype=torch.float32,
                      device='cuda') -> PlantState:
     """``batch`` identical lanes standing with feet on the ground plane at
     the nominal joint angles (all zero raw motor angles)."""
     dev = resolve_device(device)
-    q = torch.zeros((batch, 2, 5), dtype=dtype, device=dev)
+    q = nominal_joint_angles(batch, dtype, dev)
     p_leg = foot_position(q, cfg)
     hip_yaw = hip_yaw_locations(cfg, q)
     if height is None:

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from . import resolve_device
@@ -115,6 +116,66 @@ def uniform_pm1(key, n: int, dtype) -> torch.Tensor:
     # (1 - lo) rounds to 2 in either type, so floats * 2 + lo is one
     # rounding, as in jax.random.uniform
     return torch.clamp(floats * 2.0 + lo, min=lo)
+
+
+def _two_sum(a, b):
+    """s + t == a + b exactly, s = fl(a + b) (Knuth's TwoSum)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def fma(a, b, c):
+    """a * b + c rounded once (a fused multiply-add), elementwise on
+    float32 or float64 tensors, for finite values whose products neither
+    overflow nor underflow.  The product is split exactly (Dekker's
+    TwoProduct), the three terms summed exactly as s + u + v (TwoSum), and
+    fl(s + u) moved to its neighbour in the one case v decides: a tie."""
+    split = 4097.0 if a.dtype == torch.float32 else 134217729.0
+
+    def halves(x):
+        t = split * x
+        hi = t - (t - x)
+        return hi, x - hi
+
+    p = a * b
+    ah, al = halves(a)
+    bh, bl = halves(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl   # a * b == p + e
+    s, t = _two_sum(p, c)
+    u, v = _two_sum(t, e)                       # a * b + c == s + u + v
+    r, w = _two_sum(s, u)                       # r = fl(s + u), error w
+    nxt = torch.nextafter(r, r + w)
+    tie = (w != 0) & (nxt - r == 2 * w)
+    return torch.where(tie & (v * w > 0), nxt, r)
+
+
+def uniform(key, shape, dtype=torch.float32, minval=0.0,
+            maxval=1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)``: the
+    mantissa bits of one word an entry as a float in [0, 1) (one 32-bit
+    word in float32, one 64-bit word in float64), times (maxval - minval)
+    plus minval, each rounded in ``dtype``, clamped below at minval.
+    (..., *shape)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    n = math.prod(shape)
+    if dtype == torch.float32:
+        floats = (bits(key, n, 32) >> 9).to(torch.float32) * 2.0 ** -23
+    elif dtype == torch.float64:
+        w = bits(key, n, 64)
+        mant = (w[..., 0] << 20) | (w[..., 1] >> 12)
+        floats = mant.to(torch.float64) * 2.0 ** -52
+    else:
+        raise ValueError(f'uniform draws float32 or float64, got {dtype}')
+    # the bounds and their difference in dtype, as JAX converts them
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    lo = np_dtype(minval)
+    span = float(np_dtype(maxval) - lo)
+    # XLA contracts floats * span + lo into one fused multiply-add
+    out = torch.clamp(fma(floats, torch.full_like(floats, span),
+                          torch.full_like(floats, float(lo))),
+                      min=float(lo))
+    return out.reshape(out.shape[:-1] + shape)
 
 
 # Giles' erfinv approximations, the ones XLA evaluates (its ErfInv32 and

@@ -247,6 +247,18 @@ def solve_batched(qp: QPData, scfg: SolverConfig = SolverConfig()
         r_prim=torch.maximum(r_pl.amax((1, 2)), r_pu.amax((1, 2))))
 
 
+def make_solver(scfg: SolverConfig = SolverConfig()):
+    """``solve_batched`` with ``scfg`` bound: ``solver(qp) -> QPSolution``
+    on a batch-first ``QPData``.  An alias kept so that the port has the
+    JAX package's public names (JAX's ``make_solver``, pdip.py:264-285, is
+    the vmappable form); nothing in the port calls it."""
+
+    def solver(qp: QPData) -> QPSolution:
+        return solve_batched(qp, scfg)
+
+    return solver
+
+
 def solve(qp: QPData, scfg: SolverConfig = SolverConfig()) -> QPSolution:
     """Solve one QP whose fields carry no batch dim (tests, single
     scenarios): adds the batch dim and removes it again."""

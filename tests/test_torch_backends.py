@@ -68,17 +68,19 @@ def test_plan_step_fn_accepts_riccati_pallas_interpret():
     assert torch.equal(outs[0][0].planner.f_ff, outs[1][0].planner.f_ff)
 
 
-def test_backend_names_that_are_not_ported_or_unknown_raise():
+def test_backend_names_that_are_not_ported_or_unknown_raise(monkeypatch):
     """The fused solver's horizon check holds under the interpret name too;
-    the name still to port says which ROADMAP item ports it; an unknown
-    name is refused as such."""
+    'qpoases' without the qpOASES sources says that they are missing (it
+    never plans in their place); an unknown name is refused as such."""
+    from hector_torch.qp import ref_check
+    monkeypatch.setattr(ref_check, 'QPOASES_REF_DIR', '/nonexistent/qpOASES')
     carry, plant, cmd = _port_state(2, torch.float64, seed=3)
     cfg = _with_solver(TCFG, backend='riccati_pallas_interpret')
     cfg = dataclasses.replace(cfg, mpc=dataclasses.replace(TCFG.mpc,
                                                            horizon=8))
     with pytest.raises(ValueError, match='horizon'):
         TRT.plan_step_fn(cfg)(carry, plant, cmd)
-    with pytest.raises(NotImplementedError, match='item 14'):
+    with pytest.raises(RuntimeError, match='qpOASES sources'):
         TRT.plan_step_fn(_with_solver(TCFG, backend='qpoases'))(
             carry, plant, cmd)
     with pytest.raises(ValueError, match='unknown solver backend'):

@@ -324,13 +324,16 @@ def test_rollout_quarantines_non_finite_lane():
     assert torch.equal(p.position[[0, 2]], clean_p.position[[0, 2]])
 
 
-def test_unported_paths_raise():
-    """What is still to port says which ROADMAP item ports it (the
-    estimators, item 12, are ported: tests/test_torch_estimation.py); the
+def test_unported_paths_raise(monkeypatch):
+    """Every path of the JAX package is ported; 'qpoases' without the
+    qpOASES sources raises, naming them, where JAX's plans zero forces
+    (tests/test_torch_ref_check.py holds the backend itself to JAX's); the
     fused backends keep their horizon guard."""
+    from hector_torch.qp import ref_check
+    monkeypatch.setattr(ref_check, 'QPOASES_REF_DIR', '/nonexistent/qpOASES')
     carry, plant, cmd = _to_port(*_jax_batch(2, jnp.float64, 3),
                                  torch.float64)
-    with pytest.raises(NotImplementedError, match='item 14'):
+    with pytest.raises(RuntimeError, match='qpOASES sources'):
         TRT.plan_step_fn(_with_solver(TCFG, backend='qpoases'))(
             carry, plant, cmd)
     cfg = dataclasses.replace(TCFG_FS, mpc=dataclasses.replace(TCFG.mpc,
@@ -385,6 +388,16 @@ est, e = estimation.est_update('kf', est, plant, CFG)
 wb = whole_body.init_whole_body_state(0.545, 2, device='cpu')
 wb = whole_body.step(wb, motor, CFG)
 assert torch.isfinite(e.position).all() and torch.isfinite(wb.q).all()
+# the entry points, parallel, IO and the host oracles
+from hector_torch import cli, parallel, worlds
+from hector_torch.io import (checkpoint, host_pipeline, html_viz, keyboard,
+                             live, metrics, profiling, scenarios, trajectory,
+                             viz)
+from hector_torch.qp import ref_check
+rec = cli.main(['--device', 'cpu', 'batch', '--batch', '2', '--seconds',
+                '0.01'])
+assert rec['devices'] == 1.0 and rec['fallen_count'] == 0.0
+assert host_pipeline.generate_host(1, 4).shape == (4, 11)
 assert not any(m == 'jax' or m.startswith(('jax.', 'hector.'))
                or m == 'hector' for m in sys.modules if sys.modules[m])
 print('ok')
