@@ -33,6 +33,14 @@ Phases, one JSON line each:
               5e-2 N of the fused kernel's;
   main        runtime.plan_step_fn at 32,768 lanes, 16 chained steps as
               bench.py chains them, counting kernel launches;
+  bench       `python -m hector_torch bench` in this process at its full
+              shape (32,768 lanes, 128 chained steps, one chain not timed
+              and 3 timed): exactly (1 + 3) x 128 = 512 launches of the
+              kernel without polish and nothing else; the record with
+              bench.py's keys in its order, a finite positive value; that
+              value within 0.5-2x of `main`'s solves/s, the same step timed
+              by another clock, so a step that waits on the card or launches
+              twice falls outside (BENCH_VS_MAIN);
   stage_entry fused_riccati.solve_batched on the StageQPData of the main
               path's states (32,768 lanes): one launch of each kernel; the
               kernel held freeze-aware to solve_parts on the compact build
@@ -122,6 +130,14 @@ Phases, one JSON line each:
               within 1e-3 N on the lanes that accept (cli_oracle), and
               `python -m hector_torch run --seconds 0.5` as a process
               (cli_module);
+  multihost   parallel.multihost over NCCL: a one-process group (file://
+              rendezvous, world size 1, rank 0), make_batch at 1,024 lanes
+              over its mesh and a 20-period sharded rollout, against the
+              same run without a group: the group on NCCL and the mesh the
+              current card, 20 launches of the kernel without polish and
+              nothing else, both tensors all_reduce sees on that card (the
+              rank's own, not another rank's), the metrics and the final
+              plant state bit for bit (a one-rank reduction is exact);
 then the kernels line, the card's name and power limit, and the result
 line.  Any failure raises, so the exit code is not 0 and no result line is
 printed.  Needs one CUDA device; imports nothing of JAX or of hector/.
@@ -293,6 +309,18 @@ STREAM_TIMED = 4
 ORACLE_LANES = 32
 ORACLE_TOL = 0.05
 ORACLE_POLISH_TOL = 1e-3
+# `python -m hector_torch bench` (hector_torch/bench.py at its full shape):
+# the record's keys in bench.py's order (bench.py:104-109), and its solves/s
+# against the same run's `main`: the same step at the same batch, timed by
+# the host clock over 128 steps a chain where `main` takes CUDA events over
+# 16, so a factor 2 either way takes a step that waits on the card or
+# launches twice
+BENCH_KEYS = ['metric', 'value', 'unit', 'vs_baseline']
+BENCH_VS_MAIN = (0.5, 2.0)
+# multihost over NCCL: a one-process group (file:// rendezvous), the global
+# batch and a sharded rollout, held bit for bit to the run without a group
+MULTIHOST_BATCH = 1024
+MULTIHOST_PERIODS = 20
 # the keys `python -m hector run` prints (hector/cli.py:66-70)
 RUN_KEYS = ['mean_height', 'min_height', 'fallen_frac', 'qp_mu_max',
             'qp_r_dual_max', 'x_traveled']
@@ -1476,6 +1504,98 @@ def cli_phase(card, dev, work):
     shutil.rmtree(work, ignore_errors=True)
 
 
+def bench_phase(card, main_solves_per_s):
+    """`python -m hector_torch bench` in this process at its full shape
+    (bench.BATCH lanes, bench.CHAIN_LEN steps, bench.REPS timed chains after
+    one not timed): one <false> launch a step and nothing else, the record
+    with bench.py's keys in its order, a finite positive value within
+    BENCH_VS_MAIN of the `main` phase's solves/s."""
+    from hector_torch import bench
+    rec, out, sec, launches, others = run_cli(['bench'])
+    value = rec['value']
+    ratio = value / main_solves_per_s
+    emit(dict(phase='bench', record=rec, seconds=sec, launches=launches,
+              other_launches=others, main_solves_per_s=main_solves_per_s,
+              bench_over_main=ratio, card=card))
+    check_launches('bench', launches, others,
+                   (1 + bench.REPS) * bench.CHAIN_LEN)
+    if list(rec) != BENCH_KEYS or [json.loads(line) for line in
+                                   out.splitlines()] != [rec]:
+        raise RuntimeError(f'bench printed {out!r}, not one record with the '
+                           f'keys {BENCH_KEYS}')
+    if not (math.isfinite(value) and value > 0):
+        raise RuntimeError(f'bench: value {value}')
+    if not BENCH_VS_MAIN[0] <= ratio <= BENCH_VS_MAIN[1]:
+        raise RuntimeError(f'bench: {value} solves/s is {ratio} x the main '
+                           f'phase\'s {main_solves_per_s}, outside '
+                           f'{BENCH_VS_MAIN}')
+
+
+def multihost_phase(card, work):
+    """parallel.multihost over NCCL on one card: a one-process group
+    (file:// rendezvous under ``work``), make_batch(MULTIHOST_BATCH) over its
+    mesh and a MULTIHOST_PERIODS-period sharded rollout, against the same
+    run without a group: the mesh the current card, one <false> launch a
+    period and nothing else, every tensor all_reduce sees on that card,
+    the metrics and the final state bit for bit."""
+    import tempfile
+    import torch.distributed as dist
+    from hector_torch import parallel as PAR
+    from hector_torch.config import DEFAULT_CONFIG as CFG
+
+    def rollout(mesh):
+        return timed_rollout(
+            PAR.make_sharded_rollout(MULTIHOST_PERIODS, mesh, CFG),
+            *PAR.make_batch(MULTIHOST_BATCH, cfg=CFG, mesh=mesh),
+            MULTIHOST_PERIODS, CFG)
+
+    alone = rollout(PAR.data_mesh(1))
+    reduced = []
+    all_reduce = dist.all_reduce
+
+    def recording(tensor, *args, **kwargs):
+        reduced.append(tensor.device)
+        return all_reduce(tensor, *args, **kwargs)
+
+    Path(work).mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        mesh = PAR.multihost(f'file://{tmp}/rdv', num_processes=1,
+                             process_id=0)
+        try:
+            backend = dist.get_backend()
+            dist.all_reduce = recording
+            grouped = rollout(mesh)
+        finally:
+            dist.all_reduce = all_reduce
+            dist.destroy_process_group()
+    own = torch.device('cuda', torch.cuda.current_device())
+    _, plant_a, metrics_a = alone[:3]
+    _, plant_g, metrics_g, sec, sim_rate, launches, others = grouped
+    same = (tree_equal(PAR.gather(plant_a), PAR.gather(plant_g))
+            and metrics_a.keys() == metrics_g.keys()
+            and all(tree_equal(metrics_a[k], metrics_g[k])
+                    for k in metrics_a))
+    emit(dict(phase='multihost', backend=backend, mesh=[str(d) for d in mesh],
+              batch=MULTIHOST_BATCH, periods=MULTIHOST_PERIODS,
+              launches=launches, reduced_on=sorted({str(d) for d in reduced}),
+              bit_for_bit=same, seconds=sec, sim_s_per_wall_s=sim_rate,
+              seconds_without_group=alone[3],
+              metrics={k: float(v) for k, v in metrics_g.items()},
+              card=card))
+    check_launches('multihost', launches, others, MULTIHOST_PERIODS)
+    if backend != 'nccl' or mesh != (own,):
+        raise RuntimeError(f'multihost: backend {backend}, mesh {mesh}, '
+                           f'expected nccl on {own}')
+    if len(reduced) != 2 or any(d != own for d in reduced):
+        raise RuntimeError(f'multihost: all_reduce on {reduced}, expected '
+                           f'two tensors on {own}')
+    if not all(v.device == own for v in metrics_g.values()):
+        raise RuntimeError('multihost: metrics off the rank\'s card')
+    if not same:
+        raise RuntimeError('multihost: the run in a group is not bit for bit '
+                           'the run without one')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1631,10 +1751,14 @@ def main():
                     ('f_ff', c.planner.f_ff), ('position', p.position)):
         if not bool(torch.isfinite(x).all()):
             raise RuntimeError(f'main path output {name} not finite')
+    main_solves_per_s = MAIN_BATCH / step_ms * 1e3
     emit(dict(phase='main', batch=MAIN_BATCH, chain=MAIN_CHAIN,
               launches=main_launches, ms_per_step=step_ms,
               warp_kernel_share_of_step=kernel_ms / step_ms,
-              solves_per_s=MAIN_BATCH / step_ms * 1e3, card=card))
+              solves_per_s=main_solves_per_s, card=card))
+
+    # ---- the headline benchmark, python -m hector_torch bench ----
+    bench_phase(card, main_solves_per_s)
 
     # ---- the fused kernel's StageQPData entry on the main path's states ----
     max_err = max(max_err, stage_entry_phase(main_state, card))
@@ -2178,8 +2302,11 @@ def main():
               card=card))
 
     # ---- the entry points: the CLI, parallel, checkpoints, the stream ----
-    cli_phase(card, dev, str(Path(__file__).resolve().parent / 'hector_torch'
-                             / '_build' / 'chip_smoke_cli'))
+    build_dir = Path(__file__).resolve().parent / 'hector_torch' / '_build'
+    cli_phase(card, dev, str(build_dir / 'chip_smoke_cli'))
+
+    # ---- multihost over NCCL: a one-process group on this card ----
+    multihost_phase(card, str(build_dir / 'chip_smoke_multihost'))
 
     emit({'kernels': [
         dict(name='fused_riccati', route='cuda',

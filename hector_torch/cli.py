@@ -7,14 +7,15 @@
     python -m hector_torch teleop             # interactive wasd/jl teleop
     python -m hector_torch view --vx 0.5      # live ANSI sim view
     python -m hector_torch replay traj.csv    # offline trajectory (TO state)
+    python -m hector_torch bench              # headline solves/s (bench.py)
     python -m hector_torch --device cpu run   # on the CPU, asked for
 
 Every command runs on the card (``--device cuda``, the default) and fails
 when there is none: the CPU runs only when ``--device cpu`` asks for it.
-The JAX CLI's ``bench`` command is not part of the port.  Commands come
-from flags, a scenario seed or the interactive teleop (io/keyboard.py);
-results go to stdout, JSONL and PNG.  ``main`` returns what the command
-printed as JSON (a dict), for callers in the same process.
+Commands come from flags, a scenario seed or the interactive teleop
+(io/keyboard.py); results go to stdout, JSONL and PNG.  ``main`` returns
+what the command printed as JSON (a dict), for callers in the same
+process.
 """
 
 from __future__ import annotations
@@ -100,6 +101,13 @@ def cmd_batch(args, device):
                   PAR.gather(plant), PAR.gather(cmd))
         print(f"checkpointed to {args.checkpoint}")
     return rec
+
+
+def cmd_bench(args, device):
+    """The headline benchmark (hector_torch/bench.py).  --batch is ignored,
+    as the JAX CLI ignores it: bench.BATCH lanes always run."""
+    from . import bench
+    return bench.main(device)
 
 
 def cmd_teleop(args, device):
@@ -334,6 +342,12 @@ def main(argv=None):
     b.add_argument("--checkpoint", default=None,
                    help="checkpoint directory (io/checkpoint.py)")
     b.set_defaults(fn=cmd_batch)
+
+    be = sub.add_parser("bench", help="headline solves/s benchmark")
+    be.add_argument("--batch", type=int, default=4096,
+                    help="ignored, as in the JAX CLI: the benchmark always "
+                         "runs 32,768 lanes")
+    be.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     try:

@@ -12,13 +12,15 @@ comes from splitting the scenario batch over devices:
   crosses a device;
 - only three scalars do: the mean height, the fallen count and the worst
   complementarity, combined across the mesh and, in a multi-process run
-  (:func:`multihost`), ``all_reduce``d across processes (SUM, SUM, MAX).
+  (:func:`multihost`: one card a process, each holding its slice of the
+  global batch), ``all_reduce``d across processes (SUM, SUM, MAX).
 
 A sharded tree is a tuple of per-device trees (:func:`gather` joins them).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -48,20 +50,35 @@ def data_mesh(n_devices: Optional[int] = None, device='cuda') -> Mesh:
 
 def multihost(coordinator: Optional[str] = None, num_processes: int = 1,
               process_id: int = 0, device='cuda') -> Mesh:
-    """Join a multi-process run, then build this process's mesh.  With
-    more than one process this initialises the default
-    ``torch.distributed`` group (NCCL on the card, gloo on the CPU) at
-    ``coordinator`` (an init method such as 'tcp://host:port'), and the
-    sharded rollout's metrics are then reduced across the processes.  On
-    one process it is :func:`data_mesh`."""
-    mesh = data_mesh(device=device)
-    if num_processes > 1:
-        import torch.distributed as dist
-        dist.init_process_group(
-            backend='nccl' if mesh[0].type == 'cuda' else 'gloo',
-            init_method=coordinator, world_size=num_processes,
-            rank=process_id)
-    return mesh
+    """Join a multi-process run, then build this process's mesh.
+
+    With more than one process, or a ``coordinator`` (an init method such
+    as 'tcp://host:port' or 'file:///path') given, this initialises the
+    default ``torch.distributed`` group as rank ``process_id`` of
+    ``num_processes``, and the mesh is this process's own device: on the
+    card one card, ``LOCAL_RANK`` when the launcher sets it, else
+    ``process_id`` modulo the cards present, made the current device and
+    handed to NCCL (which takes one rank a card); on the CPU the one CPU
+    device, under gloo.  :func:`make_batch` then builds only this
+    process's slice of the global batch, and the sharded rollout's metrics
+    are reduced across the processes.  Without either it is
+    :func:`data_mesh`, every card of the process."""
+    if num_processes <= 1 and coordinator is None:
+        return data_mesh(device=device)
+    import torch.distributed as dist
+    dev = resolve_device(device)
+    if dev.type == 'cuda':
+        index = int(os.environ.get('LOCAL_RANK',
+                                   process_id % torch.cuda.device_count()))
+        dev = torch.device('cuda', index)
+        torch.cuda.set_device(dev)
+        dist.init_process_group('nccl', init_method=coordinator,
+                                world_size=num_processes, rank=process_id,
+                                device_id=dev)
+    else:
+        dist.init_process_group('gloo', init_method=coordinator,
+                                world_size=num_processes, rank=process_id)
+    return (dev,)
 
 
 def shard_batch(tree, mesh: Sequence[torch.device]):
@@ -90,13 +107,26 @@ def make_batch(batch: int, cmd_fn=None, cfg: HectorConfig = DEFAULT_CONFIG,
     """(carry, plant, cmd) for ``batch`` scenarios, on ``device``, or split
     over ``mesh`` (then each is a tuple of per-device trees).
 
-    cmd_fn: lane indices (batch,) -> a batched ScenarioCommand; the default
-    walks forward at speeds spread over the teleop envelope
-    (FSMState_Walking.cpp:30, vx in [-0.75, 0.75]).  Each lane's estimator
-    noise stream is keyed ``fold_in(PRNGKey(seed), lane)``."""
+    In a multi-process run (a ``torch.distributed`` group initialised, as
+    :func:`multihost` does) with a mesh given, ``batch`` is the global
+    batch: rank r of P builds only lanes [r B/P, (r+1) B/P) and splits them
+    over its mesh, so the lanes lie over every process's devices as JAX's
+    ``P('data')`` lays them over a global mesh.  ``batch`` must then split
+    evenly over the processes and their devices.
+
+    cmd_fn: global lane indices (n,) -> a batched ScenarioCommand; the
+    default walks forward at speeds spread over the teleop envelope
+    (FSMState_Walking.cpp:30, vx in [-0.75, 0.75] over the global batch).
+    Each lane's estimator noise stream is keyed
+    ``fold_in(PRNGKey(seed), lane)`` by its global index."""
     dev = mesh[0] if mesh is not None else resolve_device(device)
-    plant = srb.init_plant_state(batch, cfg, device=dev)
-    lanes = torch.arange(batch, device=dev)
+    rank, world = _process_index() if mesh is not None else (0, 1)
+    if mesh is not None and batch % (world * len(mesh)):
+        raise ValueError(f'batch {batch} does not split evenly over {world} '
+                         f'processes of {len(mesh)} devices')
+    size = batch // world
+    plant = srb.init_plant_state(size, cfg, device=dev)
+    lanes = torch.arange(rank * size, (rank + 1) * size, device=dev)
     carry = RT.init_controller_carry(
         plant, cfg, key=prng.fold_in(prng.PRNGKey(seed, dev), lanes))
     if cmd_fn is None:
@@ -112,6 +142,15 @@ def make_batch(batch: int, cmd_fn=None, cfg: HectorConfig = DEFAULT_CONFIG,
         carry, plant, cmd = (shard_batch(t, mesh)
                              for t in (carry, plant, cmd))
     return carry, plant, cmd
+
+
+def _process_index():
+    """(rank, world size) of this process in the default torch.distributed
+    group, (0, 1) when none is initialised."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def _shard_metrics(diags):
@@ -139,6 +178,12 @@ def make_sharded_rollout(n_periods: int, mesh: Sequence[torch.device],
     tensors on ``mesh[0]``, reduced over every process of an initialised
     ``torch.distributed`` group too.  On a one-device mesh the state is
     bit for bit that of make_rollout on the whole batch.
+
+    In a multi-process run each process holds only its slice of the
+    global lanes (make_batch under :func:`multihost`) on its own mesh, the
+    returned state is that slice, and the metrics, reduced from ``mesh[0]``
+    (the process's own card), are those of the whole global batch in
+    every process.
 
     The loop is launch-bound on the host, and this one thread issues every
     card's ops, so a mesh of several cards is slower than one card at the

@@ -107,6 +107,40 @@ def test_mesh_and_shards():
         PAR.data_mesh()
 
 
+def test_make_batch_builds_this_process_slice(monkeypatch):
+    """Rank 1 of 2 processes on a two-device mesh builds lanes 4..7 of the
+    global 8-lane batch, split over its mesh: bit for bit the one-process
+    batch's lanes (carry with its noise keys, plant, cmd), and cmd_fn
+    sees the global lane indices."""
+    whole = PAR.make_batch(8, device=CPU)
+    monkeypatch.setattr(PAR, '_process_index', lambda: (1, 2))
+    mesh = PAR.data_mesh(2, device=CPU)
+    part = PAR.make_batch(8, mesh=mesh)
+    for w, shards in zip(whole, part, strict=True):
+        assert len(shards) == 2 and PAR._leaves(shards[0])[0].shape[0] == 2
+        _assert_tree(todict(TRT.concat(*shards)),
+                     todict(PAR._map(lambda x: x[4:8], w)))
+    seen = []
+
+    def cmd_fn(lanes):
+        seen.append(lanes.tolist())
+        return TRT.walking_command(lanes.shape[0], device=CPU)
+
+    PAR.make_batch(8, cmd_fn=cmd_fn, mesh=mesh)
+    assert seen == [[4, 5, 6, 7]]
+
+
+@pytest.mark.parametrize('rank_world, batch, n_devices',
+                         [((0, 2), 6, 2), ((2, 3), 8, 1), ((1, 2), 4, 4)])
+def test_make_batch_raises_when_the_batch_does_not_split(
+        monkeypatch, rank_world, batch, n_devices):
+    """The global batch must split evenly over the processes and their
+    devices, as P('data') requires."""
+    monkeypatch.setattr(PAR, '_process_index', lambda: rank_world)
+    with pytest.raises(ValueError, match='evenly'):
+        PAR.make_batch(batch, mesh=PAR.data_mesh(n_devices, device=CPU))
+
+
 def test_sharded_equals_unsharded():
     """Sharding must not change results (pure data parallelism): four
     shards against the whole batch at 1e-6 (tests/test_parallel.py:31-50),
@@ -185,25 +219,66 @@ _, _, m = PAR.make_sharded_rollout(3, mesh)(*([part(t)] for t in (c, p, k)))
 print("METRICS", *[repr(float(m[x])) for x in sorted(m)], flush=True)
 '''
 
+# each process builds its own slice of the global batch (no hand slicing)
+GLOBAL_WORKER = r'''
+import sys
+import torch
+sys.path.insert(0, sys.argv[3])
+torch.set_num_threads(1)
+from hector_torch import parallel as PAR
+rank = int(sys.argv[1])
+mesh = PAR.multihost(f"file://{sys.argv[2]}", num_processes=2,
+                     process_id=rank, device="cpu")
+c, p, k = PAR.make_batch(8, mesh=mesh)
+print("LANES", *[s.position.shape[0] for s in p], flush=True)
+_, _, m = PAR.make_sharded_rollout(3, mesh)(c, p, k)
+print("METRICS", *[repr(float(m[x])) for x in sorted(m)], flush=True)
+'''
+
+
+def _two_processes(worker, tmp_path):
+    # the outputs of two gloo processes running ``worker`` (file://
+    # rendezvous: no network)
+    procs = [subprocess.Popen(
+        [sys.executable, '-c', worker, str(r), str(tmp_path / 'rdv'), REPO],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in (0, 1)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert all(p.returncode == 0 for p in procs), outs
+    return [o for o, _ in outs]
+
+
+def _line(out, tag):
+    return [l for l in out.splitlines() if l.startswith(tag)][0]
+
+
+def _assert_whole_batch_metrics(line):
+    c, p, k = PAR.make_batch(8, device=CPU)
+    _, _, m = PAR.make_sharded_rollout(3, (CPU,), TCFG)((c,), (p,), (k,))
+    want = [float(m[x]) for x in sorted(m)]
+    got = [float(v) for v in line.split()[1:]]
+    # (fallen_count, mean_height, qp_mu_max): the height sum is added in
+    # another order across two processes
+    assert got[0] == want[0] and got[2] == want[2]
+    assert got[1] == pytest.approx(want[1], rel=1e-6)
+
 
 @pytest.mark.slow
 def test_two_process_gloo_reduction(tmp_path):
     """Two processes, each rolling out half the batch (gloo, file://
     rendezvous): each reports the metrics of the whole batch."""
-    procs = [subprocess.Popen(
-        [sys.executable, '-c', WORKER, str(r), str(tmp_path / 'rdv'), REPO],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in (0, 1)]
-    outs = [p.communicate(timeout=300) for p in procs]
-    assert all(p.returncode == 0 for p in procs), outs
-    lines = [[l for l in o.splitlines() if l.startswith('METRICS')][0]
-             for o, _ in outs]
+    lines = [_line(o, 'METRICS') for o in _two_processes(WORKER, tmp_path)]
     assert lines[0] == lines[1]
-    c, p, k = PAR.make_batch(8, device=CPU)
-    _, _, m = PAR.make_sharded_rollout(3, (CPU,), TCFG)((c,), (p,), (k,))
-    want = [float(m[x]) for x in sorted(m)]
-    got = [float(v) for v in lines[0].split()[1:]]
-    # (fallen_count, mean_height, qp_mu_max): the height sum is added in
-    # another order across two processes
-    assert got[0] == want[0] and got[2] == want[2]
-    assert got[1] == pytest.approx(want[1], rel=1e-6)
+    _assert_whole_batch_metrics(lines[0])
+
+
+@pytest.mark.slow
+def test_two_process_global_batch(tmp_path):
+    """make_batch(8, mesh=multihost(...)) in each of two processes: each
+    holds only its 4 lanes of the global batch, and both report the
+    metrics of one process's 8-lane run."""
+    outs = _two_processes(GLOBAL_WORKER, tmp_path)
+    assert [_line(o, 'LANES') for o in outs] == ['LANES 4'] * 2
+    lines = [_line(o, 'METRICS') for o in outs]
+    assert lines[0] == lines[1]
+    _assert_whole_batch_metrics(lines[0])

@@ -398,6 +398,10 @@ rec = cli.main(['--device', 'cpu', 'batch', '--batch', '2', '--seconds',
                 '0.01'])
 assert rec['devices'] == 1.0 and rec['fallen_count'] == 0.0
 assert host_pipeline.generate_host(1, 4).shape == (4, 11)
+from hector_torch import bench
+bench.BATCH, bench.CHAIN_LEN, bench.REPS = 2, 1, 1
+rec = cli.main(['--device', 'cpu', 'bench'])
+assert list(rec) == ['metric', 'value', 'unit', 'vs_baseline']
 assert not any(m == 'jax' or m.startswith(('jax.', 'hector.'))
                or m == 'hector' for m in sys.modules if sys.modules[m])
 print('ok')
