@@ -32,7 +32,10 @@ Phases, one JSON line each:
               default 'auto' step equals bit for bit; every step within
               5e-2 N of the fused kernel's;
   main        runtime.plan_step_fn at 32,768 lanes, 16 chained steps as
-              bench.py chains them, counting kernel launches;
+              bench.py chains them, counting kernel launches: the chained
+              step captured as a CUDA graph and replayed (bench.make_chain,
+              the path a user runs), timed beside the eager chain, bit for
+              bit;
   bench       `python -m hector_torch bench` in this process at its full
               shape (32,768 lanes, 128 chained steps, one chain not timed
               and 3 timed): exactly (1 + 3) x 128 = 512 launches of the
@@ -46,7 +49,9 @@ Phases, one JSON line each:
               kernel held freeze-aware to solve_parts on the compact build
               and to its plain version on the same slices, the polish to
               solve_parts;
-  loop        runtime.make_rollout for 200 MPC periods (1 s) at 1,024 lanes,
+  loop        runtime.make_rollout for 200 MPC periods (1 s) at 1,024 lanes
+              (its period captured as a CUDA graph and replayed, as in
+              every closed loop below on the fused solver),
               half walking at 0.5 m/s, half standing: no fall, no quarantine,
               height in the band tests/test_closedloop.py asserts;
   robust      make_rollout with pushes and a command/mode schedule for 300
@@ -76,6 +81,17 @@ Phases, one JSON line each:
               timed and run without a synchronisation; the 'kf' rollout for
               10 periods at 16 lanes on the card and on the CPU
               (whole_body_card_vs_cpu);
+  graph       each path the port captures (hector_torch/graph.py) against
+              its eager run on the card, the same inputs: the tier-1 loop,
+              the robustness rollout, the 'kf' and 'filtered' loops and the
+              tier-2 loop (GRAPH_PERIODS periods at 1,024 lanes) and the
+              chained planning step (32,768 lanes, 16 steps; 4 with
+              polish_rounds=8): bit for bit, one launch a step of <false>
+              (<true> with the polish) replayed and eager, the replays run
+              under set_sync_debug_mode('error'), both timed, the capture's
+              seconds and its graph's nodes; then one torch.profiler trace
+              (hector_torch.io.profiling.trace) of 5 replayed tier-1
+              periods: the top device ops and the card's idle share;
   chol        the Cholesky factor and solve kernels against their plain
               versions on the KKT matrices the dense interior point meets on
               closed-loop states (at its start and at iteration 5), at 4,096
@@ -322,6 +338,10 @@ BENCH_VS_MAIN = (0.5, 2.0)
 MULTIHOST_BATCH = 1024
 MULTIHOST_PERIODS = 20
 # the keys `python -m hector run` prints (hector/cli.py:66-70)
+GRAPH_PERIODS = 20     # each captured loop against its eager run (graph)
+GRAPH_ROBUST_EVENTS = ROBUST_SHORT_EVENTS
+GRAPH_TRACE_PERIODS = 5
+GRAPH_TOP_OPS = 12
 RUN_KEYS = ['mean_height', 'min_height', 'fallen_frac', 'qp_mu_max',
             'qp_r_dual_max', 'x_traveled']
 
@@ -944,6 +964,7 @@ def robust_phase(card, dev):
               other_launches=[robust_launches[1], robust_launches[2]],
               seconds=robust_s,
               sim_s_per_wall_s=ROBUST_PERIODS * 5 * CFG.plant.dt / robust_s,
+              capture_seconds=capture_seconds(roll.graphed),
               groups=res, failed=failed, card=card))
     if robust_launches != (ROBUST_PERIODS, 0, dict.fromkeys(CHOL_COUNTS, 0)):
         raise RuntimeError(f'robust rollout launched {robust_launches}, '
@@ -1086,16 +1107,17 @@ def check_launches(phase, launches, others, periods):
 
 def without_sync(name, fn):
     """fn() under torch.cuda.set_sync_debug_mode('error'): a call that
-    waits on the card raises."""
+    waits on the card raises.  Returns what fn returned."""
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode('error')
     try:
-        fn()
+        out = fn()
     except RuntimeError as err:
         raise RuntimeError(f'{name} synchronises with the card: {err}')
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+    return out
 
 
 def estimators_phase(card, dev):
@@ -1131,6 +1153,8 @@ def estimators_phase(card, dev):
         rec = dict(phase='estimators', estimator=kind, batch=EST_BATCH,
                    periods=EST_PERIODS, launches=launches,
                    other_launches=others, seconds=sec, sim_s_per_wall_s=rate,
+                   capture_seconds=(capture_seconds(first.graphed)
+                                    + capture_seconds(rest.graphed)),
                    checks=res, failed=failed, card=card)
         if kind == 'kf':
             obs = plant
@@ -1239,7 +1263,9 @@ def whole_body_phase(card, dev):
     emit(dict(phase='whole_body', estimator='cheater', batch=WB_BATCH,
               periods=WB_PERIODS, launches=launches, other_launches=others,
               seconds=sec, sim_s_per_wall_s=rate, step_ms=step_ms,
-              step_synchronises=False, checks=res, failed=failed, card=card))
+              step_synchronises=False,
+              capture_seconds=capture_seconds(roll.graphed), checks=res,
+              failed=failed, card=card))
     check_launches('whole_body (cheater)', launches, others, WB_PERIODS)
     if failed:
         raise RuntimeError(f'whole_body (cheater): {failed} failed')
@@ -1255,8 +1281,9 @@ def whole_body_phase(card, dev):
     res, failed = whole_body_checks(diags, plant, None, carry)
     emit(dict(phase='whole_body', estimator='kf', batch=WB_BATCH,
               periods=WB_PERIODS, launches=launches, other_launches=others,
-              seconds=sec, sim_s_per_wall_s=rate, checks=res, failed=failed,
-              card=card))
+              seconds=sec, sim_s_per_wall_s=rate,
+              capture_seconds=capture_seconds(roll.graphed), checks=res,
+              failed=failed, card=card))
     check_launches('whole_body (kf)', launches, others, WB_PERIODS)
     if failed:
         raise RuntimeError(f'whole_body (kf): {failed} failed')
@@ -1308,10 +1335,17 @@ def tree_to(tree, device=None, dtype=None):
 
 
 def tree_equal(a, b):
-    if isinstance(a, tuple):
-        return all(tree_equal(x, y) for x, y in zip(a, b, strict=True))
-    return (a.dtype == b.dtype and a.device == b.device
-            and torch.equal(a, b))
+    """Two trees of tensors (NamedTuples, tuples, dicts) equal bit for bit:
+    the same dtypes, devices, shapes and values, NaN where NaN."""
+    from hector_torch.graph import leaves
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.device == y.device and x.shape == y.shape
+        and (bool(torch.equal(x, y)) or (
+            x.is_floating_point()
+            and bool(torch.equal(torch.isnan(x), torch.isnan(y)))
+            and bool(torch.equal(torch.nan_to_num(x), torch.nan_to_num(y)))))
+        for x, y in zip(la, lb))
 
 
 def same_as_saved(tree, saved, dev):
@@ -1596,10 +1630,201 @@ def multihost_phase(card, work):
                            'the run without one')
 
 
+def capture_seconds(steps):
+    """Seconds that a graph.StepGraph spent in warm-up and capture."""
+    return sum(cap.seconds for cap in steps.captures.values())
+
+
+def graph_nodes(steps):
+    """The nodes of each CUDA graph a graph.StepGraph captured (one step
+    each), read with libcuda's cuGraphGetNodes."""
+    import ctypes
+    lib = ctypes.CDLL('libcuda.so.1')
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    out = []
+    for cap in steps.captures.values():
+        n = ctypes.c_size_t(0)
+        rc = lib.cuGraphGetNodes(cap.graph.raw_cuda_graph(), None,
+                                 ctypes.byref(n))
+        if rc != 0:
+            raise RuntimeError(f'cuGraphGetNodes failed: CUresult {rc}')
+        out.append(n.value)
+    return out
+
+
+def device_events(prof):
+    """The device activities (kernels, copies, fills) of a torch.profiler
+    run, as (name, start us, duration us)."""
+    out = []
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            out.append((evt.name, evt.time_range.start,
+                        evt.time_range.end - evt.time_range.start))
+    return out
+
+
+def idle_share(events):
+    """1 - (time some device activity runs) / (first start to last end)."""
+    spans = sorted((t0, t0 + d) for _, t0, d in events)
+    busy, end = 0.0, -math.inf
+    for t0, t1 in spans:
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    span = spans[-1][1] - spans[0][0]
+    return 1.0 - busy / span, span
+
+
+def graph_case(name, steps, run_graph, run_eager, steps_per_call, unit_s,
+               launches=None):
+    """One captured path against its eager run on the card, same inputs:
+    the graph's first call (warm-up, capture, replays), a second call
+    under set_sync_debug_mode('error'), the eager run, each timed on the
+    host clock (synchronised), held bit for bit; launches of the second
+    call and of the eager run, (<false>, every other kernel) = ``launches``
+    (default: one <false> a step); the nodes of the captured step.  Emits
+    the record and returns it."""
+    from hector_torch.qp import chol as CH
+    from hector_torch.qp import fused_riccati as FR
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        FR.launches = FR.polish_launches = 0
+        reset_chol_counts(CH)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        return out, sec, (FR.launches, FR.polish_launches
+                          + sum(chol_counts(CH).values()))
+
+    first, first_s, _ = timed(run_graph)
+    cap_s = capture_seconds(steps)
+    out_g, graph_s, graph_l = timed(
+        lambda: without_sync(f'{name} (graph replays)', run_graph))
+    out_e, eager_s, eager_l = timed(run_eager)
+    (nodes,) = graph_nodes(steps)
+    same = tree_equal(out_g, out_e) and tree_equal(first, out_g)
+    rec = dict(phase='graph', path=name, steps=steps_per_call,
+               captures=len(steps.captures), capture_seconds=cap_s,
+               first_call_seconds=first_s, graph_seconds=graph_s,
+               eager_seconds=eager_s, graph_over_eager=eager_s / graph_s,
+               graph_launches=graph_l, eager_launches=eager_l,
+               graph_nodes=nodes, bit_equal=same)
+    if unit_s:
+        rec.update(graph_sim_s_per_wall_s=steps_per_call * unit_s / graph_s,
+                   eager_sim_s_per_wall_s=steps_per_call * unit_s / eager_s)
+    emit(rec)
+    if not same:
+        raise RuntimeError(f'graph {name}: the replayed run is not bit for '
+                           f'bit the eager run')
+    expected = launches or (steps_per_call, 0)
+    if graph_l != eager_l or graph_l != expected:
+        raise RuntimeError(f'graph {name}: launches {graph_l} replayed, '
+                           f'{eager_l} eager, expected {expected}')
+    return rec
+
+
+def graph_phase(card, dev, work):
+    """Each captured path against its eager run on the card (graph_case):
+    the tier-1 loop, the robustness rollout, the 'kf' and 'filtered' loops,
+    the tier-2 loop under the cheater, the chained planning step; then one
+    torch.profiler trace of replayed tier-1 periods through
+    hector_torch.io.profiling.trace: the top device ops and the card's
+    idle share."""
+    from hector_torch import bench, prng
+    from hector_torch import runtime as RT
+    from hector_torch.io import profiling
+    from hector_torch.plant import srb
+    from hector_torch.plant import whole_body as WB
+    from hector_torch.config import DEFAULT_CONFIG as CFG
+
+    n, b = GRAPH_PERIODS, LOOP_BATCH
+    half = b // 2
+    period_s = CFG.mpc.mpc_cadence * CFG.plant.dt
+    keys = prng.fold_in(prng.PRNGKey(7, dev), torch.arange(b, device=dev))
+    mixed = RT.concat(RT.walking_command(half, vx=0.5, device=dev),
+                      RT.standing_command(b - half, device=dev))
+    walk = RT.walking_command(b, vx=0.5, device=dev)
+    recs = []
+
+    def rollout_case(name, roll, plant, args, key=None):
+        carry = roll.init(plant, key)
+        recs.append(graph_case(
+            name, roll.graphed, lambda: roll(carry, plant, *args),
+            lambda: roll.eager(carry, plant, *args), n, period_s))
+
+    plant = srb.init_plant_state(b, CFG, device=dev)
+    rollout_case('loop', RT.make_rollout(n, CFG), plant, (mixed,))
+    _, cmd, dist, sched = robust_inputs(b, n, GRAPH_ROBUST_EVENTS, dev)
+    rollout_case('robust', RT.make_rollout(n, CFG, with_disturbance=True,
+                                           with_schedule=True),
+                 plant, (cmd, dist, sched))
+    for kind in ('kf', 'filtered'):
+        rollout_case(f'estimators ({kind})',
+                     RT.make_rollout(n, CFG, estimator=kind), plant, (walk,),
+                     keys)
+    rollout_case('whole_body (cheater)', RT.make_rollout_whole_body(n, CFG),
+                 WB.init_whole_body_state(0.545, b, device=dev), (mixed,))
+
+    carry, plant, cmd = bench.initial_state(MAIN_BATCH, device=dev)
+    plan = RT.plan_step_fn(CFG)
+    chained = bench.make_chain(plan, MAIN_CHAIN).steps
+    recs.append(graph_case(
+        'plan_step', chained, lambda: chained((carry, plant), cmd),
+        lambda: chain(plan, carry, plant, cmd, MAIN_CHAIN)[:2],
+        MAIN_CHAIN, None))
+    plan_p = RT.plan_step_fn(with_solver(CFG, polish_rounds=POLISH_ROUNDS))
+    chained_p = bench.make_chain(plan_p, POLISH_CHAIN).steps
+    recs.append(graph_case(
+        'plan_step (polish)', chained_p,
+        lambda: chained_p((carry, plant), cmd),
+        lambda: chain(plan_p, carry, plant, cmd, POLISH_CHAIN)[:2],
+        POLISH_CHAIN, None, launches=(0, POLISH_CHAIN)))
+
+    # one trace of replayed tier-1 periods
+    roll = RT.make_rollout(GRAPH_TRACE_PERIODS, CFG)
+    plant = srb.init_plant_state(b, CFG, device=dev)
+    carry = roll.init(plant)
+    roll(carry, plant, mixed)
+    torch.cuda.synchronize()
+    with profiling.trace(str(work / 'trace')) as prof:
+        roll(carry, plant, mixed)
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    if not events:
+        raise RuntimeError('graph: the trace of replayed periods holds no '
+                           'device activity')
+    idle, span = idle_share(events)
+    by_name = {}
+    for name, _, d in events:
+        by_name[name] = by_name.get(name, 0.0) + d
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:GRAPH_TOP_OPS]
+    busy_ms = sum(by_name.values()) / 1e3 / GRAPH_TRACE_PERIODS
+    # the loop case's replays ran without the profiler: its wall time a
+    # period against the device time a period the trace shows
+    wall_ms = recs[0]['graph_seconds'] * 1e3 / recs[0]['steps']
+    emit(dict(phase='graph_trace', path='loop', batch=b,
+              periods=GRAPH_TRACE_PERIODS,
+              device_events_per_period=len(events) / GRAPH_TRACE_PERIODS,
+              device_ms_per_period=busy_ms,
+              span_ms_per_period=span / 1e3 / GRAPH_TRACE_PERIODS,
+              idle_share=idle,
+              unprofiled_wall_ms_per_period=wall_ms,
+              unprofiled_idle_share=1.0 - busy_ms / wall_ms,
+              top_ops_us_per_period=[
+                  (name, d / GRAPH_TRACE_PERIODS) for name, d in top],
+              trace=str(work / 'trace' / 'trace.json'), card=card))
+    return recs
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         sys.exit(1)
+    from hector_torch import bench
     from hector_torch import mpc as M
     from hector_torch import runtime as RT
     from hector_torch.plant import srb
@@ -1735,25 +1960,38 @@ def main():
         plant.position.shape, generator=gen, device=dev))
     main_state = (carry, plant, cmd)    # reused by the polish path
 
-    chain(plan, carry, plant, cmd, 2)   # warm-up, not counted
+    # the path as a user runs it: the chained step captured as a CUDA
+    # graph (bench.make_chain) and replayed; the eager chain beside it
+    chained = bench.make_chain(plan, MAIN_CHAIN).steps
+    chained((carry, plant), cmd)        # warm-up and capture, not counted
+    chain(plan, carry, plant, cmd, 2)   # eager warm-up, not counted
     FR.launches = FR.polish_launches = 0
-    CH.factor_launches = CH.solve_launches = 0
-    total_ms, (c, p, wrench, motor) = cuda_timed(
-        lambda: chain(plan, carry, plant, cmd, MAIN_CHAIN))
+    reset_chol_counts(CH)
+    total_ms, ((c, p), _) = cuda_timed(
+        lambda: chained((carry, plant), cmd))
     main_launches = FR.launches
     step_ms = total_ms / MAIN_CHAIN
     if main_launches != MAIN_CHAIN:
         raise RuntimeError(f'main path launched the warp kernel '
                            f'{main_launches} times, expected {MAIN_CHAIN}')
-    if FR.polish_launches or CH.factor_launches or CH.solve_launches:
+    if FR.polish_launches or sum(chol_counts(CH).values()):
         raise RuntimeError('main path launched a kernel that is not its own')
+    eager_ms, (c_e, p_e, wrench, motor) = cuda_timed(
+        lambda: chain(plan, carry, plant, cmd, MAIN_CHAIN))
+    eager_step_ms = eager_ms / MAIN_CHAIN
     for name, x in (('wrench', wrench), ('tau', motor.tau),
                     ('f_ff', c.planner.f_ff), ('position', p.position)):
         if not bool(torch.isfinite(x).all()):
             raise RuntimeError(f'main path output {name} not finite')
+    if not tree_equal((c, p), (c_e, p_e)):
+        raise RuntimeError('main path: the graphed chain is not bit for bit '
+                           'the eager chain')
     main_solves_per_s = MAIN_BATCH / step_ms * 1e3
     emit(dict(phase='main', batch=MAIN_BATCH, chain=MAIN_CHAIN,
               launches=main_launches, ms_per_step=step_ms,
+              eager_ms_per_step=eager_step_ms,
+              graph_over_eager=eager_step_ms / step_ms,
+              capture_seconds=capture_seconds(chained),
               warp_kernel_share_of_step=kernel_ms / step_ms,
               solves_per_s=main_solves_per_s, card=card))
 
@@ -1785,6 +2023,7 @@ def main():
         phase='loop', batch=LOOP_BATCH, periods=LOOP_PERIODS,
         launches=loop_launches, seconds=loop_s,
         sim_s_per_wall_s=LOOP_PERIODS * 5 * CFG.plant.dt / loop_s,
+        capture_seconds=capture_seconds(roll.graphed),
         fallen_lane_periods=fallen, quarantined_lane_periods=quarantined,
         walk_min_height=float(h[:half].min()),
         walk_vx_last50=float(vx[:half, -50:].mean()),
@@ -1814,6 +2053,10 @@ def main():
     # ---- the noisy estimators on the tier-1 loop, and the tier-2 plant ----
     estimators_phase(card, dev)
     whole_body_phase(card, dev)
+
+    # ---- every captured path against its eager run; a trace of replays ----
+    graph_phase(card, dev, Path(__file__).resolve().parent / 'hector_torch'
+                / '_build' / 'chip_smoke_graph')
 
     # ---- Cholesky kernels vs plain versions on the path's KKT matrices ----
     dense_scfg = dataclasses.replace(scfg, backend='auto')

@@ -33,20 +33,22 @@ def resolve_device(device) -> torch.device:
 _CONSTANTS = {}
 
 
-def constant(key, values, like) -> torch.Tensor:
-    """``values`` as a tensor with the dtype and device of ``like``, made
-    once per (key, dtype, device) and shared: never write to it.  A copy
+def constant(key, values, like, dtype=None) -> torch.Tensor:
+    """``values`` as a tensor with the dtype (unless ``dtype`` is given)
+    and device of ``like``, made once per (key, dtype, device) and shared:
+    never write to it.  A copy
     from the host synchronises with the card, so a loop that builds its
     constants with ``torch.tensor(..., device='cuda')`` waits on the card
     at every call; this one does so once.  ``key`` is any hashable that
     names the values (a config dataclass is part of it where the values
     derive from one); ``values`` may be a function that makes them."""
-    k = (key, like.dtype, like.device)
+    dtype = like.dtype if dtype is None else dtype
+    k = (key, dtype, like.device)
     t = _CONSTANTS.get(k)
     if t is None:
         if callable(values):
             values = values()
-        t = _CONSTANTS[k] = torch.as_tensor(values, dtype=like.dtype).to(
+        t = _CONSTANTS[k] = torch.as_tensor(values, dtype=dtype).to(
             like.device)
     return t
 

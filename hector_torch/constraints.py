@@ -21,7 +21,22 @@ from __future__ import annotations
 
 import torch
 
+from . import constant
 from .config import MPCConfig
+
+
+def _block_base(mu):
+    """The constant entries of F (16, 12): the friction-pyramid rows and
+    the Fz budget rows."""
+    f = [[0.0] * 12 for _ in range(16)]
+    for row0, col0 in ((0, 0), (8, 3)):
+        for k, (col, sign) in enumerate(((0, -1.0), (0, 1.0), (1, -1.0),
+                                         (1, 1.0))):
+            f[row0 + k][col0 + col] = sign * mu
+            f[row0 + k][col0 + 2] = 1.0
+    f[7][2] = 2.0
+    f[15][5] = 2.0
+    return f
 
 
 def constraint_block(r_body, r_foot, cfg: MPCConfig):
@@ -32,17 +47,8 @@ def constraint_block(r_body, r_foot, cfg: MPCConfig):
     mu, lt, lh = cfg.mu_constraint, cfg.lt, cfg.lh
     g0 = (r_body @ r_foot[..., 0, :, :]).transpose(-1, -2)
     g1 = (r_body @ r_foot[..., 1, :, :]).transpose(-1, -2)
-    f = torch.zeros(r_body.shape[:-2] + (16, 12), dtype=r_body.dtype,
-                    device=r_body.device)
-    for row0, col0 in ((0, 0), (8, 3)):
-        f[..., row0 + 0, col0 + 0] = -mu
-        f[..., row0 + 0, col0 + 2] = 1.0
-        f[..., row0 + 1, col0 + 0] = mu
-        f[..., row0 + 1, col0 + 2] = 1.0
-        f[..., row0 + 2, col0 + 1] = -mu
-        f[..., row0 + 2, col0 + 2] = 1.0
-        f[..., row0 + 3, col0 + 1] = mu
-        f[..., row0 + 3, col0 + 2] = 1.0
+    f = constant(('constraint_block', mu), lambda: _block_base(mu),
+                 r_body).expand(r_body.shape[:-2] + (16, 12)).clone()
 
     # Mx selection row: e_x^T G on the moment columns
     f[..., 4, 6:9] = g0[..., 0, :]
@@ -57,9 +63,6 @@ def constraint_block(r_body, r_foot, cfg: MPCConfig):
     f[..., 14, 3:6] = -lh * g1[..., 2, :]
     # reference quirk: +M_vec on the right leg's heel row (SolverMPC.cpp:546)
     f[..., 14, 9:12] = g1[..., 1, :]
-    # Fz budget rows
-    f[..., 7, 2] = 2.0
-    f[..., 15, 5] = 2.0
     return f
 
 
@@ -69,14 +72,14 @@ def constraint_bounds(gait_table, cfg: MPCConfig):
     gait_table: (..., h, 2) contact flags (SolverMPC.cpp:466-482); a swing
     leg's 8 rows get -2 big / +2 big so the solver's row masks drop them.
     """
-    dtype, dev = gait_table.dtype, gait_table.device
-    big = torch.tensor(cfg.big_number, dtype=dtype, device=dev)
-    zero = torch.zeros((), dtype=dtype, device=dev)
-    one = torch.ones((), dtype=dtype, device=dev)
-    lb_leg = torch.stack([zero, zero, zero, zero, zero, -big, -big, zero])
-    ub_base = torch.stack([big, big, big, big,
-                           torch.tensor(cfg.mx_bound, dtype=dtype, device=dev),
-                           zero, zero, one])
+    big_v = cfg.big_number
+    big = constant(('big_number', big_v), big_v, gait_table)
+    lb_leg = constant(('constraint_lb', big_v),
+                      [0.0, 0.0, 0.0, 0.0, 0.0, -big_v, -big_v, 0.0],
+                      gait_table)
+    ub_base = constant(('constraint_ub', big_v, cfg.mx_bound),
+                       [big_v, big_v, big_v, big_v, cfg.mx_bound, 0.0, 0.0,
+                        1.0], gait_table)
     lbs, ubs = [], []
     for leg in range(2):
         contact = gait_table[..., leg:leg + 1]           # (..., h, 1)

@@ -182,9 +182,9 @@ def leg_ik(p_foot_b, q_data, cfg: HectorConfig = DEFAULT_CONFIG):
     Parity target: SwingLegController.cpp:157-187.
     """
     ik = cfg.ik
-    dtype, dev = p_foot_b.dtype, p_foot_b.device
-    side = torch.tensor(IK_SIDE, dtype=dtype, device=dev)
-    hip = torch.tensor([ik.hip_x, 0.0, ik.hip_z], dtype=dtype, device=dev)
+    side = constant('IK_SIDE', IK_SIDE, p_foot_b)
+    hip = constant(('ik_hip', ik.hip_x, ik.hip_z), [ik.hip_x, 0.0, ik.hip_z],
+                   p_foot_b)
     d = p_foot_b - hip
     d0, d1, d2 = d[..., 0], d[..., 1], d[..., 2]
     dist3 = torch.sqrt(d0 * d0 + d1 * d1 + d2 * d2)

@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import constant
 from .config import HectorConfig, DEFAULT_CONFIG, JOINT_OFFSETS
 from . import math as hm
 from .kinematics import foot_rotation, hip_yaw_locations
@@ -72,7 +73,8 @@ def build_reference_trajectory(est, v_des_world, yaw_rate, roll_des,
     Row layout: [roll, pitch, yaw, x, y, z, wx, wy, wz, vx, vy, vz]."""
     h = cfg.mpc.horizon
     dtype, dev = est.position.dtype, est.position.device
-    dt_mpc = torch.tensor(cfg.mpc.dt_mpc, dtype=dtype, device=dev)
+    dt_mpc = constant(('dt_mpc', cfg.mpc.dt_mpc), cfg.mpc.dt_mpc,
+                      est.position)
     yaw = est.rpy[:, 2]
     zero = torch.zeros_like(yaw)
     i = torch.arange(h, dtype=dtype, device=dev)[None, :]        # (1, h)
@@ -108,11 +110,10 @@ def _qp_inputs(state: PlannerState, est, leg_q, p_foot_w, v_des_robot,
                yaw_rate, roll_des, pitch_des, gait_table, cfg, i_body):
     """Everything of one MPC solve up to the QP build: the drift-clamped
     desired position (B, 3) and the arguments both builders take."""
-    dtype, dev = est.position.dtype, est.position.device
-    offsets = torch.tensor(JOINT_OFFSETS, dtype=dtype, device=dev)
+    offsets = constant('JOINT_OFFSETS', JOINT_OFFSETS, est.position)
     if i_body is None:
-        i_body = torch.diag(torch.tensor(cfg.robot.inertia_body, dtype=dtype,
-                                         device=dev))
+        i_body = torch.diag(constant(('inertia_body', cfg.robot.inertia_body),
+                                     cfg.robot.inertia_body, est.position))
     v_des_world = hm.rmatvec(est.r_body, v_des_robot)
 
     # drift clamp on the desired xy (ConvexMPCLocomotion.cpp:335-346)

@@ -27,6 +27,7 @@ import torch
 
 from . import prng, resolve_device
 from . import runtime as RT
+from .graph import leaves as _leaves, tree_map as _map
 from .config import HectorConfig, DEFAULT_CONFIG
 from .plant import srb
 
@@ -185,10 +186,11 @@ def make_sharded_rollout(n_periods: int, mesh: Sequence[torch.device],
     (the process's own card), are those of the whole global batch in
     every process.
 
-    The loop is launch-bound on the host, and this one thread issues every
-    card's ops, so a mesh of several cards is slower than one card at the
-    same total batch (3.3-3.8x the time on four H100s, profile_mesh.py;
-    a host thread a card was 21-22x, its threads queueing on the GIL)."""
+    Each card's rollout is its own capture, one CUDA graph launch a period
+    from this thread (runtime.make_rollout), so the cards run at once: on
+    four H100s the same total batch took 0.81x and 0.50x one card's time
+    at 4,096 and 32,768 lanes, a host thread a card 0.88x and 0.51x
+    (profile_mesh.py; 3.3-3.8x and 21-22x while the period ran eagerly)."""
     roll = RT.make_rollout(n_periods, cfg)
     home = mesh[0]
 
@@ -219,15 +221,3 @@ def _all_reduce(sums, mu):
         dist.all_reduce(sums, op=dist.ReduceOp.SUM)
         dist.all_reduce(mu, op=dist.ReduceOp.MAX)
     return sums, mu
-
-
-def _leaves(tree):
-    if isinstance(tree, tuple):
-        return [x for t in tree for x in _leaves(t)]
-    return [tree]
-
-
-def _map(fn, tree):
-    if isinstance(tree, tuple):
-        return type(tree)(*[_map(fn, t) for t in tree])
-    return fn(tree)

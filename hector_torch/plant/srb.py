@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import resolve_device
+from .. import constant, resolve_device
 from ..config import HectorConfig, DEFAULT_CONFIG
 from .. import math as hm
 from ..kinematics import (foot_position, leg_jacobians, leg_ik,
@@ -95,11 +95,13 @@ def step(state: PlantState, cmd, wrench_world, contact_sched,
     body's on this tick (a push); terrain: optional (step_height (B,),
     step_length (B,)).
     """
-    dtype, dev = state.position.dtype, state.position.device
+    dtype = state.position.dtype
     pcfg = cfg.plant
-    dt = torch.tensor(pcfg.dt, dtype=dtype, device=dev)
-    mass = torch.tensor(pcfg.mass, dtype=dtype, device=dev)
-    g_vec = torch.tensor([0.0, 0.0, -pcfg.gravity], dtype=dtype, device=dev)
+    like = state.position
+    dt = constant(('plant.dt', pcfg.dt), pcfg.dt, like)
+    mass = constant(('plant.mass', pcfg.mass), pcfg.mass, like)
+    g_vec = constant(('gravity_vector', pcfg.gravity),
+                     [0.0, 0.0, -pcfg.gravity], like)
     hip_yaw = hip_yaw_locations(cfg, state.position)
 
     in_contact = contact_sched > 0
@@ -161,8 +163,8 @@ def step(state: PlantState, cmd, wrench_world, contact_sched,
         force = force + disturbance[:, 0:3]
         torque = torque + disturbance[:, 3:6]
 
-    i_body = torch.diag(torch.tensor(pcfg.inertia_body, dtype=dtype,
-                                     device=dev))
+    i_body = torch.diag(constant(('inertia_body', pcfg.inertia_body),
+                                 pcfg.inertia_body, like))
     i_world = rot @ i_body @ r_body
     omega = state.omega_world
     omega_dot = hm.matvec(hm.inv3(i_world), torque - hm.cross(
@@ -182,7 +184,8 @@ def step(state: PlantState, cmd, wrench_world, contact_sched,
 
     has_target = (cmd.kp > 0) | in_contact[..., None]
     q_target = torch.where(in_contact[..., None], q_stance, cmd.q_des)
-    track = torch.tensor(pcfg.joint_tracking_tau, dtype=dtype, device=dev)
+    track = constant(('joint_tracking_tau', pcfg.joint_tracking_tau),
+                     pcfg.joint_tracking_tau, like)
     qd_des = torch.clamp((q_target - state.q) / track,
                          -pcfg.joint_vel_limit, pcfg.joint_vel_limit)
     # limp joints: implicit first-order velocity decay through kd

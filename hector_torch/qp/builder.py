@@ -31,10 +31,29 @@ from typing import NamedTuple
 
 import torch
 
+from .. import constant
 from ..config import MPCConfig
 from ..math import euler_rate_matrix, skew, inv3
 from ..srbd import ct_dynamics, condense
 from ..constraints import constraint_block, constraint_bounds, input_mask
+
+
+def _dt(cfg: MPCConfig, like):
+    return constant(('dt_mpc', cfg.dt_mpc), cfg.dt_mpc, like)
+
+
+def _mass(cfg: MPCConfig, like):
+    return constant(('mpc.mass', cfg.mass), cfg.mass, like)
+
+
+def _weights13(cfg: MPCConfig, like):
+    """The state weights with the gravity state's 0 appended, (13,)."""
+    return constant(('mpc.weights13', cfg.weights),
+                    tuple(cfg.weights) + (0.0,), like)
+
+
+def _alpha(cfg: MPCConfig, like):
+    return constant(('mpc.alpha', cfg.alpha), cfg.alpha, like)
 
 
 class QPData(NamedTuple):
@@ -62,20 +81,15 @@ def build_qp(x0, traj, r_body, r_foot, r_feet, i_body, gait_table,
 
     i_world = r_body @ i_body @ r_body.transpose(-1, -2)
     erate = euler_rate_matrix(x0[:, 0:3])
-    a_ct, b_ct = ct_dynamics(
-        i_world, torch.tensor(cfg.mass, dtype=dtype, device=dev), r_feet,
-        erate)
-    a_qp, b_qp = condense(
-        a_ct, b_ct, torch.tensor(cfg.dt_mpc, dtype=dtype, device=dev), h)
+    a_ct, b_ct = ct_dynamics(i_world, _mass(cfg, x0), r_feet, erate)
+    a_qp, b_qp = condense(a_ct, b_ct, _dt(cfg, x0), h)
 
     # swing-leg variable masking == the reference's elimination
     u_mask = input_mask(gait_table).reshape(bsz, 12 * h).to(dtype)
     b_masked = b_qp * u_mask[:, None, :]
 
-    weights13 = torch.tensor(tuple(cfg.weights) + (0.0,), dtype=dtype,
-                             device=dev)
-    s_diag = weights13.repeat(h)                        # (13h,)
-    alpha_rep = torch.tensor(cfg.alpha, dtype=dtype, device=dev).repeat(h)
+    s_diag = _weights13(cfg, x0).repeat(h)              # (13h,)
+    alpha_rep = _alpha(cfg, x0).repeat(h)
 
     bs = b_masked * s_diag[:, None]                     # S B~
     h_mat = 2.0 * (b_masked.transpose(-1, -2) @ bs + torch.diag(alpha_rep))
@@ -117,8 +131,8 @@ def build_stage_parts(x0, traj, r_body, r_foot, r_feet, i_body, gait_table,
     """
     dtype, dev = x0.dtype, x0.device
     bsz = x0.shape[0]
-    dt = torch.tensor(cfg.dt_mpc, dtype=dtype, device=dev)
-    mass = torch.tensor(cfg.mass, dtype=dtype, device=dev)
+    dt = _dt(cfg, x0)
+    mass = _mass(cfg, x0)
 
     s69 = dt * euler_rate_matrix(x0[:, 0:3])
     scal = torch.stack([dt, -dt, dt / mass]).expand(bsz, 3).contiguous()
@@ -147,20 +161,17 @@ def build_stage_qp(x0, traj, r_body, r_foot, r_feet, i_body, gait_table,
     dtype, dev = x0.dtype, x0.device
     bsz = x0.shape[0]
     i_world = r_body @ i_body @ r_body.transpose(-1, -2)
-    a_ct, b_ct = ct_dynamics(
-        i_world, torch.tensor(cfg.mass, dtype=dtype, device=dev), r_feet,
-        euler_rate_matrix(x0[:, 0:3]))
-    dt = torch.tensor(cfg.dt_mpc, dtype=dtype, device=dev)
+    a_ct, b_ct = ct_dynamics(i_world, _mass(cfg, x0), r_feet,
+                             euler_rate_matrix(x0[:, 0:3]))
+    dt = _dt(cfg, x0)
     a_dt = torch.eye(13, dtype=dtype, device=dev) + dt * a_ct  # Acd
     b_dt = dt * b_ct                                           # Bcd
 
     u_mask = input_mask(gait_table).to(dtype)                  # (B, h, 12)
     xd = torch.cat([traj, torch.zeros(traj.shape[:-1] + (1,), dtype=dtype,
                                       device=dev)], dim=-1)    # (B, h, 13)
-    q_diag = torch.tensor(tuple(cfg.weights) + (0.0,), dtype=dtype,
-                          device=dev).expand(bsz, 13).contiguous()
-    r_diag = torch.tensor(cfg.alpha, dtype=dtype,
-                          device=dev).expand(bsz, 12).contiguous()
+    q_diag = _weights13(cfg, x0).expand(bsz, 13).contiguous()
+    r_diag = _alpha(cfg, x0).expand(bsz, 12).contiguous()
     c_block = constraint_block(r_body, r_foot, cfg).to(dtype)
     lb, ub = constraint_bounds(gait_table.to(dtype), cfg)
     return StageQPData(a_dt, b_dt, u_mask, x0, xd, q_diag, r_diag, c_block,

@@ -39,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import constant
 from ..config import SolverConfig
 from . import _nvcc
 
@@ -212,11 +213,9 @@ def solve_parts_plain(parts, scfg: SolverConfig, q_diag, r_diag
     dtype, dev = x0.dtype, x0.device
     bsz = x0.shape[0]
 
-    def const(v):
-        return torch.tensor(v, dtype=dtype, device=dev)
-
     q2_l, r2_l, r2reg_l = _weights(scfg, q_diag, r_diag)
-    q2, r2, r2reg = const(q2_l), const(r2_l), const(r2reg_l)
+    q2, r2, r2reg = [constant(('fused_riccati_weights', tuple(v)), v, x0)
+                     for v in (q2_l, r2_l, r2reg_l)]
     q2_mat = torch.diag(q2)
     r2reg_mat = torch.diag(r2reg)
     eps = torch.finfo(dtype).eps
@@ -227,13 +226,13 @@ def solve_parts_plain(parts, scfg: SolverConfig, q_diag, r_diag
     sl_cap = 1e8
     sigma, frac = scfg.sigma_fixed, scfg.frac_to_boundary
     big = scfg.big_threshold
-    inf = const(float('inf'))
+    inf = constant('inf', float('inf'), x0)
 
     a = _dense_dynamics(s69, scal)
     bmat = _dense_input(b69, scal)
     at = a.transpose(1, 2)
-    lr = torch.tensor(LR, device=dev)
-    ur = torch.tensor(UR, device=dev)
+    lr = constant('fused_riccati_LR', LR, x0, dtype=torch.int64)
+    ur = constant('fused_riccati_UR', UR, x0, dtype=torch.int64)
 
     mask_l = lb > -big
     mask_u = ub < big

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import constant
 from ..config import SolverConfig
 from .builder import QPData
 from .fused_riccati import QPSolution
@@ -91,7 +92,7 @@ def solve_batched(qp: QPData, scfg: SolverConfig = SolverConfig()
     s_floor = 10.0 * eps
     d_cap = 0.1 / eps
     sl_cap = 1e8                       # keeps s * lam finite in float32
-    inf = torch.tensor(float('inf'), dtype=dtype, device=dev)
+    inf = constant('inf', float('inf'), h_mat)
 
     def apply_c(u):
         return torch.einsum('bij,bhj->bhi', c_block, u.reshape(bsz, h, 12))

@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import constant
 from ..config import SolverConfig
 from .fused_riccati import QPSolution
 
@@ -109,7 +110,7 @@ def solve_batched(sqp: StageQPData, scfg: SolverConfig = SolverConfig()
     s_floor = 10.0 * eps
     d_cap = 0.1 / eps
     sl_cap = 1e8
-    inf = torch.tensor(float('inf'), dtype=dtype, device=dev)
+    inf = constant('inf', float('inf'), x0)
 
     def apply_c(u):                                       # (B,h,12)->(B,h,16)
         return torch.einsum('bij,bhj->bhi', c_blk, u)

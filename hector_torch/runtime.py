@@ -4,7 +4,10 @@
 The rollout steps MPC periods of 5 control ticks where only tick 0 solves
 the QP; ``do_mpc`` is a Python bool, so the batched solve runs exactly at
 the 200 Hz cadence.  Every tensor carries the scenario batch as its leading
-dimension.  PyTorch runs eagerly, so the loops are Python loops.
+dimension.  The reference jits a lax.scan over the periods; here one period
+is captured as a CUDA graph once per rollout object, batch size, dtype and
+device, and replayed once a period (graph.StepGraph), for the backends in
+GRAPH_BACKENDS; the others run the periods as a Python loop.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from . import constant, resolve_device
-from . import prng
+from . import graph, prng
 from .config import HectorConfig, DEFAULT_CONFIG, JOINT_OFFSETS
 from . import gait as G
 from . import control as C
@@ -292,67 +295,122 @@ def _where_tree(cond, new, old):
     return torch.where(c, new, old)
 
 
+# The solver backends whose MPC period is captured as a CUDA graph and
+# replayed (graph.StepGraph, the counterpart of the reference's jax.jit over
+# its lax.scan), on the tier-1 and the tier-2 plant: the fused Riccati
+# solver, kernel or plain version.  Every other backend runs the eager loop
+# of periods, by this rule and on every device: the dense interior point
+# ('dense_auto', 'pallas', 'pallas_interpret', 'xla') has not been held to
+# its eager run under capture; the stage solver 'riccati' waits on the card
+# in its torch.cholesky_solve calls; 'qpoases' solves on the host.
+GRAPH_BACKENDS = M.RICCATI_BACKENDS
+
+
 def _rollout(n_periods, cfg, with_disturbance, estimator, with_schedule,
              noise, observe, plant_step, est_ground_z):
     """The closed loop of both tiers: the controller sees ``observe(plant)``
     and ``plant_step(plant, motor_cmd, wrench, stance, push, terrain)``
     advances the plant one tick.  Returns the rollout in the call form the
-    two switches select, with ``.init(plant, key=None)``."""
+    two switches select, with ``.init(plant, key=None)`` and ``.eager``, the
+    same call form run as a Python loop of periods (what a backend outside
+    GRAPH_BACKENDS runs)."""
     if estimator not in EST.KINDS:
         raise ValueError(f'unknown estimator kind {estimator!r}; expected '
                          f'{EST.KINDS}')
 
-    def rollout(carry, plant, cmd, disturbance=None, schedule=None):
+    def period(carry, plant, cmd_t, dist, mode_cmd):
+        """One MPC period: the mode command (with a schedule), 5 ticks and
+        plant steps, the NaN quarantine.  Returns (carry', plant', the
+        period's diagnostics)."""
+        terrain = (cmd_t.terrain_step_height, cmd_t.terrain_step_length)
+        c0, p0 = carry, plant
+        c, p = c0, p0
+        if with_schedule:
+            c = apply_mode_command(c, observe(p), mode_cmd, cfg,
+                                   estimator=estimator)
+        diag0 = None
+        for k in range(cfg.mpc.mpc_cadence):
+            c, motor_cmd, wrench, stance, diag = controller_tick(
+                c, observe(p), cmd_t, do_mpc=(k == 0), cfg=cfg,
+                estimator=estimator, est_ground_z=est_ground_z,
+                noise=noise)
+            if k == 0:
+                # the per-period GRF/contact telemetry (the
+                # foot_contact_plugin wrench topics)
+                diag0 = {**diag, 'wrench': wrench, 'contact': stance}
+            p = plant_step(p, motor_cmd, wrench, stance, dist, terrain)
+        # NaN quarantine: a lane this period drove non-finite is frozen
+        # at its last finite state and flipped passive
+        healthy = (C.finite_lanes(p.position) & C.finite_lanes(p.v_world)
+                   & C.finite_lanes(p.quat) & C.finite_lanes(p.q))
+        plant = _where_tree(healthy, p, p0)
+        mode = torch.where(healthy, c.mode,
+                           torch.full_like(c.mode, C.MODE_PASSIVE))
+        carry = _where_tree(healthy, c, c0)._replace(mode=mode, tick=c.tick)
+        diag0.update(mode=mode, fallen=diag0['fallen'] | ~healthy,
+                     quarantined=~healthy)
+        return carry, plant, diag0
+
+    def eager(carry, plant, cmd, disturbance=None, schedule=None):
         diags = []
         for t in range(n_periods):
             cmd_t = (ScenarioCommand(*[f[:, t] for f in schedule[0]])
                      if with_schedule else cmd)
-            dist = disturbance[:, t] if with_disturbance else None
-            terrain = (cmd_t.terrain_step_height, cmd_t.terrain_step_length)
-            c0, p0 = carry, plant
-            c, p = c0, p0
-            if with_schedule:
-                c = apply_mode_command(c, observe(p), schedule[1][:, t], cfg,
-                                       estimator=estimator)
-            diag0 = None
-            for k in range(cfg.mpc.mpc_cadence):
-                c, motor_cmd, wrench, stance, diag = controller_tick(
-                    c, observe(p), cmd_t, do_mpc=(k == 0), cfg=cfg,
-                    estimator=estimator, est_ground_z=est_ground_z,
-                    noise=noise)
-                if k == 0:
-                    # the per-period GRF/contact telemetry (the
-                    # foot_contact_plugin wrench topics)
-                    diag0 = {**diag, 'wrench': wrench, 'contact': stance}
-                p = plant_step(p, motor_cmd, wrench, stance, dist, terrain)
-            # NaN quarantine: a lane this period drove non-finite is frozen
-            # at its last finite state and flipped passive
-            healthy = (C.finite_lanes(p.position) & C.finite_lanes(p.v_world)
-                       & C.finite_lanes(p.quat) & C.finite_lanes(p.q))
-            plant = _where_tree(healthy, p, p0)
-            mode = torch.where(healthy, c.mode,
-                               torch.full_like(c.mode, C.MODE_PASSIVE))
-            carry = _where_tree(healthy, c, c0)._replace(mode=mode,
-                                                          tick=c.tick)
-            diag0.update(mode=mode, fallen=diag0['fallen'] | ~healthy,
-                         quarantined=~healthy)
-            diags.append(diag0)
+            carry, plant, diag = period(
+                carry, plant, cmd_t,
+                disturbance[:, t] if with_disturbance else None,
+                schedule[1][:, t] if with_schedule else None)
+            diags.append(diag)
         stacked = {key: torch.stack([d[key] for d in diags], dim=1)
                    for key in diags[0]}
         return carry, plant, stacked
 
-    if with_disturbance and with_schedule:
-        def fn(carry, plant, cmd, disturbance, schedule):
-            return rollout(carry, plant, cmd, disturbance, schedule)
-    elif with_disturbance:
-        def fn(carry, plant, cmd, disturbance):
-            return rollout(carry, plant, cmd, disturbance=disturbance)
-    elif with_schedule:
-        def fn(carry, plant, cmd, schedule):
-            return rollout(carry, plant, cmd, schedule=schedule)
-    else:
-        def fn(carry, plant, cmd):
-            return rollout(carry, plant, cmd)
+    def step(state, inputs, i):
+        """The period as graph.StepGraph replays it: period i's slices of
+        the disturbance and the schedule read on the device."""
+        def at(x):
+            return x.index_select(1, i).squeeze(1)
+
+        cmd_t = (ScenarioCommand(*[at(f) for f in inputs['schedule'][0]])
+                 if with_schedule else inputs['cmd'])
+        carry, plant, diag = period(
+            *state, cmd_t,
+            at(inputs['disturbance']) if with_disturbance else None,
+            at(inputs['schedule'][1]) if with_schedule else None)
+        return (carry, plant), diag
+
+    graphed = graph.StepGraph(step, n_periods)
+
+    def rollout(carry, plant, cmd, disturbance=None, schedule=None):
+        backend = M.resolve_backend(cfg.solver.backend, plant.position.device)
+        if backend not in GRAPH_BACKENDS:
+            return eager(carry, plant, cmd, disturbance, schedule)
+        inputs = {}
+        if with_schedule:
+            inputs['schedule'] = schedule
+        else:
+            inputs['cmd'] = cmd
+        if with_disturbance:
+            inputs['disturbance'] = disturbance
+        (carry, plant), diags = graphed((carry, plant), inputs)
+        return carry, plant, diags
+
+    def with_form(run):
+        if with_disturbance and with_schedule:
+            def fn(carry, plant, cmd, disturbance, schedule):
+                return run(carry, plant, cmd, disturbance, schedule)
+        elif with_disturbance:
+            def fn(carry, plant, cmd, disturbance):
+                return run(carry, plant, cmd, disturbance=disturbance)
+        elif with_schedule:
+            def fn(carry, plant, cmd, schedule):
+                return run(carry, plant, cmd, schedule=schedule)
+        else:
+            def fn(carry, plant, cmd):
+                return run(carry, plant, cmd)
+        return fn
+
+    fn = with_form(rollout)
 
     def init(plant, key=None):
         """init_controller_carry bound to this rollout's cfg and noise model
@@ -362,6 +420,8 @@ def _rollout(n_periods, cfg, with_disturbance, estimator, with_schedule,
                                      noise=noise)
 
     fn.init = init
+    fn.eager = with_form(eager)
+    fn.graphed = graphed
     return fn
 
 
@@ -394,6 +454,11 @@ def make_rollout(n_periods: int, cfg: HectorConfig = DEFAULT_CONFIG,
 
     Lanes that go non-finite in a period are frozen at their last finite
     state and flipped passive (NaN quarantine, runtime.py:330-347).
+
+    Under a backend of GRAPH_BACKENDS the period is captured as a CUDA
+    graph at the first call for a batch size, dtype and device and
+    replayed once a period (the reference's jax.jit of its lax.scan);
+    ``rollout.eager`` is the same call run as a Python loop of periods.
     """
     def plant_step(p, motor_cmd, wrench, stance, dist, terrain):
         return srb.step(p, motor_cmd, wrench, stance, disturbance=dist,

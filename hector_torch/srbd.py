@@ -20,7 +20,17 @@ from __future__ import annotations
 
 import torch
 
+from . import constant
 from .math import skew, inv3
+
+
+def _a_base():
+    """The constant entries of A: dp/dt = v and the gravity column."""
+    a = [[0.0] * 13 for _ in range(13)]
+    for k in range(3):
+        a[3 + k][9 + k] = 1.0
+    a[11][12] = -1.0
+    return a
 
 
 def ct_dynamics(i_world, mass, r_feet, euler_rate):
@@ -35,10 +45,9 @@ def ct_dynamics(i_world, mass, r_feet, euler_rate):
     bsz = i_world.shape[0]
     dtype, dev = i_world.dtype, i_world.device
     eye = torch.eye(3, dtype=dtype, device=dev)
-    a = torch.zeros((bsz, 13, 13), dtype=dtype, device=dev)
+    a = constant('ct_dynamics_a', _a_base, i_world).expand(
+        bsz, 13, 13).clone()
     a[:, 0:3, 6:9] = euler_rate
-    a[:, 3:6, 9:12] = eye
-    a[:, 11, 12] = -1.0
 
     i_inv = inv3(i_world)
     b = torch.zeros((bsz, 13, 12), dtype=dtype, device=dev)
