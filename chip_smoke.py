@@ -7,8 +7,9 @@ Phases, one JSON line each:
               for sm_90a (one nvcc each, both started together) and report
               each kernel's registers, spills, shared memory and resident
               warps an SM; no instantiation of the Riccati kernel and no
-              Cholesky kernel may use local memory, and the Riccati kernel
-              without polish must keep to 128 registers and 16 warps an SM;
+              Cholesky kernel may use local memory, the Riccati kernel
+              without polish must keep to 128 registers and 16 warps an SM,
+              and the cluster factor to 128 registers;
   kernel      the Riccati kernel without polish (the fused interior point,
               one warp a scenario) against its plain PyTorch version on the
               same QPs
@@ -96,12 +97,15 @@ Phases, one JSON line each:
               versions on the KKT matrices the dense interior point meets on
               closed-loop states (at its start and at iteration 5), at 4,096
               lanes and a ragged 4,099, lane by lane; the register-tile
-              factor and solve against the shared-memory ones bit for bit;
-              with one bad matrix and one NaN QP that must stay alone;
+              factor and solve against the shared-memory ones bit for bit,
+              and the cluster factor (launched at n = 120) against the
+              register-tile one; with one bad matrix and one NaN QP that
+              must stay alone;
   chol_spd    the factor on seeded random SPD batches at n = 117 (a ragged
-              tile grid), 240 and 288 (the shared-triangle kernel's side of
-              the route), lane by lane, bit for bit the shared-triangle
-              kernel, the route n says (register tiles up to 248);
+              tile grid), 240, and on the cluster kernel's side of the route
+              249, 288, 300 (a ragged tile grid) and 339 (the ceiling), lane
+              by lane, bit for bit the shared-triangle kernel, the route n
+              says (register tiles up to 248, the cluster factor above);
   chol_time   the factor kernels in turns (register tiles, shared memory,
               shared memory, register tiles) and the solve kernels likewise
               at 4,096 lanes, beside the plain versions and
@@ -113,13 +117,18 @@ Phases, one JSON line each:
   dense_loop  make_rollout with backend='dense_auto', 40 periods at 256
               lanes: no fall, no quarantine;
   dense_long  mpc.solve with backend='dense_auto' at horizon 24 (n = 288)
-              at 1,024 lanes: 15 launches of the shared-triangle factor, 29
-              of the shared-memory solve; the forces no further from a
-              float64 solve of the same QPs than the 'pallas_interpret'
-              run's plus 2e-2 N (at this n the two float32 runs differ by
-              ~0.1 N, while the factor keeps to 1e-4 of a lane's max |L|);
-              factor and solve lane by lane against their plain versions on
-              the path's KKT matrices; both timed beside the library;
+              at 1,024 lanes: 15 launches of the cluster factor (none of
+              the shared-triangle one), 29 of the shared-memory solve (the
+              first of 3 timed solves; the median is the solve's time); the
+              forces no further from a float64 solve of the same QPs than
+              the 'pallas_interpret' run's plus 2e-2 N (at this n the two
+              float32 runs differ by ~0.1 N, while the factor keeps to 1e-4
+              of a lane's max |L|); factor and solve lane by lane against
+              their plain versions on the path's KKT matrices, the cluster
+              factor bit for bit the shared-triangle one; the cluster
+              factor, the shared-triangle factor and torch.linalg.cholesky
+              timed in turns on iteration 5's matrices, the solve beside
+              the library;
   polish      the kernel with polish (polish_rounds=8) against its plain
               version at 4,096 and 4,099 lanes and on the main path's
               32,768 QPs, and with the polish forced to reject (the
@@ -202,12 +211,14 @@ DENSE_LOOP_PERIODS = 40
 RAGGED_BATCH = 4099
 # max |L_k - L_p| over max |L_p|, lower triangle, on every lane
 CHOL_FACTOR_TOL = 1e-4
-# a ragged tile grid; h = 20; above the tile kernel's 248
-SPD_SIZES = (117, 240, 288)
+# a ragged tile grid; h = 20; above the tile kernel's 248, the cluster
+# factor: a ragged edge of one row, h = 24, a ragged tile grid, the ceiling
+SPD_SIZES = (117, 240, 249, 288, 300, 339)
 TILE_MAX_N = 248          # the register-tile kernels' cut (chol.cu)
 SPD_BATCH = 1024
-LONG_HORIZON = 24         # n = 288: the dense path on the shared-memory kernels
+LONG_HORIZON = 24         # n = 288: the cluster factor, the shared-memory solve
 LONG_BATCH = 1024
+LONG_SOLVES = 3           # timed solves; the median is reported, the first counted
 CHOL_SOLVE_TOL = 1e-3     # |L L^T x - rhs|_inf over |rhs|_inf, batch and worst lane
 # |x_k - x_p|_inf over |x_p|_inf, every lane.  The kernel contracts a
 # multiply and a subtract into one FMA, the plain version rounds twice; on the
@@ -234,6 +245,9 @@ POLISH_ANY_TOL = 1e-2     # N, every lane (a flipped lane keeps the IP iterate)
 # thread, 16 warps an SM
 IP_MAX_REGISTERS = 128
 IP_WARPS_PER_SM = 16
+# the cluster factor's design point: one 8 x 8 tile (64 registers) a thread
+# under a cap of 128, no spill
+CLUSTER_MAX_REGISTERS = 128
 # the Mehrotra stage solver ('riccati') on the card: closed-loop lanes,
 # chained steps
 RICCATI_BATCH = 4096
@@ -497,7 +511,8 @@ def factor_vs_plain(l_k, m):
             float((d / scale.clamp(min=1e-30)).max()))
 
 
-CHOL_COUNTS = ('factor', 'factor_shared', 'solve', 'solve_shared')
+CHOL_COUNTS = ('factor', 'factor_shared', 'factor_cluster', 'solve',
+               'solve_shared')
 
 
 def chol_counts(CH):
@@ -532,6 +547,7 @@ KERNEL_NAMES = (('fused_riccati_warp_kernelILb0E', 'fused_riccati'),
                 ('fused_riccati_warp_kernelILb1E', 'fused_riccati_polish'),
                 ('chol_factor_kernel', 'chol_factor'),
                 ('chol_factor_smem_kernel', 'chol_factor_shared'),
+                ('chol_factor_cluster_kernel', 'chol_factor_cluster'),
                 ('chol_solve_kernel', 'chol_solve'),
                 ('chol_solve_smem_kernel', 'chol_solve_shared'))
 
@@ -1861,6 +1877,8 @@ def main():
              'chol_factor': CH.kernel_attributes(n, 'factor_tile'),
              'chol_factor_shared': CH.kernel_attributes(n_long,
                                                         'factor_shared'),
+             'chol_factor_cluster': CH.kernel_attributes(n_long,
+                                                         'factor_cluster'),
              'chol_solve': CH.kernel_attributes(n, 'solve_tile'),
              'chol_solve_shared': CH.kernel_attributes(n_long,
                                                        'solve_shared')}
@@ -1873,6 +1891,10 @@ def main():
                 and rep['stack_frame_bytes'] == 0
                 and attr['local_bytes'] == 0):
             raise RuntimeError(f'{name} uses local memory: {rep}, {attr}')
+    if attrs['chol_factor_cluster']['registers'] > CLUSTER_MAX_REGISTERS:
+        raise RuntimeError(f'the cluster factor takes more than '
+                           f'{CLUSTER_MAX_REGISTERS} registers: '
+                           f'{attrs["chol_factor_cluster"]}')
     ip_attr = attrs['fused_riccati']
     if not (ip_attr['registers'] <= IP_MAX_REGISTERS
             and ip_attr['warps_per_sm'] >= IP_WARPS_PER_SM):
@@ -2072,6 +2094,7 @@ def main():
                               ('iteration 5', seen_m[-1], seen_rhs[-1])):
             l_k = CH.cholesky_bnn(m)
             l_s = CH.factor_shared_cuda(m, torch.empty_like(m))
+            l_c = CH.factor_cluster_cuda(m, torch.empty_like(m))
             x_k = CH.cholesky_solve_bnn(l_k, rhs)
             x_s = CH.solve_shared_cuda(l_k, rhs, torch.empty_like(rhs))
             x_p = CH.cholesky_solve_nnb_plain(l_k.permute(1, 2, 0),
@@ -2085,6 +2108,7 @@ def main():
             d_l, l_scale, d_l_lane = factor_vs_plain(l_k, m)
             upper_nonzero = int((l_k * ~lower).count_nonzero())
             tile_equals_shared = bit_equal(l_k, l_s)
+            cluster_equals_tile = bit_equal(l_c, l_k)
             edge = edge_rhs(rhs)
             solve_tile_equals_shared = (
                 bit_equal(x_k, x_s)
@@ -2112,6 +2136,7 @@ def main():
                       rel_dl=d_l / l_scale, rel_dl_worst_lane=d_l_lane,
                       rel_dl_tol=CHOL_FACTOR_TOL,
                       tile_equals_shared_kernel=tile_equals_shared,
+                      cluster_kernel_equals_tile=cluster_equals_tile,
                       solve_tile_equals_shared_kernel=solve_tile_equals_shared,
                       upper_nonzero=upper_nonzero,
                       solve_residual_rel=resid_rel,
@@ -2133,6 +2158,9 @@ def main():
             if not tile_equals_shared:
                 raise RuntimeError('the register-tile and shared-memory '
                                    'factor kernels disagree')
+            if not cluster_equals_tile:
+                raise RuntimeError('the cluster and register-tile factor '
+                                   'kernels disagree at n = 120')
             if not solve_tile_equals_shared:
                 raise RuntimeError('the register-tile and shared-memory '
                                    'solve kernels disagree (KKT or edge '
@@ -2172,11 +2200,11 @@ def main():
                   nan_qp_skipped_and_isolated=qp_skipped))
         if not (lane_alone and qp_skipped):
             raise RuntimeError('a bad lane leaked into its neighbours')
-    del seen_m, seen_rhs, l64, x64, r64, resid, x_true, x_s, edge
+    del seen_m, seen_rhs, l64, x64, r64, resid, x_true, x_s, edge, l_c
     del m_bad, l_bad, sol_ok, sol_bad
 
     # ---- the factor on random SPD matrices, both sides of the route ----
-    shared_err = 0.0
+    cluster_err = shared_err = 0.0
     for size in SPD_SIZES:
         gen = torch.Generator(device=dev).manual_seed(size)
         x = torch.randn((SPD_BATCH, size, size), generator=gen, device=dev)
@@ -2196,21 +2224,23 @@ def main():
         rec = dict(phase='chol_spd', batch=SPD_BATCH, n=size, kernel=kernel,
                    max_abs_dl=d_l, l_scale=l_scale, rel_dl_worst_lane=d_l_lane,
                    upper_nonzero=upper_nonzero,
-                   tile_equals_shared_kernel=bit_equal(l_k, l_s),
+                   kernel_equals_shared_kernel=bit_equal(l_k, l_s),
                    nnb_views_equal=bool(torch.equal(l_nnb.permute(2, 0, 1),
                                                     l_k)))
         emit(rec)
         if kernel != ('factor_tile' if size <= TILE_MAX_N
-                      else 'factor_shared'):
+                      else 'factor_cluster'):
             raise RuntimeError(f'n = {size} goes to {kernel}')
         if not (d_l_lane <= CHOL_FACTOR_TOL and upper_nonzero == 0
-                and rec['tile_equals_shared_kernel']
+                and rec['kernel_equals_shared_kernel']
                 and rec['nnb_views_equal']):
             raise RuntimeError(f'factor kernel at n = {size}: {rec}')
+        # bit for bit the routed kernel, so its error
+        shared_err = max(shared_err, d_l)
         if kernel == 'factor_tile':
             factor_err = max(factor_err, d_l)
         else:
-            shared_err = max(shared_err, d_l)
+            cluster_err = max(cluster_err, d_l)
     del x, m, l_k, l_s, l_nnb
 
     # ---- the kernels timed: the two factor kernels in turns ----
@@ -2286,6 +2316,7 @@ def main():
         lambda: chain(plan_dense, carry, plant, cmd, DENSE_CHAIN, w_dense))
     dense_factor_launches = CH.factor_launches
     dense_larger_n_launches = (CH.factor_shared_launches
+                               + CH.factor_cluster_launches
                                + CH.solve_shared_launches)
     dense_solve_launches = CH.solve_launches
     dense_step_ms = total_ms / DENSE_CHAIN
@@ -2374,7 +2405,8 @@ def main():
     if not h.min() > 0.4:
         raise RuntimeError('dense loop: a lane collapsed')
 
-    # ---- dense path at a long horizon: the shared-memory kernels ----
+    # ---- dense path at a long horizon: the cluster factor, the
+    # shared-memory solve ----
     def wrench_diff(a, b):
         return float((a.u[:, :12].double() - b.u[:, :12].double()).abs().max())
 
@@ -2385,11 +2417,16 @@ def main():
     M.solve(qp_long, long_cfg)                      # warm-up, not counted
     FR.launches = FR.polish_launches = 0
     reset_chol_counts(CH)
-    long_step_ms, sol_long = cuda_timed(lambda: M.solve(qp_long, long_cfg))
+    long_ms, sol_long = cuda_timed(lambda: M.solve(qp_long, long_cfg))
     long_launches = chol_counts(CH)
+    # a solve is host-bound (eager small ops): the median of LONG_SOLVES
+    long_ms_turns = [long_ms] + [
+        cuda_timed(lambda: M.solve(qp_long, long_cfg))[0]
+        for _ in range(LONG_SOLVES - 1)]
+    long_step_ms = sorted(long_ms_turns)[LONG_SOLVES // 2]
     it = scfg.iterations
-    want = dict(factor=it + 1, factor_shared=it + 1, solve=2 * it + 1,
-                solve_shared=2 * it + 1)
+    want = dict(factor=it + 1, factor_shared=0, factor_cluster=it + 1,
+                solve=2 * it + 1, solve_shared=2 * it + 1)
     if long_launches != want or FR.launches or FR.polish_launches:
         raise RuntimeError(f'long-horizon dense solve launched '
                            f'{long_launches}, expected {want}')
@@ -2408,30 +2445,42 @@ def main():
     # KKT matrices
     seen_m, seen_rhs = kkt_matrices(qp_long, dataclasses.replace(
         long_cfg.solver, backend='auto', iterations=6))
-    shared_lane_err = long_solve_err = 0.0
+    cluster_lane_err = long_solve_err = 0.0
     long_solve_lane = {}
+    cluster_equals_shared = {}
     for where, m, rhs in (('start', seen_m[0], seen_rhs[0]),
                           ('iteration 5', seen_m[-1], seen_rhs[-1])):
         l_k = CH.cholesky_bnn(m)
+        l_s = CH.factor_shared_cuda(m, torch.empty_like(m))
         x_k = CH.cholesky_solve_bnn(l_k, rhs)
         x_p = CH.cholesky_solve_nnb_plain(l_k.permute(1, 2, 0), rhs.t()).t()
         all_finite(long_x=x_k)
         d_l, _, d_l_lane = factor_vs_plain(l_k, m)
-        shared_err = max(shared_err, d_l)
-        shared_lane_err = max(shared_lane_err, d_l_lane)
+        cluster_equals_shared[where] = bit_equal(l_k, l_s)
+        cluster_err = max(cluster_err, d_l)
+        cluster_lane_err = max(cluster_lane_err, d_l_lane)
         long_solve_err = max(long_solve_err, float((x_k - x_p).abs().max()))
         long_solve_lane[where] = float(
             ((x_k - x_p).abs().amax(1)
              / x_p.abs().amax(1).clamp(min=1e-30)).max())
     m_long, rhs_long = seen_m[-1], seen_rhs[-1]
-    del seen_m, seen_rhs, m, rhs, l_k, x_k, x_p
+    del seen_m, seen_rhs, m, rhs, l_k, l_s, x_k, x_p
 
-    # timed on iteration 5's matrices beside the plain versions and the
-    # library
+    # timed on iteration 5's matrices: the route's cluster factor, the
+    # shared-triangle factor and the library in turns, beside the plain
+    # versions
     m_long_nnb = m_long.permute(1, 2, 0).contiguous()
-    long_factor_ms = cuda_ms(lambda: CH.cholesky_bnn(m_long), 10)
+    f_turns = {'cluster': [], 'shared': [], 'library': []}
+    f_fns = {'cluster': (lambda: CH.cholesky_bnn(m_long), 10),
+             'shared': (lambda: CH.factor_shared_cuda(
+                 m_long, torch.empty_like(m_long)), 5),
+             'library': (lambda: torch.linalg.cholesky(m_long), 5)}
+    for name in ('cluster', 'shared', 'library', 'library', 'shared',
+                 'cluster'):
+        f_turns[name].append(cuda_ms(*f_fns[name]))
+    long_factor_ms, long_shared_ms, long_lib_ms = (
+        sum(f_turns[k]) / 2 for k in ('cluster', 'shared', 'library'))
     long_plain_ms = cuda_ms(lambda: CH.cholesky_nnb_plain(m_long_nnb), 1)
-    long_lib_ms = cuda_ms(lambda: torch.linalg.cholesky(m_long), 5)
     long_bound = bound_ms(LONG_BATCH * CH.factor_bytes(n_long),
                           LONG_BATCH * sum(CH.factor_op_count(n_long).values()))
     l_long = CH.cholesky_bnn(m_long)
@@ -2448,18 +2497,27 @@ def main():
                             LONG_BATCH * sum(CH.solve_op_count(n_long).values()))
     emit(dict(phase='dense_long', batch=LONG_BATCH, horizon=LONG_HORIZON,
               n=n_long, launches=long_launches, ms_per_solve=long_step_ms,
+              ms_per_solve_turns=long_ms_turns,
               max_abs_vs_pallas_interpret=d_long,
               max_abs_vs_f64=dict(kernels=d_long_f64,
                                   pallas_interpret=d_int_f64),
-              factor_max_abs_dl=shared_err,
-              factor_rel_dl_worst_lane=shared_lane_err,
+              factor_max_abs_dl=cluster_err,
+              factor_rel_dl_worst_lane=cluster_lane_err,
+              factor_cluster_equals_shared_kernel=cluster_equals_shared,
               solve_max_abs_dx=long_solve_err,
               solve_rel_dx_worst_lane=long_solve_lane,
-              factor=dict(ms=long_factor_ms, plain_ms=long_plain_ms,
-                          library_ms=long_lib_ms, bound_ms=long_bound[0],
-                          bound_by=long_bound[1],
+              factor=dict(ms=long_factor_ms, ms_turns=f_turns['cluster'],
+                          shared_kernel_ms=long_shared_ms,
+                          shared_kernel_ms_turns=f_turns['shared'],
+                          plain_ms=long_plain_ms, library_ms=long_lib_ms,
+                          library_ms_turns=f_turns['library'],
+                          bound_ms=long_bound[0], bound_by=long_bound[1],
                           share_of_bound=long_bound[0] / long_factor_ms,
-                          attributes=attrs['chol_factor_shared']),
+                          shared_kernel_share_of_bound=(long_bound[0]
+                                                        / long_shared_ms),
+                          attributes=attrs['chol_factor_cluster'],
+                          shared_kernel_attributes=attrs[
+                              'chol_factor_shared']),
               solve=dict(ms=long_solve_ms, plain_ms=long_solve_plain_ms,
                          library_ms=long_solve_lib_ms,
                          bound_ms=long_s_bound[0], bound_by=long_s_bound[1],
@@ -2470,9 +2528,14 @@ def main():
         raise RuntimeError(f'long-horizon dense solve: {d_long_f64} N from '
                            f'the float64 solve, the plain versions '
                            f'{d_int_f64} N')
-    if not shared_lane_err <= CHOL_FACTOR_TOL:
-        raise RuntimeError(f'shared-memory factor vs plain: {shared_lane_err}'
+    if not cluster_lane_err <= CHOL_FACTOR_TOL:
+        raise RuntimeError(f'cluster factor vs plain: {cluster_lane_err}'
                            f' of a lane\'s max |L| > {CHOL_FACTOR_TOL}')
+    if not all(cluster_equals_shared.values()):
+        raise RuntimeError(f'the cluster and shared-triangle factor kernels '
+                           f'disagree on the long-horizon KKT matrices: '
+                           f'{cluster_equals_shared}')
+    shared_err = max(shared_err, cluster_err)     # bit for bit, so its error
     for where, v in long_solve_lane.items():
         if not v <= CHOL_SOLVE_VS_PLAIN_TOL_LONG:
             raise RuntimeError(f'shared-memory solve vs plain at n = '
@@ -2570,11 +2633,19 @@ def main():
              launches=dense_factor_launches, max_abs_err=factor_err,
              ms=factor_ms, plain_ms=factor_plain_ms, bound_ms=f_bound[0],
              bound_by=f_bound[1], library_ms=factor_lib_ms),
+        dict(name='chol_factor_cluster', route='cuda',
+             source='hector_torch/csrc/chol.cu',
+             replaces='hector/qp/pallas_chol.py:48',
+             launches=long_launches['factor_cluster'],
+             max_abs_err=cluster_err, ms=long_factor_ms,
+             plain_ms=long_plain_ms, bound_ms=long_bound[0],
+             bound_by=long_bound[1], library_ms=long_lib_ms),
+        # the yardstick the cluster factor is held to, off the route
         dict(name='chol_factor_shared', route='cuda',
              source='hector_torch/csrc/chol.cu',
              replaces='hector/qp/pallas_chol.py:48',
              launches=long_launches['factor_shared'], max_abs_err=shared_err,
-             ms=long_factor_ms, plain_ms=long_plain_ms,
+             ms=long_shared_ms, plain_ms=long_plain_ms,
              bound_ms=long_bound[0], bound_by=long_bound[1],
              library_ms=long_lib_ms),
         dict(name='chol_solve', route='cuda',

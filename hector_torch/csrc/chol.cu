@@ -5,7 +5,7 @@
 //
 // Replaces the two Pallas TPU kernels of hector/qp/pallas_chol.py:
 //   chol_factor_kernel         <-  _chol_kernel  (:48, pl.pallas_call at :129,
-//   (chol_factor_smem_kernel       reached through cholesky_nnb :114)
+//   (chol_factor_cluster_kernel    reached through cholesky_nnb :114)
 //    above 248)
 //   chol_solve_kernel          <-  _solve_kernel (:77, pl.pallas_call at :156,
 //   (chol_solve_smem_kernel        reached through cholesky_solve_nnb :146)
@@ -41,7 +41,10 @@
 // unit column stride, row and batch strides that are multiples of 4,
 // 16-byte aligned pointers and n a multiple of 8 (the (B, 120, 120)
 // tensors of the interior point), each tile row is two 16-byte accesses and
-// no address needs a divide; otherwise element by element, bounds-checked.
+// no address needs a divide; the cluster factor also takes n a multiple of
+// 4 so (every n = 12 h of the interior point), each half row one 16-byte
+// access or none past the edge; otherwise element by element,
+// bounds-checked (slower: profile_chol_kernel.py times n = 249 beside 252).
 //
 // The factor, n <= 248 (chol_factor_kernel): register tiles.
 //   - Each lower tile lives in the 64 registers of one thread for the whole
@@ -72,11 +75,56 @@
 //     cycles; the four blocks an SM hide part of the chain (held to two,
 //     the kernel is 1.46x slower; profile_chol_kernel.py).
 //
-// The factor, 248 < n <= 339 (chol_factor_smem_kernel; n = 288 at horizon
-// 24): the lower triangle packed in shared memory (row r at r (r + 1) / 2;
-// 229 KB at n = 339), 256 threads sharing each column's rank-1 update, two
-// barriers a column.  chol_factor_shared launches it at any n, so that the
-// register-tile kernel can be held to it bit for bit.
+// The factor, 248 < n <= 339 (chol_factor_cluster_kernel; n = 288 at
+// horizon 24): the register-tile kernel spread over a thread-block cluster
+// of two blocks, one matrix a cluster.
+//   - One lower tile a thread in registers, as above; a block holds at most
+//     512 tiles, a cluster 1,024 (T <= 44, n <= 352; n = 288: 666 tiles,
+//     352 threads a block).  Block r holds the tile columns J with
+//     J % 2 == r (numbered down its columns), so both keep work as the
+//     panels' active set shrinks, and the diagonal tile (p, p) and the
+//     tile column below it sit in one block, the panel's owner p % 2.
+//   - Panel p: the owner factors the diagonal tile and solves the column
+//     below it behind its own counting barrier (bar.sync 1, its warps
+//     still in the loop), as the tile kernel does; the column's threads
+//     write the panel into their own block's shared memory and through
+//     distributed shared memory (mapa) into the partner's; one cluster
+//     barrier (barrier.cluster.arrive / wait: release / acquire at cluster
+//     scope) publishes it; every trailing tile of both blocks takes its
+//     rank-8 update from its own block's copy.  The panel buffer
+//     alternates with the parity of p, so the owner of panel p + 1 writes
+//     while the partner still reads panel p; the cluster barrier between
+//     panels p and p + 2 keeps each buffer's reads before its next writes.
+//   - A warp whose tiles are final leaves the loop and writes them back,
+//     then only arrives at the cluster barriers left: every thread takes
+//     part in every cluster barrier, so none counts on how exited threads
+//     are treated, and no block exits before the last one, after which
+//     nothing is written to another block.  A cluster barrier after the
+//     loads makes sure both blocks have started.
+//   - One cluster barrier and one block barrier a panel (36 panels at
+//     n = 288) against the shared-triangle kernel's two block barriers a
+//     column (576), and each update from registers: 16 shared loads (4
+//     float4) a column for 64 FMAs, no shared stores.
+//   - The rounding is the tile kernel's (factor_diag, solve_cols,
+//     update_rank8 as they are), so the result is the shared-triangle
+//     kernel's bit for bit, and the tile kernel's at n <= 248
+//     (chol_factor_cluster launches it at any n up to 352).
+//   - Registers: __launch_bounds__(512, 1), at most 128 a thread: one
+//     block an SM, a cluster on two SMs, 66 matrices in flight on 132 SMs.
+//   - What bounds it is each cluster's chain of panels, not bytes: at
+//     1,024 x n = 288, 1.39-1.41 ms against the 0.152 ms byte bound (the
+//     shared-triangle kernel 6.28 ms, torch.linalg.cholesky 2.75-2.79 ms;
+//     H100 80GB HBM3, 700 W).  A matrix takes about 182 K SM cycles, 95 %
+//     of them its 35 panels, each about 4,900: the diagonal tile's factor
+//     28 %, its update by the panel before 27 %, the cluster barrier 24 %,
+//     the column solve and its stores 15 % (profile_chol_kernel.py).
+//
+// chol_factor_smem_kernel (any n up to chol_max_n()): the lower triangle
+// packed in shared memory (row r at r (r + 1) / 2; 229 KB at n = 339), 256
+// threads sharing each column's rank-1 update, two barriers a column.  The
+// route (the kernel above 248 until the cluster kernel replaced it) no
+// longer takes it: chol_factor_shared launches it at any n, the yardstick
+// the tile and cluster kernels are held to bit for bit.
 //
 // The solve, n <= 248 (chol_solve_kernel): register tiles, the factor's
 // layout.  One lower tile of L per thread in registers, x and the pivots'
@@ -127,6 +175,13 @@ constexpr int TILE_MAX_THREADS = 512;  // 16 warps
 constexpr int TILE_MAX_T = 31;         // 31 * 32 / 2 = 496 tiles <= 512 threads
 constexpr int TILE_MAX_N = TILE * TILE_MAX_T;  // 248
 
+// ---- the cluster factor: register tiles over a cluster of two blocks ----
+constexpr int CLUSTER = 2;            // blocks a matrix
+constexpr int CLUSTER_MAX_T = 44;     // block 0: 44 + 42 + ... + 2 = 506 tiles <= 512
+constexpr int CLUSTER_MAX_N = TILE * CLUSTER_MAX_T;  // 352
+constexpr int PAN_N = CLUSTER_MAX_N;  // row stride of a panel buffer
+constexpr int PAN_BUFS = 2;           // panel buffers, by the parity of the panel
+
 // ---- shared-triangle factor and solve ----
 constexpr int FACTOR_THREADS = 256;  // 8 warps
 constexpr int FACTOR_ROWS = 4;       // rows a warp updates together
@@ -134,7 +189,7 @@ constexpr int FACTOR_ROWS = 4;       // rows a warp updates together
 constexpr size_t BLOCK_SMEM_MAX = 232448;  // bytes of shared memory a block may hold
 
 // the kernels, as chol_kernel_attributes and the routes number them
-enum KernelId { FACTOR_TILE, FACTOR_SHARED, SOLVE_TILE, SOLVE_SHARED };
+enum KernelId { FACTOR_TILE, FACTOR_SHARED, SOLVE_TILE, SOLVE_SHARED, FACTOR_CLUSTER };
 
 // offset of element (r, c), c <= r, in the packed lower triangle
 __host__ __device__ inline int tri(int r, int c) { return r * (r + 1) / 2 + c; }
@@ -166,6 +221,37 @@ __device__ __forceinline__ void tile_coords(int g, int nt, int& ti, int& tj) {
 // threads of the register-tile kernels at n: one a lower tile, whole warps
 inline int tile_threads(int n) { return (tile_count(n) + 31) / 32 * 32; }
 
+// The cluster factor's tiles: block `rank` holds the tile columns J with
+// J % CLUSTER == rank, numbered down its columns.  Its tiles in the columns
+// before p (p = nt: all of them).
+__host__ __device__ inline int cluster_tiles_before(int nt, int rank, int p) {
+  int s = 0;
+  for (int j = rank; j < p; j += CLUSTER) s += nt - j;
+  return s;
+}
+
+// coordinates (ti, tj) of tile g of block `rank`; tj >= nt: none
+__device__ __forceinline__ void cluster_tile_coords(int g, int nt, int rank, int& ti,
+                                                    int& tj) {
+  tj = rank;
+  while (tj < nt && g >= nt - tj) {
+    g -= nt - tj;
+    tj += CLUSTER;
+  }
+  ti = tj + g;
+}
+
+// threads of each block of the cluster factor at n: block 0 holds the most
+// tiles
+inline int cluster_threads(int n) {
+  const int t = tile_rows(n);
+  return (cluster_tiles_before(t, 0, t) + 31) / 32 * 32;
+}
+
+// its dynamic shared memory: the panel buffers and the diagonal tile
+constexpr size_t CLUSTER_SMEM =
+    (PAN_BUFS * TILE * PAN_N + (TILE + 1) * TILE) * sizeof(float);
+
 constexpr int MAX_DEVICES = 64;
 
 // Raise `kernel`'s limit of dynamic shared memory to `smem` bytes on the
@@ -189,11 +275,28 @@ cudaError_t ensure_smem(Kernel kernel, int (&have)[MAX_DEVICES], size_t smem) {
 using Tile = float[TILE][TILE];
 
 // Load tile (ti, tj).  Entries past the edge (row or column >= n) are the
-// identity's.  `vec`: unit column stride, 16-byte aligned rows, n % 8 == 0.
+// identity's.  `vec`: unit column stride, 16-byte aligned rows, and n % 8 ==
+// 0, or with `Halves` n % 4 == 0: each half row of 4 then lies wholly inside
+// the matrix or wholly past its edge, and moves as one float4 or not at all
+// (the cluster factor; every n = 12 h of the interior point).
+template <bool Halves = false>
 __device__ __forceinline__ void load_tile(Tile& a, const float* m, int n, int ti,
                                           int tj, long long sr, long long sc,
                                           bool vec) {
   const int r0 = ti * TILE, c0 = tj * TILE;
+  if (vec && Halves) {
+#pragma unroll
+    for (int i = 0; i < TILE; ++i)
+#pragma unroll
+      for (int h = 0; h < TILE; h += 4) {
+        const int r = r0 + i, c = c0 + h;
+        const float4 x = (r < n && c < n)
+                             ? *reinterpret_cast<const float4*>(m + r * sr + c)
+                             : make_float4(r == c, r == c + 1, r == c + 2, r == c + 3);
+        a[i][h] = x.x; a[i][h + 1] = x.y; a[i][h + 2] = x.z; a[i][h + 3] = x.w;
+      }
+    return;
+  }
   if (vec) {
 #pragma unroll
     for (int i = 0; i < TILE; ++i) {
@@ -215,6 +318,8 @@ __device__ __forceinline__ void load_tile(Tile& a, const float* m, int n, int ti
 
 // Write tile (ti, tj) of L: `a` below the diagonal (and on it), zeros above;
 // with `zero` the whole tile is zeros.  Entries past the edge are skipped.
+// `vec` and `Halves` as load_tile.
+template <bool Halves = false>
 __device__ __forceinline__ void store_tile(float* l, const Tile& a, int n, int ti,
                                            int tj, long long sr, long long sc,
                                            bool vec, bool zero) {
@@ -226,6 +331,18 @@ __device__ __forceinline__ void store_tile(float* l, const Tile& a, int n, int t
 #pragma unroll
     for (int k = 0; k < TILE; ++k)
       v[i][k] = (zero || (diag && k > i)) ? 0.0f : a[i][k];
+  if (vec && Halves) {
+#pragma unroll
+    for (int i = 0; i < TILE; ++i)
+#pragma unroll
+      for (int h = 0; h < TILE; h += 4) {
+        const int r = r0 + i, c = c0 + h;
+        if (r < n && c < n)
+          *reinterpret_cast<float4*>(l + r * sr + c) =
+              make_float4(v[i][h], v[i][h + 1], v[i][h + 2], v[i][h + 3]);
+      }
+    return;
+  }
   if (vec) {
 #pragma unroll
     for (int i = 0; i < TILE; ++i) {
@@ -246,11 +363,12 @@ __device__ __forceinline__ void store_tile(float* l, const Tile& a, int n, int t
 
 // Write the final tile (ti, tj) of L and, below the diagonal, the zero tile
 // (tj, ti) above it.
+template <bool Halves = false>
 __device__ __forceinline__ void store_tiles(float* l, const Tile& a, int n, int ti,
                                             int tj, long long sr, long long sc,
                                             bool vec) {
-  store_tile(l, a, n, ti, tj, sr, sc, vec, false);
-  if (ti != tj) store_tile(l, a, n, tj, ti, sr, sc, vec, true);
+  store_tile<Halves>(l, a, n, ti, tj, sr, sc, vec, false);
+  if (ti != tj) store_tile<Halves>(l, a, n, tj, ti, sr, sc, vec, true);
 }
 
 // Eight floats from 16-byte aligned shared memory, and back.
@@ -338,9 +456,21 @@ __device__ __forceinline__ void update_rank8(Tile& a, const float* x, const floa
 // end (g_chol_steps), a timeline of the block's steps.  CHOL_EXTRA_SMEM:
 // bytes of dynamic shared memory the register-tile kernels' launches ask for
 // and leave unused, to hold an SM to fewer blocks.
+// CHOL_PHASE_CLOCKS also clocks the cluster factor's chain of panels, each
+// step by the thread on it (g_chol_cluster_cycles, CLUSTER_PHASES of them,
+// then the matrices): panel p starts when the cluster barrier of panel
+// p - 1 lets the thread of the diagonal tile (p, p) go; it updates that tile
+// (phase 1) and factors it (2); the thread of tile (p + 1, p), in the same
+// block and so on the same SM clock, leaves the block barrier (3: from the
+// diagonal tile's end), solves and writes the panel to both blocks (4) and
+// waits at the cluster barrier (5), which starts panel p + 1.  The thread
+// of the last tile clocks the loads and the first cluster barrier (0), its
+// store (6) and its whole run (7).
 #ifdef CHOL_PHASE_CLOCKS
 constexpr int CHOL_PHASES = 7;
 __device__ unsigned long long g_chol_cycles[CHOL_PHASES + 1];
+constexpr int CLUSTER_PHASES = 8;
+__device__ unsigned long long g_chol_cluster_cycles[CLUSTER_PHASES + 1];
 #define PHASE_MARK(i)                      \
   if (threadIdx.x == blockDim.x - 1) {     \
     const long long now = clock64();       \
@@ -372,6 +502,23 @@ __device__ long long g_chol_steps[CHOL_STEP_BLOCKS * CHOL_STEPS];
 // no part.
 __device__ __forceinline__ void bar_sync(int count) {
   asm volatile("bar.sync 1, %0;" ::"r"(count) : "memory");
+}
+
+// The barrier of the thread-block cluster: every thread of the cluster that
+// has not exited arrives (release) and waits (acquire), so what a thread
+// wrote to its own or the partner's shared memory before it is seen after
+// it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n\tbarrier.cluster.wait;" ::: "memory");
+}
+
+// The address of `p` (in this block's shared memory) in the shared memory
+// of block `rank` of the cluster (distributed shared memory, a generic
+// address).
+__device__ __forceinline__ float* cluster_map(float* p, unsigned rank) {
+  float* r;
+  asm volatile("mapa.u64 %0, %1, %2;" : "=l"(r) : "l"(p), "r"(rank));
+  return r;
 }
 
 // One block factors one matrix, one lower 8 x 8 tile per thread (n <= 248;
@@ -448,6 +595,116 @@ __global__ void __launch_bounds__(TILE_MAX_THREADS, 1) chol_factor_kernel(
     atomicAdd(&g_chol_cycles[CHOL_PHASES], 1ULL);
   }
 #endif
+}
+
+#ifdef CHOL_PHASE_CLOCKS
+#define CLK(...) __VA_ARGS__
+#else
+#define CLK(...)
+#endif
+
+// One cluster of CLUSTER blocks factors one matrix, one lower 8 x 8 tile per
+// thread (n <= CLUSTER_MAX_N; blockDim.x = cluster_threads(n), CLUSTER
+// blocks a matrix, CLUSTER_SMEM bytes of dynamic shared memory).  m and l
+// may alias.  `vec` as load_tile<true> (half rows).
+__global__ void __launch_bounds__(TILE_MAX_THREADS, 1) chol_factor_cluster_kernel(
+    const float* m, float* l, int n, long long m_sr, long long m_sc,
+    long long m_sb, long long l_sr, long long l_sc, long long l_sb, int vec) {
+  // pan + (p % PAN_BUFS) * TILE * PAN_N, [k][r]: L[r][8 p + k] of the tile
+  // column below the diagonal tile (p, p) of panel p; dg, [k][c]:
+  // L[8 p + c][8 p + k] of the diagonal tile, c > k, then [8][k], its 8
+  // pivot reciprocals (written and read only in the panel's owner)
+  extern __shared__ __align__(16) float csmem[];
+  float* const pan = csmem;
+  float* const dg = csmem + PAN_BUFS * TILE * PAN_N;
+  const int nt = tile_rows(n);
+  // a cluster is CLUSTER consecutive blocks of the grid: matrix `mat`, and
+  // this block's rank in it
+  const int rank = blockIdx.x % CLUSTER;
+  const long long mat = blockIdx.x / CLUSTER;
+
+  // this thread's tile (ti, tj); tj >= nt: none
+  int ti, tj;
+  cluster_tile_coords(threadIdx.x, nt, rank, ti, tj);
+  const bool owns = tj < nt;
+  const int mine = cluster_tiles_before(nt, rank, nt);  // this block's tiles
+  const int warps = (mine + 31) / 32;                   // its warps holding any
+  // the last tile column of this thread's warp (-1: it holds no tile): after
+  // that panel its tiles are final, and the warp leaves the loop and writes
+  // them back
+  int wlast = -1;
+  if (static_cast<int>(threadIdx.x & ~31u) < mine) {
+    int wi;
+    cluster_tile_coords(min(static_cast<int>(threadIdx.x | 31u), mine - 1), nt, rank,
+                        wi, wlast);
+  }
+  CLK(__shared__ long long clk_diag_end;  // this block's diagonal tile done
+      long long clk[CLUSTER_PHASES] = {};
+      const long long clk_start = clock64();
+      const bool clk_last = ti == nt - 1 && tj == nt - 1;
+      long long clk_go, clk_upd, clk_solved = 0;)
+
+  Tile a;
+  if (owns) load_tile<true>(a, m + mat * m_sb, n, ti, tj, m_sr, m_sc, vec != 0);
+  // both blocks have started (their shared memory may be written to) and
+  // every tile is loaded (l may be m)
+  cluster_sync();
+  CLK(clk_go = clk_upd = clock64();
+      if (clk_last) clk[0] += clk_go - clk_start;)
+
+  // this block's tiles in the tile columns before panel p, at its own panels
+  int before = 0;
+  for (int p = 0; p <= wlast; ++p) {
+    float* const pb = pan + (p % PAN_BUFS) * TILE * PAN_N;
+    // the diagonal tile, in registers, column by column
+    if (owns && ti == p && tj == p) {
+      factor_diag(a, dg + TILE * TILE);
+      put_cols(dg, a, TILE);
+      CLK(clk_diag_end = clock64(); clk[1] += clk_upd - clk_go;
+          clk[2] += clk_diag_end - clk_upd;)
+    }
+    if (p == nt - 1) break;
+    const bool solver = owns && tj == p && ti > p;
+    if (p % CLUSTER == rank) {
+      // this block's panel, behind a barrier of its warps still in the loop:
+      // the tile column below the diagonal tile, a <- a L_pp^-T, written to
+      // both blocks' panel buffer
+      bar_sync(32 * (warps - before / 32));
+      before += nt - p;
+      CLK(if (solver && ti == p + 1) clk[3] += (clk_solved = clock64()) - clk_diag_end;)
+      if (solver) {
+        solve_cols(a, dg, dg + TILE * TILE);
+        put_cols(pb + ti * TILE, a, PAN_N);
+        put_cols(cluster_map(pb + ti * TILE, (rank + 1) % CLUSTER), a, PAN_N);
+      }
+      CLK(if (solver && ti == p + 1) {
+            const long long now = clock64();
+            clk[4] += now - clk_solved;
+            clk_solved = now;
+          })
+    }
+    cluster_sync();
+    CLK(clk_go = clock64();
+        if (solver && ti == p + 1) clk[5] += clk_go - clk_solved;)
+    // the trailing tiles of both blocks: the panel's rank-8 update from this
+    // block's copy, one column at a time
+    if (owns && tj > p) update_rank8(a, pb + ti * TILE, pb + tj * TILE, PAN_N);
+    CLK(clk_upd = clock64();)
+  }
+  CLK(const long long clk_store = clock64();)
+  if (owns) store_tiles<true>(l + mat * l_sb, a, n, ti, tj, l_sr, l_sc, vec != 0);
+  // then it takes part in the cluster barriers of the panels left, so that
+  // every thread of the cluster arrives at all nt - 1 of them
+  for (int p = wlast + 1; p < nt - 1; ++p) cluster_sync();
+  CLK(if (clk_last) {
+        const long long now = clock64();
+        clk[6] += now - clk_store;
+        clk[7] += now - clk_start;
+        atomicAdd(&g_chol_cluster_cycles[CLUSTER_PHASES], 1ULL);
+      }
+      for (int i = 0; i < CLUSTER_PHASES; ++i)
+        if (clk[i] != 0)
+          atomicAdd(&g_chol_cluster_cycles[i], static_cast<unsigned long long>(clk[i]));)
 }
 
 // One block factors one matrix in shared memory (any n up to chol_max_n()).
@@ -725,9 +982,12 @@ __global__ void chol_solve_smem_kernel(const float* l, const float* rhs, float* 
 
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
-// Whether the tile kernels may move the tiles of a as float4: see load_tile.
-bool vec_ok(int n, long long sr, long long sc, long long sb, const void* a) {
-  return n % TILE == 0 && sc == 1 && sr % 4 == 0 && sb % 4 == 0 && aligned16(a);
+// Whether the tile kernels may move the tiles of a as float4: see load_tile
+// (`halves`: by half rows, n % 4 == 0).
+bool vec_ok(int n, long long sr, long long sc, long long sb, const void* a,
+            bool halves = false) {
+  return n % (halves ? 4 : TILE) == 0 && sc == 1 && sr % 4 == 0 && sb % 4 == 0 &&
+         aligned16(a);
 }
 
 int launch_tile(const float* m, float* l, int n, int batch, long long m_sr,
@@ -753,6 +1013,39 @@ int launch_smem(const float* m, float* l, int n, int batch, long long m_sr,
   if (err != cudaSuccess) return static_cast<int>(err);
   chol_factor_smem_kernel<<<batch, FACTOR_THREADS, smem, stream>>>(
       m, l, n, m_sr, m_sc, m_sb, l_sr, l_sc, l_sb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch of the cluster factor: CLUSTER blocks a matrix.  `attr` holds
+// the cluster's dimension for the configuration's lifetime.
+cudaLaunchConfig_t cluster_config(int n, int batch, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(CLUSTER * batch));
+  cfg.blockDim = dim3(static_cast<unsigned>(cluster_threads(n)));
+  cfg.dynamicSmemBytes = CLUSTER_SMEM;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CLUSTER;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+int launch_cluster(const float* m, float* l, int n, int batch, long long m_sr,
+                   long long m_sc, long long m_sb, long long l_sr, long long l_sc,
+                   long long l_sb, cudaStream_t stream) {
+  if (n > CLUSTER_MAX_N) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec =
+      vec_ok(n, m_sr, m_sc, m_sb, m, true) && vec_ok(n, l_sr, l_sc, l_sb, l, true);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(n, batch, stream, &attr);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, chol_factor_cluster_kernel, m, l, n, m_sr, m_sc, m_sb,
+                         l_sr, l_sc, l_sb, vec ? 1 : 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -806,6 +1099,8 @@ int attributes(K kernel, int threads, size_t dyn, int (&have)[MAX_DEVICES],
   out[3] = static_cast<int>(dyn);
   out[4] = threads;
   out[5] = nb;
+  out[6] = 1;
+  out[7] = 0;
   return 0;
 }
 
@@ -814,20 +1109,20 @@ int attributes(K kernel, int threads, size_t dyn, int (&have)[MAX_DEVICES],
 extern "C" {
 
 // Largest n the kernels take: the matrix must fit a block's shared memory
-// (the shared-triangle factor and the shared-memory solve).  Asked once,
-// when the library is loaded.
+// (the shared-memory solve and the shared-triangle factor) and the cluster
+// factor's tiles (CLUSTER_MAX_N).  Asked once, when the library is loaded.
 int chol_max_n() {
   int n = 1;
-  while (smem_bytes(n + 1) <= BLOCK_SMEM_MAX) ++n;
+  while (n < CLUSTER_MAX_N && smem_bytes(n + 1) <= BLOCK_SMEM_MAX) ++n;
   return n;
 }
 
 // Largest n chol_factor and chol_solve give their register-tile kernels;
-// above it, the shared-memory ones.
+// above it, the cluster factor and the shared-memory solve.
 int chol_factor_tile_max_n() { return TILE_MAX_N; }
 
-// The kernel chol_factor launches at n: FACTOR_TILE or FACTOR_SHARED.
-int chol_factor_route(int n) { return n <= TILE_MAX_N ? FACTOR_TILE : FACTOR_SHARED; }
+// The kernel chol_factor launches at n: FACTOR_TILE or FACTOR_CLUSTER.
+int chol_factor_route(int n) { return n <= TILE_MAX_N ? FACTOR_TILE : FACTOR_CLUSTER; }
 
 // The kernel chol_solve launches at n: SOLVE_TILE or SOLVE_SHARED.
 int chol_solve_route(int n) { return n <= TILE_MAX_N ? SOLVE_TILE : SOLVE_SHARED; }
@@ -843,7 +1138,18 @@ int chol_factor(const float* m, float* l, int n, int batch, long long m_sr,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (chol_factor_route(n) == FACTOR_TILE)
     return launch_tile(m, l, n, batch, m_sr, m_sc, m_sb, l_sr, l_sc, l_sb, st);
-  return launch_smem(m, l, n, batch, m_sr, m_sc, m_sb, l_sr, l_sc, l_sb, st);
+  return launch_cluster(m, l, n, batch, m_sr, m_sc, m_sb, l_sr, l_sc, l_sb, st);
+}
+
+// chol_factor through the cluster kernel at any n up to CLUSTER_MAX_N (to
+// hold it to the tile kernel at n <= 248).
+int chol_factor_cluster(const float* m, float* l, int n, int batch,
+                        long long m_sr, long long m_sc, long long m_sb,
+                        long long l_sr, long long l_sc, long long l_sb,
+                        void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  return launch_cluster(m, l, n, batch, m_sr, m_sc, m_sb, l_sr, l_sc, l_sb,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // chol_factor through the shared-triangle kernel at any n (to compare the
@@ -883,12 +1189,14 @@ int chol_solve_shared(const float* l, const float* rhs, float* x, int n, int bat
                            x_sn, x_sb, static_cast<cudaStream_t>(stream));
 }
 
-// What kernel `kernel` (FACTOR_TILE ... SOLVE_SHARED) is compiled to and how
-// many of its blocks of that n an SM holds: out[0..5] = registers a thread,
-// local bytes a thread, static and dynamic shared bytes a block, threads a
-// block, blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+// What kernel `kernel` (a KernelId) is compiled to and how many of its
+// blocks of that n an SM holds: out[0..7] = registers a thread, local bytes
+// a thread, static and dynamic shared bytes a block, threads a block, blocks
+// an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), blocks a matrix
+// (the cluster's size), and for the cluster factor the clusters the device
+// runs at once (cudaOccupancyMaxActiveClusters; 0 for the others).
 int chol_kernel_attributes(int kernel, int n, int* out) {
-  static int have[SOLVE_SHARED + 1][MAX_DEVICES] = {};
+  static int have[FACTOR_CLUSTER + 1][MAX_DEVICES] = {};
   switch (kernel) {
     case FACTOR_TILE:
       return attributes(chol_factor_kernel, tile_threads(n), CHOL_EXTRA_SMEM,
@@ -902,6 +1210,21 @@ int chol_kernel_attributes(int kernel, int n, int* out) {
     case SOLVE_SHARED:
       return attributes(chol_solve_smem_kernel, solve_smem_threads(n),
                         smem_bytes(n), have[kernel], out);
+    case FACTOR_CLUSTER: {
+      if (n > CLUSTER_MAX_N) return static_cast<int>(cudaErrorInvalidValue);
+      int err = attributes(chol_factor_cluster_kernel, cluster_threads(n),
+                           CLUSTER_SMEM, have[kernel], out);
+      if (err != 0) return err;
+      cudaLaunchAttribute attr;
+      const cudaLaunchConfig_t cfg = cluster_config(n, 1, nullptr, &attr);
+      int clusters = 0;
+      err = static_cast<int>(cudaOccupancyMaxActiveClusters(
+          &clusters, reinterpret_cast<const void*>(chol_factor_cluster_kernel), &cfg));
+      if (err != 0) return err;
+      out[6] = CLUSTER;
+      out[7] = clusters;
+      return 0;
+    }
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -927,6 +1250,17 @@ int chol_phase_cycles(unsigned long long* out) {
   if (err != cudaSuccess) return static_cast<int>(err);
   static const unsigned long long zero[CHOL_PHASES + 1] = {};
   return static_cast<int>(cudaMemcpyToSymbol(g_chol_cycles, zero, sizeof(zero)));
+}
+
+// The cluster factor's cycles by phase since the last call, summed over the
+// matrices (out[CLUSTER_PHASES]); zeroes them.
+int chol_cluster_phase_cycles(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_chol_cluster_cycles,
+                                         sizeof(g_chol_cluster_cycles));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static const unsigned long long zero[CLUSTER_PHASES + 1] = {};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(g_chol_cluster_cycles, zero, sizeof(zero)));
 }
 #endif
 

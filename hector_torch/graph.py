@@ -64,7 +64,8 @@ def kernel_counters():
     from .qp import chol, fused_riccati
     return ((fused_riccati, 'launches'), (fused_riccati, 'polish_launches'),
             (chol, 'factor_launches'), (chol, 'factor_shared_launches'),
-            (chol, 'solve_launches'), (chol, 'solve_shared_launches'))
+            (chol, 'factor_cluster_launches'), (chol, 'solve_launches'),
+            (chol, 'solve_shared_launches'))
 
 
 def leaves(tree):

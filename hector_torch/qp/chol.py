@@ -19,17 +19,21 @@ per iteration.
   tensor runs the plain version.  Nothing falls back from one to the other.
 - Each kernel is chosen by n in the C entry point (:func:`route`): the
   factor and the solve on register tiles up to ``tile_max_n()`` (248; the
-  interior point's n = 120), on the lower triangle in shared memory above
-  it (up to 339; n = 288 at horizon 24). :func:`factor_shared_cuda` and
+  interior point's n = 120); above it (up to 339; n = 288 at horizon 24)
+  the factor on register tiles over a cluster of two blocks, the solve on
+  the lower triangle in shared memory. :func:`factor_shared_cuda` and
   :func:`solve_shared_cuda` launch the shared-memory kernels at any n, to
-  hold the tile kernels to them on the same matrices.
+  hold the others to them on the same matrices (the route no longer takes
+  the shared-triangle factor); :func:`factor_cluster_cuda` launches the
+  cluster factor at any n, to hold it to the tile kernel.
 - :func:`cholesky_nnb_plain` and :func:`cholesky_solve_nnb_plain` are the
   textbook loops of the TPU kernels over the batch, in any float type.
 
 ``factor_launches`` and ``solve_launches`` count kernel launches (the plain
-versions never touch them); ``factor_shared_launches`` and
-``solve_shared_launches`` count those of them that went to the
-shared-memory kernels.
+versions never touch them); ``factor_shared_launches``,
+``factor_cluster_launches`` and ``solve_shared_launches`` count those of
+them that went to the shared-triangle factor, the cluster factor and the
+shared-memory solve.
 """
 
 from __future__ import annotations
@@ -47,10 +51,12 @@ BUILD_ROOT = _PKG / '_build'
 NVCC_FLAGS = _nvcc.NVCC_FLAGS
 
 # the kernels of csrc/chol.cu, numbered as its KernelId
-KERNELS = ('factor_tile', 'factor_shared', 'solve_tile', 'solve_shared')
+KERNELS = ('factor_tile', 'factor_shared', 'solve_tile', 'solve_shared',
+           'factor_cluster')
 
 factor_launches = 0     # launches of a factor kernel since import or reset
 factor_shared_launches = 0  # of which the shared-triangle factor kernel's
+factor_cluster_launches = 0  # of which the cluster factor kernel's
 solve_launches = 0      # launches of a solve kernel since import or reset
 solve_shared_launches = 0   # of which the shared-memory solve kernel's
 build_info = {}         # ptxas report; nvcc command and seconds if built here
@@ -128,7 +134,8 @@ def kernel_variant(defines=()):
 def _load(so):
     lib = ctypes.CDLL(str(so))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.chol_factor, lib.chol_factor_shared):
+    for fn in (lib.chol_factor, lib.chol_factor_shared,
+               lib.chol_factor_cluster):
         fn.argtypes = [ptr, ptr, i32, i32] + [i64] * 6 + [ptr]
         fn.restype = i32
     for fn in (lib.chol_solve, lib.chol_solve_shared):
@@ -185,7 +192,8 @@ def _library(n):
     lib = build()
     if n > _max_n:
         raise ValueError(f'chol: n = {n} exceeds {_max_n}, the largest '
-                         f'matrix that fits a block\'s shared memory')
+                         f'matrix that fits a block\'s shared memory and '
+                         f'the cluster factor\'s tiles')
     return lib
 
 
@@ -230,11 +238,12 @@ def _factor_launch(entry, m_bnn, l_bnn):
 def factor_cuda(m_bnn, l_bnn):
     """Launch the factor on (B, n, n) views of any dense strides: the kernel
     of ``route(n)`` (the C entry point chooses by n)."""
-    global factor_launches, factor_shared_launches
+    global factor_launches, factor_shared_launches, factor_cluster_launches
     n = _factor_launch('chol_factor', m_bnn, l_bnn)
+    kernel = KERNELS[_lib.chol_factor_route(n)]
     factor_launches += 1
-    factor_shared_launches += (KERNELS[_lib.chol_factor_route(n)]
-                               == 'factor_shared')
+    factor_shared_launches += kernel == 'factor_shared'
+    factor_cluster_launches += kernel == 'factor_cluster'
     return l_bnn
 
 
@@ -248,24 +257,40 @@ def factor_shared_cuda(m_bnn, l_bnn):
     return l_bnn
 
 
+def factor_cluster_cuda(m_bnn, l_bnn):
+    """Launch the cluster factor kernel at any n (at n <= ``tile_max_n()``
+    it computes what the tile kernel computes, bit for bit)."""
+    global factor_launches, factor_cluster_launches
+    _factor_launch('chol_factor_cluster', m_bnn, l_bnn)
+    factor_launches += 1
+    factor_cluster_launches += 1
+    return l_bnn
+
+
 def kernel_attributes(n: int = 120, kernel: str = 'factor_tile'):
     """What cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor report for ``kernel`` (a
     name of :data:`KERNELS`) launched at n as its entry point launches it
-    (threads, dynamic shared memory)."""
+    (threads, dynamic shared memory); ``cluster_size``, the blocks a matrix
+    (2 for the cluster factor, 1 for the others), and for the cluster
+    factor ``clusters_per_device``, the matrices the device runs at once
+    (cudaOccupancyMaxActiveClusters)."""
     if kernel not in KERNELS:
         raise ValueError(f'kernel is one of {KERNELS}, not {kernel!r}')
     lib = _library(n)
-    vals = (ctypes.c_int * 6)()
+    vals = (ctypes.c_int * 8)()
     rc = lib.chol_kernel_attributes(KERNELS.index(kernel), n, vals)
     if rc != 0:
         raise RuntimeError(f'chol_kernel_attributes failed: CUDA error {rc} '
                            f'({lib.chol_error_string(rc).decode()})')
-    regs, local, static, dynamic, threads, blocks = list(vals)
-    return dict(kernel=kernel, n=n, registers=regs, local_bytes=local,
-                static_smem_bytes=static, dynamic_smem_bytes=dynamic,
-                threads_per_block=threads, blocks_per_sm=blocks,
-                warps_per_sm=blocks * threads // 32)
+    regs, local, static, dynamic, threads, blocks, csize, clusters = list(vals)
+    out = dict(kernel=kernel, n=n, registers=regs, local_bytes=local,
+               static_smem_bytes=static, dynamic_smem_bytes=dynamic,
+               threads_per_block=threads, blocks_per_sm=blocks,
+               warps_per_sm=blocks * threads // 32, cluster_size=csize)
+    if csize > 1:
+        out['clusters_per_device'] = clusters
+    return out
 
 
 def _solve_launch(entry, l_bnn, rhs_bn, x_bn):

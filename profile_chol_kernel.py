@@ -1,4 +1,5 @@
-"""Where the time of the Cholesky tile kernels goes, on one NVIDIA GPU.
+"""Where the time of the Cholesky tile and cluster kernels goes, on one
+NVIDIA GPU.
 
     python3 profile_chol_kernel.py
 
@@ -14,6 +15,16 @@ instead of 4, the solve 3 and 2).  Each build's kernels are held to the
 shared-memory kernels bit for bit, then the production build and the two
 capped ones are timed in turns (A B C C B A) with CUDA events, and the
 production build at 132 and 528 lanes (one block an SM; one full wave).
+Then the cluster factor (chol_factor_cluster_kernel) on the KKT matrices of
+chip_smoke.py's dense_long phase (1,024 lanes, horizon 24, n = 288,
+iteration 5): held to the shared-triangle kernel bit for bit in both
+builds, timed at 66 (one cluster on every SM pair), 132 and 1,024 matrices,
+with and without the clocks, and its chain of panels by phase
+(-DCHOL_PHASE_CLOCKS: each step clocked by the thread on it, see chol.cu);
+then on seeded random SPD batches of 1,024 across the route's range, in
+turns with torch.linalg.cholesky: n = 288 (a multiple of 8: each tile row
+moves as two float4), 252, 300 and 324 (horizons 21, 25, 27, multiples of
+4: half rows as float4) and 249 and 339 (element by element).
 Prints one JSON line per build, the phase shares, the timelines, the
 card's name and power limit, and {"ok": true, ...} last.
 
@@ -43,6 +54,14 @@ STEP_BLOCKS, STEPS = 4096, 96   # chol.cu's CHOL_STEP_BLOCKS, CHOL_STEPS
 PHASES = ('load', 'diagonal factor', 'waiting for the diagonal tile',
           'column solve', 'waiting for the panel', 'trailing update',
           'store')
+# the cluster factor's phases (chol.cu, CHOL_PHASE_CLOCKS); 1-5 are the
+# chain of a panel, one after another
+CLUSTER_PHASES = ('load and the first cluster barrier',
+                  'update of the next diagonal tile', 'diagonal factor',
+                  'waiting for the diagonal tile', 'column solve and stores',
+                  'cluster barrier', 'store', 'whole run')
+CLUSTER_BATCHES = (66, 132, 1024)
+CLUSTER_SIZES = (249, 252, 288, 300, 324, 339)
 
 
 def main():
@@ -159,10 +178,105 @@ def main():
     CS.emit(dict(kernel='chol_solve_kernel', batch=BATCH, n=n,
                  cycles_per_block=total, phase_cycles_per_block=groups,
                  step_cycles=[round(x) for x in d]))
+    cluster_profile(builds['production'][0], clocks, dev)
     print(card, flush=True)
     CS.emit({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}})
+
+
+def cluster_profile(production, clocks, dev):
+    """The cluster factor at n = 288 on dense_long's iteration-5 KKT
+    matrices: bit for bit, timed by batch in both builds, and its panels'
+    chain by phase."""
+    from hector_torch import mpc as M
+    from hector_torch.config import DEFAULT_CONFIG as CFG
+    from hector_torch.qp import chol as CH
+
+    long_cfg = dataclasses.replace(
+        CS.with_solver(CFG, backend='dense_auto'),
+        mpc=dataclasses.replace(CFG.mpc, horizon=CS.LONG_HORIZON))
+    qp = CS.scenario_problem(CS.LONG_BATCH, 10, dev, M.build_dense, long_cfg)
+    seen_m, _ = CS.kkt_matrices(qp, dataclasses.replace(
+        long_cfg.solver, backend='auto', iterations=6))
+    m = seen_m[-1]
+    del seen_m, qp
+    n = m.shape[1]
+    ref = CH.factor_shared_cuda(m, torch.empty_like(m))
+
+    def factor(lib, b):
+        CH._lib = lib
+        try:
+            return CH.factor_cluster_cuda(m[:b], torch.empty_like(m[:b]))
+        finally:
+            CH._lib = production
+
+    libs = {'production': production, 'phase clocks': clocks}
+    for name, lib in libs.items():
+        if not CS.bit_equal(factor(lib, CS.LONG_BATCH), ref):
+            raise RuntimeError(f'{name}: the cluster factor differs from '
+                               f'the shared-triangle kernel')
+    ms = {name: {b: [] for b in CLUSTER_BATCHES} for name in libs}
+    for name in (*libs, *reversed(libs)):
+        for b in CLUSTER_BATCHES:
+            ms[name][b].append(CS.cuda_ms(lambda: factor(libs[name], b), REPS))
+    clocks.chol_cluster_phase_cycles.argtypes = [ctypes.c_void_p]
+    clocks.chol_cluster_phase_cycles.restype = ctypes.c_int
+    out = (ctypes.c_ulonglong * (len(CLUSTER_PHASES) + 1))()
+
+    def launch_and_read(b):
+        factor(clocks, b)
+        torch.cuda.synchronize()
+        if clocks.chol_cluster_phase_cycles(out) != 0:
+            raise RuntimeError('chol_cluster_phase_cycles failed')
+
+    phases = {}
+    for b in (66, CS.LONG_BATCH):
+        launch_and_read(b)                      # warm-up; zeroes the sums
+        launch_and_read(b)
+        cyc, mats = list(out[:len(CLUSTER_PHASES)]), out[len(CLUSTER_PHASES)]
+        if mats != b:
+            raise RuntimeError(f'{mats} matrices clocked, {b} launched')
+        chain = sum(cyc[1:6])
+        phases[b] = dict(
+            cycles_per_matrix={p: c / mats for p, c in
+                               zip(CLUSTER_PHASES, cyc)},
+            chain_share={p: c / chain for p, c in
+                         zip(CLUSTER_PHASES[1:6], cyc[1:6])},
+            chain_over_whole_run=chain / cyc[7],
+            panels=-(-n // 8) - 1)
+    CS.emit(dict(kernel='chol_factor_cluster_kernel', n=n,
+                 matrices='dense_long, iteration 5',
+                 ms_by_batch={k: {str(b): v for b, v in d.items()}
+                              for k, d in ms.items()},
+                 attributes=CH.kernel_attributes(n, 'factor_cluster'),
+                 phases={str(b): v for b, v in phases.items()}))
+
+    # by n: the route's kernel and the library in turns on SPD batches
+    by_n = {}
+    for size in CLUSTER_SIZES:
+        gen = torch.Generator(device=dev).manual_seed(size)
+        x = torch.randn((CS.LONG_BATCH, size, size), generator=gen,
+                        device=dev)
+        m = x @ x.transpose(1, 2) / size + 1e-3 * torch.eye(size, device=dev)
+        del x
+        turns = {'cluster': [], 'library': []}
+        fns = {'cluster': lambda: CH.cholesky_bnn(m),
+               'library': lambda: torch.linalg.cholesky(m)}
+        for name in ('cluster', 'library', 'library', 'cluster'):
+            turns[name].append(CS.cuda_ms(fns[name], REPS))
+        attr = CH.kernel_attributes(size, 'factor_cluster')
+        by_n[str(size)] = dict(
+            kernel=CH.route(size),
+            tile_loads=('rows' if size % 8 == 0 else
+                        'half rows' if size % 4 == 0 else 'elements'),
+            ms_turns=turns, threads_per_block=attr['threads_per_block'],
+            bound_ms=CS.bound_ms(
+                CS.LONG_BATCH * CH.factor_bytes(size),
+                CS.LONG_BATCH * sum(CH.factor_op_count(size).values()))[0])
+        del m
+    CS.emit(dict(kernel='chol_factor_cluster_kernel', batch=CS.LONG_BATCH,
+                 matrices='seeded SPD', by_n=by_n))
 
 
 if __name__ == '__main__':

@@ -1,9 +1,14 @@
 // A host stand-in for the parts of the CUDA runtime that
 // hector_torch/csrc/chol.cu uses, so that tests/test_torch_chol_host.py can
 // compile that source with g++ and run its kernels on the CPU: each thread
-// of a block is a std::thread, the blocks of a grid run one after another,
-// __syncthreads is a std::barrier, "bar.sync 1, count" a counting barrier,
-// cp.async a plain copy.  It checks indexing and ordering, not speed.
+// of a block is a std::thread, the blocks of a grid run one cluster after
+// another (a cluster's blocks together, one block where the launch names no
+// cluster), __syncthreads is a std::barrier of the block, "bar.sync 1,
+// count" a counting barrier of the block, the cluster barrier a
+// std::barrier of the cluster's threads that a thread leaves when it
+// exits (barrier.cluster waits for the threads that have not exited), and
+// mapa the same offset in the partner block's dynamic shared memory.  It
+// checks indexing and ordering, not speed.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -11,6 +16,7 @@
 #include <condition_variable>
 #include <cstddef>
 #include <cstring>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <vector>
@@ -32,6 +38,12 @@ struct HostDim {
 };
 inline thread_local HostDim threadIdx, blockIdx, blockDim, gridDim;
 
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3() = default;
+  dim3(unsigned x_, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+
 struct float4 {
   float x, y, z, w;
 };
@@ -47,6 +59,23 @@ struct cudaFuncAttributes {
   size_t localSizeBytes;
   size_t sharedSizeBytes;
 };
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct {
+    struct {
+      unsigned x, y, z;
+    } clusterDim;
+  } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+
 inline cudaError_t cudaGetDevice(int* d) {
   *d = 0;
   return cudaSuccess;
@@ -65,15 +94,13 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* nb, K, int, size_
   *nb = 1;
   return cudaSuccess;
 }
+template <class K>
+cudaError_t cudaOccupancyMaxActiveClusters(int* nc, K, const cudaLaunchConfig_t*) {
+  *nc = 1;
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "host stand-in"; }
-
-// the block being run: its barrier, its counting barrier, its dynamic
-// shared memory
-inline std::barrier<>* host_block_barrier = nullptr;
-inline std::vector<float> host_dynamic_smem;
-inline float* host_smem() { return host_dynamic_smem.data(); }
-inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
 
 struct HostCountBarrier {
   std::mutex mu;
@@ -81,37 +108,97 @@ struct HostCountBarrier {
   int arrived = 0;
   long generation = 0;
 };
-inline HostCountBarrier host_count_barrier;
+
+// what the running thread's block and cluster share: the block's barrier,
+// counting barrier and dynamic shared memory, the cluster's barrier and
+// its blocks' dynamic shared memory
+inline thread_local std::barrier<>* host_block_barrier = nullptr;
+inline thread_local HostCountBarrier* host_count_barrier = nullptr;
+inline thread_local float* host_block_smem = nullptr;
+inline thread_local std::barrier<>* host_cluster_barrier = nullptr;
+inline thread_local float* const* host_cluster_smem = nullptr;
+
+inline float* host_smem() { return host_block_smem; }
+inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
+inline void host_cluster_sync() { host_cluster_barrier->arrive_and_wait(); }
+
+// mapa: the same offset in block `rank`'s dynamic shared memory
+inline float* host_map_shared(float* p, unsigned rank) {
+  return host_cluster_smem[rank] + (p - host_block_smem);
+}
+
 inline void host_bar_sync(int count) {
-  std::unique_lock<std::mutex> lock(host_count_barrier.mu);
-  const long mine = host_count_barrier.generation;
-  if (++host_count_barrier.arrived == count) {
-    host_count_barrier.arrived = 0;
-    ++host_count_barrier.generation;
-    host_count_barrier.cv.notify_all();
+  HostCountBarrier& b = *host_count_barrier;
+  std::unique_lock<std::mutex> lock(b.mu);
+  const long mine = b.generation;
+  if (++b.arrived == count) {
+    b.arrived = 0;
+    ++b.generation;
+    b.cv.notify_all();
     return;
   }
-  host_count_barrier.cv.wait(lock, [&] { return host_count_barrier.generation != mine; });
+  b.cv.wait(lock, [&] { return b.generation != mine; });
+}
+
+// Run `grid` blocks of `threads` threads, `cluster` blocks at a time.
+template <class Kernel, class... Args>
+void host_run(Kernel kernel, int grid, int threads, size_t smem, int cluster,
+              Args... args) {
+  for (int c0 = 0; c0 < grid; c0 += cluster) {
+    struct Block {
+      std::vector<float> smem;
+      std::unique_ptr<std::barrier<>> bar;
+      HostCountBarrier count;
+    };
+    std::vector<Block> blocks(cluster);
+    std::vector<float*> smems(cluster);
+    for (int r = 0; r < cluster; ++r) {
+      // unwritten shared memory reads as NaN
+      blocks[r].smem.assign(smem / sizeof(float) + 4, std::nanf(""));
+      blocks[r].bar = std::make_unique<std::barrier<>>(threads);
+      smems[r] = blocks[r].smem.data();
+    }
+    std::barrier<> cluster_bar(cluster * threads);
+    std::vector<std::thread> pool;
+    for (int r = 0; r < cluster; ++r)
+      for (int t = 0; t < threads; ++t)
+        pool.emplace_back([&, r, t]() {
+          threadIdx.x = t;
+          blockIdx.x = c0 + r;
+          blockDim.x = threads;
+          gridDim.x = grid;
+          host_block_barrier = blocks[r].bar.get();
+          host_count_barrier = &blocks[r].count;
+          host_block_smem = smems[r];
+          host_cluster_barrier = &cluster_bar;
+          host_cluster_smem = smems.data();
+          kernel(args...);
+          // an exited thread is waited for by neither barrier
+          blocks[r].bar->arrive_and_drop();
+          cluster_bar.arrive_and_drop();
+        });
+    for (auto& th : pool) th.join();
+  }
 }
 
 // kernel<<<grid, threads, smem, stream>>>(args...)
 template <class Kernel, class... Args>
 void host_launch(Kernel kernel, int grid, int threads, size_t smem, cudaStream_t,
                  Args... args) {
-  // unwritten shared memory reads as NaN
-  host_dynamic_smem.assign(smem / sizeof(float) + 4, std::nanf(""));
-  for (int b = 0; b < grid; ++b) {
-    std::barrier<> bar(threads);
-    host_block_barrier = &bar;
-    std::vector<std::thread> pool;
-    for (int t = 0; t < threads; ++t)
-      pool.emplace_back([&, t]() {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        blockDim.x = threads;
-        gridDim.x = grid;
-        kernel(args...);
-      });
-    for (auto& th : pool) th.join();
-  }
+  host_run(kernel, grid, threads, smem, 1, args...);
+}
+
+// cudaLaunchKernelEx with a 1-D grid and, optionally, a cluster dimension
+template <class... Exp, class... Act>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(Exp...),
+                               Act&&... args) {
+  int cluster = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      cluster = static_cast<int>(cfg->attrs[i].val.clusterDim.x);
+  const int grid = static_cast<int>(cfg->gridDim.x);
+  if (cluster < 1 || grid % cluster != 0) return cudaErrorInvalidValue;
+  host_run(kernel, grid, static_cast<int>(cfg->blockDim.x), cfg->dynamicSmemBytes,
+           cluster, static_cast<Exp>(args)...);
+  return cudaSuccess;
 }

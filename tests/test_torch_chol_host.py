@@ -4,13 +4,14 @@ the CPU.
 ``hector_torch/csrc/chol.cu`` runs only on the card, where chip_smoke.py
 holds it to its plain versions.  Here g++ builds the same source against
 ``tests/host_cuda/cuda_runtime.h`` (threads of a block as std::threads,
-barriers as std::barrier), so that the tile kernels' tile mapping, panel
-order, barrier counts, ragged edges, strides, aliasing and routes by n are
-checked on every run: against ``chol.cholesky_nnb_plain`` and
-``chol.cholesky_solve_nnb_plain`` lane by lane, and against the
-shared-memory kernels bit for bit (each pair takes the same FMAs in the same
-order; ``-ffp-contract=off`` keeps g++ from fusing any other).  Speed says
-nothing here.
+barriers as std::barrier, a cluster's blocks run together with one cluster
+barrier and each other's shared memory), so that the tile and cluster
+kernels' tile mapping, panel order, barrier counts, panel buffers, ragged
+edges, strides, aliasing and routes by n are checked on every run: against
+``chol.cholesky_nnb_plain`` and ``chol.cholesky_solve_nnb_plain`` lane by
+lane, and against the shared-memory kernels bit for bit (each pair takes the
+same FMAs in the same order; ``-ffp-contract=off`` keeps g++ from fusing any
+other).  Speed says nothing here.
 """
 
 import ctypes
@@ -80,19 +81,26 @@ TILE_MAX_N = 248
 
 
 def _host_source():
-    """chol.cu with the three device-only constructs rewritten for the
-    stand-in: dynamic shared memory, the kernel launch, the counting
-    barrier."""
+    """chol.cu with the device-only constructs rewritten for the stand-in:
+    dynamic shared memory, the kernel launch, the counting barrier, the
+    cluster barrier and the map into the partner block's shared memory."""
     src = chol.SOURCE.read_text()
     src = re.sub(r'extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];',
                  r'float* \1 = host_smem();', src)
     src = re.sub(r'(\w+)<<<(.+?)>>>\(',
                  lambda m: f'host_launch({m.group(1)}, {m.group(2)}, ', src,
                  flags=re.S)
-    src = src.replace('asm volatile("bar.sync 1, %0;" ::"r"(count) : "memory");',
-                      'host_bar_sync(count);')
-    assert ('asm volatile' not in src and '<<<' not in src
-            and 'extern __shared__' not in src)
+    for asm, host in (
+            ('asm volatile("bar.sync 1, %0;" ::"r"(count) : "memory");',
+             'host_bar_sync(count);'),
+            ('asm volatile("barrier.cluster.arrive;\\n\\tbarrier.cluster.wait;" '
+             '::: "memory");', 'host_cluster_sync();'),
+            ('asm volatile("mapa.u64 %0, %1, %2;" : "=l"(r) : "l"(p), '
+             '"r"(rank));', 'r = host_map_shared(p, rank);')):
+        assert src.count(asm) == 1, asm
+        src = src.replace(asm, host)
+    assert ('asm volatile' not in src and 'asm(' not in src
+            and '<<<' not in src and 'extern __shared__' not in src)
     return src
 
 
@@ -110,14 +118,16 @@ def lib(tmp_path_factory):
                     str(cpp)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.chol_factor, lib.chol_factor_shared):
+    for fn in (lib.chol_factor, lib.chol_factor_shared,
+               lib.chol_factor_cluster):
         fn.argtypes = [ptr, ptr, i32, i32] + [i64] * 6 + [ptr]
         fn.restype = i32
     for fn in (lib.chol_solve, lib.chol_solve_shared):
         fn.argtypes = [ptr, ptr, ptr, i32, i32] + [i64] * 7 + [ptr]
         fn.restype = i32
-    lib.chol_factor_tile_max_n.argtypes = []
-    lib.chol_factor_tile_max_n.restype = i32
+    for fn in (lib.chol_factor_tile_max_n, lib.chol_max_n):
+        fn.argtypes = []
+        fn.restype = i32
     for fn in (lib.chol_factor_route, lib.chol_solve_route):
         fn.argtypes = [i32]
         fn.restype = i32
@@ -161,13 +171,15 @@ def _lane_rel(l_k, l_p):
 
 
 # 1 and 8: one tile; 7, 17, 117: ragged tile grids; 64: two full warps;
-# 120: the interior point's n; 249: above the tile kernel's 248, the
-# shared-memory kernel; 288: that kernel at horizon 24
-@pytest.mark.parametrize('n', [1, 7, 8, 17, 64, 117, 120, 249, 288])
+# 120: the interior point's n; above the tile kernel's 248, the cluster
+# kernel: 249 (a ragged edge of one row, element by element), 288 (horizon
+# 24, whole rows as float4), 300 (horizon 25, a ragged tile grid, half rows)
+# and 339 (the ceiling, 16 warps in block 0, element by element)
+@pytest.mark.parametrize('n', [1, 7, 8, 17, 64, 117, 120, 249, 288, 300, 339])
 def test_factor_matches_plain_and_the_shared_kernel(lib, n):
-    want = 'factor_tile' if n <= TILE_MAX_N else 'factor_shared'
+    want = 'factor_tile' if n <= TILE_MAX_N else 'factor_cluster'
     assert chol.KERNELS[lib.chol_factor_route(n)] == want
-    m = _spd(3, n, seed=n)
+    m = _spd(3 if n < 300 else 2, n, seed=n)
     l_k = _factor(lib.chol_factor, m, torch.full_like(m, float('nan')))
     l_s = _factor(lib.chol_factor_shared, m, torch.full_like(m, float('nan')))
     l_p = chol.cholesky_nnb_plain(m.permute(1, 2, 0)).permute(2, 0, 1)
@@ -178,22 +190,34 @@ def test_factor_matches_plain_and_the_shared_kernel(lib, n):
     assert torch.equal(l_k, l_s)
 
 
-def _factor_views_aliasing_and_a_bad_lane(lib, n):
+# the cluster kernel below its route: one tile (block 1 holds none), a
+# ragged grid, the interior point's n
+@pytest.mark.parametrize('n', [8, 117, 120])
+def test_cluster_factor_is_the_tile_kernel(lib, n):
+    m = _spd(3, n, seed=n + 7)
+    l_t = _factor(lib.chol_factor, m, torch.full_like(m, float('nan')))
+    l_c = _factor(lib.chol_factor_cluster, m, torch.full_like(m, float('nan')))
+    assert torch.equal(l_c, l_t)
+
+
+def _factor_views_aliasing_and_a_bad_lane(lib, n, fn=None):
     """The batch-minor (n, n, B) view (strided, element by element) gives
     the (B, n, n) result bit for bit; m and l may alias; a matrix that is not
-    positive definite goes non-finite alone."""
+    positive definite goes non-finite alone.  ``fn``: the entry point
+    (default chol_factor, the route's kernel)."""
+    fn = fn or lib.chol_factor
     m = _spd(4, n, seed=1)
-    l_k = _factor(lib.chol_factor, m, torch.empty_like(m))
+    l_k = _factor(fn, m, torch.empty_like(m))
     m_nnb = m.permute(1, 2, 0).contiguous()
     l_nnb = torch.full_like(m_nnb, float('nan'))
-    _factor(lib.chol_factor, m_nnb.permute(2, 0, 1), l_nnb.permute(2, 0, 1))
+    _factor(fn, m_nnb.permute(2, 0, 1), l_nnb.permute(2, 0, 1))
     assert torch.equal(l_nnb.permute(2, 0, 1), l_k)
     both = m.clone()
-    _factor(lib.chol_factor, both, both)
+    _factor(fn, both, both)
     assert torch.equal(both, l_k)
     bad = m.clone()
     bad[2, 5, 5] = -1.0
-    l_bad = _factor(lib.chol_factor, bad, torch.empty_like(bad))
+    l_bad = _factor(fn, bad, torch.empty_like(bad))
     assert not torch.isfinite(l_bad[2]).all()
     assert torch.equal(l_bad[[0, 1, 3]], l_k[[0, 1, 3]])
 
@@ -204,8 +228,20 @@ def test_factor_views_aliasing_and_a_bad_lane(lib):
 
 
 def test_shared_factor_views_aliasing_and_a_bad_lane(lib):
-    assert chol.KERNELS[lib.chol_factor_route(249)] == 'factor_shared'
-    _factor_views_aliasing_and_a_bad_lane(lib, 249)   # the packed triangle
+    # the packed triangle, off the route: the yardstick the tile and
+    # cluster kernels are held to
+    assert chol.KERNELS[lib.chol_factor_route(249)] != 'factor_shared'
+    _factor_views_aliasing_and_a_bad_lane(lib, 249, lib.chol_factor_shared)
+
+
+def test_cluster_factor_views_aliasing_and_a_bad_lane(lib):
+    # n = 252 (horizon 21): half rows as float4 in (B, n, n), up to a
+    # ragged edge, element by element in the views; the route's kernel up
+    # to chol_max_n() (at least 339)
+    assert lib.chol_max_n() >= 339
+    assert all(chol.KERNELS[lib.chol_factor_route(n)] == 'factor_cluster'
+               for n in range(TILE_MAX_N + 1, lib.chol_max_n() + 1))
+    _factor_views_aliasing_and_a_bad_lane(lib, 252)
 
 
 def test_solve_matches_plain(lib):

@@ -293,13 +293,16 @@ def test_kernel_source_and_flags():
     assert 'hector/qp/pallas_chol.py' in src
     assert '_chol_kernel' in src and '_solve_kernel' in src
     assert 'What bounds them on the card' in src
-    # the register-tile factor and solve, and the shared-memory ones above
-    # their n; the C entry points choose by n
+    # the register-tile factor and solve; above their n the cluster factor
+    # and the shared-memory solve; the shared-triangle factor off the route;
+    # the C entry points choose by n
     assert ('__global__ void __launch_bounds__(TILE_MAX_THREADS, 1) '
             'chol_factor_kernel(') in src
+    assert ('__global__ void __launch_bounds__(TILE_MAX_THREADS, 1) '
+            'chol_factor_cluster_kernel(') in src
     assert ('__global__ void __launch_bounds__(FACTOR_THREADS) '
             'chol_factor_smem_kernel(') in src
-    assert 'return n <= TILE_MAX_N ? FACTOR_TILE : FACTOR_SHARED;' in src
+    assert 'return n <= TILE_MAX_N ? FACTOR_TILE : FACTOR_CLUSTER;' in src
     assert ('__global__ void __launch_bounds__(TILE_MAX_THREADS, 1) '
             'chol_solve_kernel(') in src
     assert '__global__ void chol_solve_smem_kernel' in src
