@@ -9,7 +9,8 @@ Phases, one JSON line each:
               warps an SM; no instantiation of the Riccati kernel and no
               Cholesky kernel may use local memory, the Riccati kernel
               without polish must keep to 128 registers and 16 warps an SM,
-              and the cluster factor to 128 registers;
+              the cluster factor to 128 registers, and the streaming solve
+              must hold 8 blocks an SM at n = 288;
   kernel      the Riccati kernel without polish (the fused interior point,
               one warp a scenario) against its plain PyTorch version on the
               same QPs
@@ -105,11 +106,18 @@ Phases, one JSON line each:
               tile grid), 240, and on the cluster kernel's side of the route
               249, 288, 300 (a ragged tile grid) and 339 (the ceiling), lane
               by lane, bit for bit the shared-triangle kernel, the route n
-              says (register tiles up to 248, the cluster factor above);
+              says (register tiles up to 248, the cluster factor above); the
+              solve on the same factors with junk above their diagonals bit
+              for bit the shared-memory solve (on ±0, subnormal and huge
+              right-hand sides too), the route n says (register tiles up to
+              248, the streaming solve above), the streaming solve launched
+              below its route bit for bit the tile solve, and lane by lane
+              within 1e-4 of a lane's |x| from the plain version;
   chol_time   the factor kernels in turns (register tiles, shared memory,
-              shared memory, register tiles) and the solve kernels likewise
-              at 4,096 lanes, beside the plain versions and
-              torch.linalg.cholesky / torch.cholesky_solve;
+              shared memory, register tiles) and the solve kernels with
+              torch.cholesky_solve likewise (tiles, shared memory, library,
+              library, shared memory, tiles) at 4,096 lanes, beside the
+              plain versions and torch.linalg.cholesky;
   dense       plan_step_fn with backend='dense_auto' at 4,096 lanes, 8
               chained steps: 15 factor and 29 solve launches a step, forces
               against the 'pallas_interpret' run and the fused Riccati run
@@ -118,17 +126,20 @@ Phases, one JSON line each:
               lanes: no fall, no quarantine;
   dense_long  mpc.solve with backend='dense_auto' at horizon 24 (n = 288)
               at 1,024 lanes: 15 launches of the cluster factor (none of
-              the shared-triangle one), 29 of the shared-memory solve (the
-              first of 3 timed solves; the median is the solve's time); the
+              the shared-triangle one), 29 of the streaming solve (none of
+              the shared-memory one; the first of 3 timed solves; the median
+              is the solve's time); the
               forces no further from a float64 solve of the same QPs than
               the 'pallas_interpret' run's plus 2e-2 N (at this n the two
               float32 runs differ by ~0.1 N, while the factor keeps to 1e-4
               of a lane's max |L|); factor and solve lane by lane against
               their plain versions on the path's KKT matrices, the cluster
-              factor bit for bit the shared-triangle one; the cluster
-              factor, the shared-triangle factor and torch.linalg.cholesky
-              timed in turns on iteration 5's matrices, the solve beside
-              the library;
+              factor bit for bit the shared-triangle one, the streaming
+              solve bit for bit the shared-memory one (and on ±0, subnormal
+              and huge right-hand sides); the cluster factor, the
+              shared-triangle factor and torch.linalg.cholesky timed in
+              turns on iteration 5's matrices, and the streaming solve, the
+              shared-memory solve and torch.cholesky_solve likewise;
   polish      the kernel with polish (polish_rounds=8) against its plain
               version at 4,096 and 4,099 lanes and on the main path's
               32,768 QPs, and with the polish forced to reject (the
@@ -216,7 +227,7 @@ CHOL_FACTOR_TOL = 1e-4
 SPD_SIZES = (117, 240, 249, 288, 300, 339)
 TILE_MAX_N = 248          # the register-tile kernels' cut (chol.cu)
 SPD_BATCH = 1024
-LONG_HORIZON = 24         # n = 288: the cluster factor, the shared-memory solve
+LONG_HORIZON = 24         # n = 288: the cluster factor, the streaming solve
 LONG_BATCH = 1024
 LONG_SOLVES = 3           # timed solves; the median is reported, the first counted
 CHOL_SOLVE_TOL = 1e-3     # |L L^T x - rhs|_inf over |rhs|_inf, batch and worst lane
@@ -234,6 +245,10 @@ CHOL_SOLVE_VS_PLAIN_TOL = {'start': 1e-4, 'iteration 5': 1e-3}
 # (the shared-memory solve at n = 288, 1,024 lanes, H100), so both sets are
 # held to the iteration-5 bar.
 CHOL_SOLVE_VS_PLAIN_TOL_LONG = 1e-3
+# The same on chol_spd's seeded SPD matrices (n = 117 ... 339): 1.4e-6 to
+# 1.6e-6 of a lane's |x| measured on an H100, so the bar of the first KKT
+# matrices
+CHOL_SOLVE_VS_PLAIN_TOL_SPD = CHOL_SOLVE_VS_PLAIN_TOL['start']
 DENSE_VS_INTERPRET_TOL = 2e-2   # N, tests/test_qp.py:131 (TPU kernels vs XLA)
 DENSE_VS_RICCATI_TOL = 5e-2     # N, two different float32 interior points
 POLISH_ROUNDS = 8         # what the JAX tests run (tests/test_pallas_riccati.py)
@@ -248,6 +263,9 @@ IP_WARPS_PER_SM = 16
 # the cluster factor's design point: one 8 x 8 tile (64 registers) a thread
 # under a cap of 128, no spill
 CLUSTER_MAX_REGISTERS = 128
+# the streaming solve's design point: at n = 288, 8 blocks an SM, so that
+# 1,024 matrices run in one wave on 132 SMs
+STREAM_BLOCKS_PER_SM = 8
 # the Mehrotra stage solver ('riccati') on the card: closed-loop lanes,
 # chained steps
 RICCATI_BATCH = 4096
@@ -512,7 +530,7 @@ def factor_vs_plain(l_k, m):
 
 
 CHOL_COUNTS = ('factor', 'factor_shared', 'factor_cluster', 'solve',
-               'solve_shared')
+               'solve_shared', 'solve_stream')
 
 
 def chol_counts(CH):
@@ -549,7 +567,8 @@ KERNEL_NAMES = (('fused_riccati_warp_kernelILb0E', 'fused_riccati'),
                 ('chol_factor_smem_kernel', 'chol_factor_shared'),
                 ('chol_factor_cluster_kernel', 'chol_factor_cluster'),
                 ('chol_solve_kernel', 'chol_solve'),
-                ('chol_solve_smem_kernel', 'chol_solve_shared'))
+                ('chol_solve_smem_kernel', 'chol_solve_shared'),
+                ('chol_solve_stream_kernel', 'chol_solve_stream'))
 
 
 def parse_ptxas(text):
@@ -585,8 +604,8 @@ def bit_equal(a, b):
 
 def edge_rhs(rhs):
     """rhs with lanes of +0, -0, subnormal and huge entries: the register-tile
-    solve's fast divides take the first and fall back to IEEE divides on the
-    others."""
+    and streaming solves' fast divides take the first and fall back to IEEE
+    divides on the others."""
     zero = torch.zeros_like(rhs[:8])
     return torch.cat([zero, -zero, rhs[16:24] * 1e-40, rhs[24:32] * 1e25,
                       rhs[32:]])
@@ -1881,7 +1900,9 @@ def main():
                                                          'factor_cluster'),
              'chol_solve': CH.kernel_attributes(n, 'solve_tile'),
              'chol_solve_shared': CH.kernel_attributes(n_long,
-                                                       'solve_shared')}
+                                                       'solve_shared'),
+             'chol_solve_stream': CH.kernel_attributes(n_long,
+                                                       'solve_stream')}
     emit(dict(phase='build', seconds=build_s, card=card,
               nvcc_seconds=nvcc_seconds, ptxas=ptxas, attributes=attrs))
     for name, attr in attrs.items():
@@ -1895,6 +1916,10 @@ def main():
         raise RuntimeError(f'the cluster factor takes more than '
                            f'{CLUSTER_MAX_REGISTERS} registers: '
                            f'{attrs["chol_factor_cluster"]}')
+    if attrs['chol_solve_stream']['blocks_per_sm'] < STREAM_BLOCKS_PER_SM:
+        raise RuntimeError(f'the streaming solve holds fewer than '
+                           f'{STREAM_BLOCKS_PER_SM} blocks an SM at n = '
+                           f'{n_long}: {attrs["chol_solve_stream"]}')
     ip_attr = attrs['fused_riccati']
     if not (ip_attr['registers'] <= IP_MAX_REGISTERS
             and ip_attr['warps_per_sm'] >= IP_WARPS_PER_SM):
@@ -2203,8 +2228,9 @@ def main():
     del seen_m, seen_rhs, l64, x64, r64, resid, x_true, x_s, edge, l_c
     del m_bad, l_bad, sol_ok, sol_bad
 
-    # ---- the factor on random SPD matrices, both sides of the route ----
-    cluster_err = shared_err = 0.0
+    # ---- the factor and the solve on random SPD matrices, both sides of
+    # the route ----
+    cluster_err = shared_err = stream_err = solve_shared_err = 0.0
     for size in SPD_SIZES:
         gen = torch.Generator(device=dev).manual_seed(size)
         x = torch.randn((SPD_BATCH, size, size), generator=gen, device=dev)
@@ -2221,27 +2247,62 @@ def main():
                                     device=dev))
         upper_nonzero = int((l_k * ~low).count_nonzero())
         kernel = CH.route(size)
+        # the solve on these factors, with junk above their diagonals that
+        # it must not read: the route's kernel against the shared-memory
+        # solve bit for bit (and on edge right-hand sides), the streaming
+        # solve launched at any n against the route's kernel, and against
+        # the plain version lane by lane
+        rhs = torch.randn((SPD_BATCH, size), generator=gen, device=dev)
+        l_junk = l_k + 1e3 * torch.triu(torch.randn(
+            (SPD_BATCH, size, size), generator=gen, device=dev), 1)
+        edge = edge_rhs(rhs)
+        x_k = CH.cholesky_solve_bnn(l_junk, rhs)
+        x_s = CH.solve_shared_cuda(l_k, rhs, torch.empty_like(rhs))
+        x_m = CH.solve_stream_cuda(l_junk, rhs, torch.empty_like(rhs))
+        x_p = CH.cholesky_solve_nnb_plain(l_k.permute(1, 2, 0), rhs.t()).t()
+        solve_kernel = CH.route(size, 'solve')
+        solve_equal = (
+            bit_equal(x_k, x_s) and bit_equal(x_m, x_k)
+            and bit_equal(CH.cholesky_solve_bnn(l_junk, edge),
+                          CH.solve_shared_cuda(l_k, edge,
+                                               torch.empty_like(edge))))
+        all_finite(spd_x=x_k)
+        d_x = float((x_k - x_p).abs().max())
+        d_x_lane = float(((x_k - x_p).abs().amax(1)
+                          / x_p.abs().amax(1).clamp(min=1e-30)).max())
         rec = dict(phase='chol_spd', batch=SPD_BATCH, n=size, kernel=kernel,
                    max_abs_dl=d_l, l_scale=l_scale, rel_dl_worst_lane=d_l_lane,
                    upper_nonzero=upper_nonzero,
                    kernel_equals_shared_kernel=bit_equal(l_k, l_s),
                    nnb_views_equal=bool(torch.equal(l_nnb.permute(2, 0, 1),
-                                                    l_k)))
+                                                    l_k)),
+                   solve_kernel=solve_kernel, solve_max_abs_dx=d_x,
+                   solve_rel_dx_worst_lane=d_x_lane,
+                   solve_equals_shared_and_stream_kernels=solve_equal)
         emit(rec)
         if kernel != ('factor_tile' if size <= TILE_MAX_N
                       else 'factor_cluster'):
             raise RuntimeError(f'n = {size} goes to {kernel}')
+        if solve_kernel != ('solve_tile' if size <= TILE_MAX_N
+                            else 'solve_stream'):
+            raise RuntimeError(f'the solve at n = {size} goes to '
+                               f'{solve_kernel}')
         if not (d_l_lane <= CHOL_FACTOR_TOL and upper_nonzero == 0
                 and rec['kernel_equals_shared_kernel']
                 and rec['nnb_views_equal']):
             raise RuntimeError(f'factor kernel at n = {size}: {rec}')
+        if not (solve_equal and d_x_lane <= CHOL_SOLVE_VS_PLAIN_TOL_SPD):
+            raise RuntimeError(f'solve kernel at n = {size}: {rec}')
+        solve_shared_err = max(solve_shared_err, d_x)
+        if solve_kernel == 'solve_stream':
+            stream_err = max(stream_err, d_x)
         # bit for bit the routed kernel, so its error
         shared_err = max(shared_err, d_l)
         if kernel == 'factor_tile':
             factor_err = max(factor_err, d_l)
         else:
             cluster_err = max(cluster_err, d_l)
-    del x, m, l_k, l_s, l_nnb
+    del x, m, l_k, l_s, l_nnb, rhs, l_junk, edge, x_k, x_s, x_m, x_p
 
     # ---- the kernels timed: the two factor kernels in turns ----
     m_nnb = m_time.permute(1, 2, 0).contiguous()
@@ -2254,21 +2315,22 @@ def main():
         turns[name].append(cuda_ms(lambda: fn(m_time), 20))
     factor_ms = sum(turns['tile']) / 2
     factor_shared_ms = sum(turns['shared']) / 2
-    s_turns = {'tile': [], 'shared': []}
-    for name in ('tile', 'shared', 'shared', 'tile'):
-        fn = (CH.cholesky_solve_bnn if name == 'tile' else
-              lambda ell, r: CH.solve_shared_cuda(ell, r, torch.empty_like(r)))
-        s_turns[name].append(cuda_ms(lambda: fn(l_time, rhs_time), 20))
-    solve_ms = sum(s_turns['tile']) / 2
-    solve_shared_ms = sum(s_turns['shared']) / 2
+    rhs_col = rhs_time[..., None].contiguous()
+    s_turns = {'tile': [], 'shared': [], 'library': []}
+    s_fns = {'tile': (lambda: CH.cholesky_solve_bnn(l_time, rhs_time), 20),
+             'shared': (lambda: CH.solve_shared_cuda(
+                 l_time, rhs_time, torch.empty_like(rhs_time)), 20),
+             'library': (lambda: torch.cholesky_solve(rhs_col, l_time), 10)}
+    for name in ('tile', 'shared', 'library', 'library', 'shared', 'tile'):
+        s_turns[name].append(cuda_ms(*s_fns[name]))
+    solve_ms, solve_shared_ms, solve_lib_ms = (
+        sum(s_turns[k]) / 2 for k in ('tile', 'shared', 'library'))
     factor_nnb_ms = cuda_ms(lambda: CH.cholesky_nnb(m_nnb), 5)
     solve_nnb_ms = cuda_ms(lambda: CH.cholesky_solve_nnb(l_nnb, rhs_nb), 5)
     factor_plain_ms = cuda_ms(lambda: CH.cholesky_nnb_plain(m_nnb), 2)
     solve_plain_ms = cuda_ms(
         lambda: CH.cholesky_solve_nnb_plain(l_nnb, rhs_nb), 2)
     factor_lib_ms = cuda_ms(lambda: torch.linalg.cholesky(m_time), 10)
-    rhs_col = rhs_time[..., None].contiguous()
-    solve_lib_ms = cuda_ms(lambda: torch.cholesky_solve(rhs_col, l_time), 10)
     f_ops, s_ops = CH.factor_op_count(n), CH.solve_op_count(n)
     f_bound = bound_ms(DENSE_BATCH * CH.factor_bytes(n),
                        DENSE_BATCH * sum(f_ops.values()))
@@ -2294,6 +2356,7 @@ def main():
                          shared_kernel_ms=solve_shared_ms,
                          shared_kernel_ms_turns=s_turns['shared'],
                          plain_ms=solve_plain_ms, library_ms=solve_lib_ms,
+                         library_ms_turns=s_turns['library'],
                          bound_ms=s_bound[0], bound_by=s_bound[1],
                          ops_ms=s_bound[2], bytes_ms=s_bound[3],
                          share_of_bound=s_bound[0] / solve_ms,
@@ -2303,7 +2366,7 @@ def main():
                          shared_kernel_blocks_per_sm=CH.kernel_attributes(
                              n, 'solve_shared')['blocks_per_sm']),
               card=card))
-    del m_nnb, l_nnb, m_time, l_time
+    del m_nnb, l_nnb, m_time, l_time, rhs_col
 
     # ---- dense path: chained planning steps through the two kernels ----
     carry, plant, cmd = scenarios(DENSE_BATCH, 7, dev)
@@ -2317,7 +2380,8 @@ def main():
     dense_factor_launches = CH.factor_launches
     dense_larger_n_launches = (CH.factor_shared_launches
                                + CH.factor_cluster_launches
-                               + CH.solve_shared_launches)
+                               + CH.solve_shared_launches
+                               + CH.solve_stream_launches)
     dense_solve_launches = CH.solve_launches
     dense_step_ms = total_ms / DENSE_CHAIN
     want = (DENSE_CHAIN * (scfg.iterations + 1),
@@ -2405,8 +2469,8 @@ def main():
     if not h.min() > 0.4:
         raise RuntimeError('dense loop: a lane collapsed')
 
-    # ---- dense path at a long horizon: the cluster factor, the
-    # shared-memory solve ----
+    # ---- dense path at a long horizon: the cluster factor, the streaming
+    # solve ----
     def wrench_diff(a, b):
         return float((a.u[:, :12].double() - b.u[:, :12].double()).abs().max())
 
@@ -2426,7 +2490,7 @@ def main():
     long_step_ms = sorted(long_ms_turns)[LONG_SOLVES // 2]
     it = scfg.iterations
     want = dict(factor=it + 1, factor_shared=0, factor_cluster=it + 1,
-                solve=2 * it + 1, solve_shared=2 * it + 1)
+                solve=2 * it + 1, solve_shared=0, solve_stream=2 * it + 1)
     if long_launches != want or FR.launches or FR.polish_launches:
         raise RuntimeError(f'long-horizon dense solve launched '
                            f'{long_launches}, expected {want}')
@@ -2448,11 +2512,19 @@ def main():
     cluster_lane_err = long_solve_err = 0.0
     long_solve_lane = {}
     cluster_equals_shared = {}
+    stream_equals_shared = {}
     for where, m, rhs in (('start', seen_m[0], seen_rhs[0]),
                           ('iteration 5', seen_m[-1], seen_rhs[-1])):
         l_k = CH.cholesky_bnn(m)
         l_s = CH.factor_shared_cuda(m, torch.empty_like(m))
         x_k = CH.cholesky_solve_bnn(l_k, rhs)
+        x_s = CH.solve_shared_cuda(l_k, rhs, torch.empty_like(rhs))
+        edge = edge_rhs(rhs)
+        stream_equals_shared[where] = (
+            bit_equal(x_k, x_s)
+            and bit_equal(CH.cholesky_solve_bnn(l_k, edge),
+                          CH.solve_shared_cuda(l_k, edge,
+                                               torch.empty_like(edge))))
         x_p = CH.cholesky_solve_nnb_plain(l_k.permute(1, 2, 0), rhs.t()).t()
         all_finite(long_x=x_k)
         d_l, _, d_l_lane = factor_vs_plain(l_k, m)
@@ -2464,7 +2536,7 @@ def main():
             ((x_k - x_p).abs().amax(1)
              / x_p.abs().amax(1).clamp(min=1e-30)).max())
     m_long, rhs_long = seen_m[-1], seen_rhs[-1]
-    del seen_m, seen_rhs, m, rhs, l_k, l_s, x_k, x_p
+    del seen_m, seen_rhs, m, rhs, l_k, l_s, x_k, x_s, x_p, edge
 
     # timed on iteration 5's matrices: the route's cluster factor, the
     # shared-triangle factor and the library in turns, beside the plain
@@ -2487,12 +2559,21 @@ def main():
     l_long_nnb = l_long.permute(1, 2, 0).contiguous()
     rhs_long_nb = rhs_long.t().contiguous()
     rhs_long_col = rhs_long[..., None].contiguous()
-    long_solve_ms = cuda_ms(lambda: CH.cholesky_solve_bnn(l_long, rhs_long),
-                            10)
+    # the route's streaming solve, the shared-memory solve and the library
+    # in turns
+    s_turns = {'stream': [], 'shared': [], 'library': []}
+    s_fns = {'stream': (lambda: CH.cholesky_solve_bnn(l_long, rhs_long), 20),
+             'shared': (lambda: CH.solve_shared_cuda(
+                 l_long, rhs_long, torch.empty_like(rhs_long)), 5),
+             'library': (lambda: torch.cholesky_solve(rhs_long_col, l_long),
+                         5)}
+    for name in ('stream', 'shared', 'library', 'library', 'shared',
+                 'stream'):
+        s_turns[name].append(cuda_ms(*s_fns[name]))
+    long_solve_ms, long_solve_shared_ms, long_solve_lib_ms = (
+        sum(s_turns[k]) / 2 for k in ('stream', 'shared', 'library'))
     long_solve_plain_ms = cuda_ms(
         lambda: CH.cholesky_solve_nnb_plain(l_long_nnb, rhs_long_nb), 1)
-    long_solve_lib_ms = cuda_ms(
-        lambda: torch.cholesky_solve(rhs_long_col, l_long), 5)
     long_s_bound = bound_ms(LONG_BATCH * CH.solve_bytes(n_long),
                             LONG_BATCH * sum(CH.solve_op_count(n_long).values()))
     emit(dict(phase='dense_long', batch=LONG_BATCH, horizon=LONG_HORIZON,
@@ -2506,6 +2587,7 @@ def main():
               factor_cluster_equals_shared_kernel=cluster_equals_shared,
               solve_max_abs_dx=long_solve_err,
               solve_rel_dx_worst_lane=long_solve_lane,
+              solve_stream_equals_shared_kernel=stream_equals_shared,
               factor=dict(ms=long_factor_ms, ms_turns=f_turns['cluster'],
                           shared_kernel_ms=long_shared_ms,
                           shared_kernel_ms_turns=f_turns['shared'],
@@ -2518,11 +2600,19 @@ def main():
                           attributes=attrs['chol_factor_cluster'],
                           shared_kernel_attributes=attrs[
                               'chol_factor_shared']),
-              solve=dict(ms=long_solve_ms, plain_ms=long_solve_plain_ms,
+              solve=dict(ms=long_solve_ms, ms_turns=s_turns['stream'],
+                         shared_kernel_ms=long_solve_shared_ms,
+                         shared_kernel_ms_turns=s_turns['shared'],
+                         plain_ms=long_solve_plain_ms,
                          library_ms=long_solve_lib_ms,
+                         library_ms_turns=s_turns['library'],
                          bound_ms=long_s_bound[0], bound_by=long_s_bound[1],
                          share_of_bound=long_s_bound[0] / long_solve_ms,
-                         attributes=attrs['chol_solve_shared']),
+                         shared_kernel_share_of_bound=(long_s_bound[0]
+                                                       / long_solve_shared_ms),
+                         attributes=attrs['chol_solve_stream'],
+                         shared_kernel_attributes=attrs[
+                             'chol_solve_shared']),
               card=card))
     if not d_long_f64 <= d_int_f64 + DENSE_VS_INTERPRET_TOL:
         raise RuntimeError(f'long-horizon dense solve: {d_long_f64} N from '
@@ -2536,11 +2626,18 @@ def main():
                            f'disagree on the long-horizon KKT matrices: '
                            f'{cluster_equals_shared}')
     shared_err = max(shared_err, cluster_err)     # bit for bit, so its error
+    if not all(stream_equals_shared.values()):
+        raise RuntimeError(f'the streaming and shared-memory solve kernels '
+                           f'disagree on the long-horizon KKT matrices (or '
+                           f'edge right-hand sides): {stream_equals_shared}')
     for where, v in long_solve_lane.items():
         if not v <= CHOL_SOLVE_VS_PLAIN_TOL_LONG:
-            raise RuntimeError(f'shared-memory solve vs plain at n = '
+            raise RuntimeError(f'streaming solve vs plain at n = '
                                f'{n_long} ({where}): {v} of a lane\'s |x| > '
                                f'{CHOL_SOLVE_VS_PLAIN_TOL_LONG}')
+    # bit for bit the route's kernels, so their errors
+    stream_err = max(stream_err, long_solve_err)
+    solve_shared_err = max(solve_shared_err, long_solve_err)
     del m_long, m_long_nnb, l_long, l_long_nnb, rhs_long, rhs_long_nb
     del rhs_long_col, qp_long
 
@@ -2654,11 +2751,20 @@ def main():
              launches=dense_solve_launches, max_abs_err=solve_err,
              ms=solve_ms, plain_ms=solve_plain_ms, bound_ms=s_bound[0],
              bound_by=s_bound[1], library_ms=solve_lib_ms),
+        dict(name='chol_solve_stream', route='cuda',
+             source='hector_torch/csrc/chol.cu',
+             replaces='hector/qp/pallas_chol.py:77',
+             launches=long_launches['solve_stream'],
+             max_abs_err=stream_err, ms=long_solve_ms,
+             plain_ms=long_solve_plain_ms, bound_ms=long_s_bound[0],
+             bound_by=long_s_bound[1], library_ms=long_solve_lib_ms),
+        # the yardstick the tile and streaming solves are held to, off the
+        # route
         dict(name='chol_solve_shared', route='cuda',
              source='hector_torch/csrc/chol.cu',
              replaces='hector/qp/pallas_chol.py:77',
              launches=long_launches['solve_shared'],
-             max_abs_err=long_solve_err, ms=long_solve_ms,
+             max_abs_err=solve_shared_err, ms=long_solve_shared_ms,
              plain_ms=long_solve_plain_ms, bound_ms=long_s_bound[0],
              bound_by=long_s_bound[1], library_ms=long_solve_lib_ms)]})
     print(card, flush=True)

@@ -8,7 +8,7 @@
 //   (chol_factor_cluster_kernel    reached through cholesky_nnb :114)
 //    above 248)
 //   chol_solve_kernel          <-  _solve_kernel (:77, pl.pallas_call at :156,
-//   (chol_solve_smem_kernel        reached through cholesky_solve_nnb :146)
+//   (chol_solve_stream_kernel      reached through cholesky_solve_nnb :146)
 //    above 248)
 // They compute what those compute: the lower Cholesky factor L of each
 // matrix (right-looking, column by column, scaled by the reciprocal square
@@ -149,10 +149,49 @@
 //     against the 0.037 ms byte bound, the shared-memory solve 0.357 and
 //     torch.cholesky_solve 1.449 (H100 80GB HBM3, 700 W).
 //
-// The solve, n > 248 (chol_solve_smem_kernel): L's packed lower triangle in
-// shared memory, x[t] in a register of thread t, one x[j] broadcast per
-// step through a double-buffered shared slot: one barrier per step.
-// chol_solve_shared launches it at any n.
+// The solve, 248 < n <= 339 (chol_solve_stream_kernel; n = 288 at horizon
+// 24): L streamed through shared memory a panel at a time, eight matrices an
+// SM.
+//   - What bounds it: bytes.  Each sweep reads each element of L once for
+//     one FMA, so L is never on chip whole: the two sweeps read the triangle
+//     twice (333 KB a matrix at n = 288; 1,024 of them do not fit L2), 0.102
+//     ms for 1,024 matrices at 3.35 TB/s against the 0.052 ms bound of one
+//     read.  The shared-memory solve below held the 167.6 KB triangle in
+//     shared memory: one block an SM, eight waves, its load paid in full
+//     before its 576 barrier steps.
+//   - One block of 4 warps a matrix; shared memory holds x (padded with
+//     zeros to 8 T), the pivots' reciprocals and a ring of two panel
+//     buffers (20.7 KB at n = 288), so 8 blocks fit an SM and 1,024
+//     matrices run in one wave; a block waiting on its copies or on its
+//     diagonal step is covered by the seven others.
+//   - Each step copies the panel of the step after it with cp.async
+//     (16-byte chunks through L2 where rows are 16-byte aligned and
+//     n % 4 == 0, element by element otherwise; nothing above the diagonal
+//     but the rest of a chunk), issued by warps 1-3 while thread 0 takes
+//     the diagonal step, one group a step, waited for at the next step's
+//     start, then a block barrier.  Forward, step p: tile column p,
+//     rows 8 p ... n - 1, 32 B a row; the thread of the diagonal tile solves
+//     x_p (barrier); every row r >= 8 (p + 1) applies x_r -= L_rp x_p.  Back,
+//     step p from the last: tile row p, columns 0 ... 8 p + 7; the diagonal
+//     tile solves x_p against L_pp^T (the last one forward and back in one
+//     step, as the tile solve does); every column c < 8 p applies
+//     x_c -= L_pc^T x_p.  2 barriers a step, 2 T - 1 steps.
+//   - Rounding: forward_diag / back_diag and their IEEE fallback as the tile
+//     solve runs them, the updates one FMA a column in the shared-triangle
+//     solve's order, so x is that kernel's bit for bit (and the tile
+//     solve's: chol_solve_stream launches it at any n).
+//   - 0.187 ms for 1,024 matrices at n = 288 (1.82 TB/s), against 1.624 ms
+//     for the shared-memory solve and 1.317 ms for torch.cholesky_solve
+//     (H100 80GB HBM3, 700 W).  Held to 4 blocks an SM it is 2 % slower,
+//     to 2 36 %: past 4 blocks the memory, not the chains, bounds it
+//     (profile_chol_kernel.py).
+//
+// chol_solve_smem_kernel (any n up to chol_max_n()): L's packed lower
+// triangle in shared memory, x[t] in a register of thread t, one x[j]
+// broadcast per step through a double-buffered shared slot: one barrier per
+// step.  The route (the solve above 248 until the streaming kernel replaced
+// it) no longer takes it: chol_solve_shared launches it at any n, the
+// yardstick the tile and streaming solves are held to bit for bit.
 //
 // Every kernel is chosen by n in its C entry point (chol_factor_route,
 // chol_solve_route), never on a failure.
@@ -188,8 +227,15 @@ constexpr int FACTOR_ROWS = 4;       // rows a warp updates together
 
 constexpr size_t BLOCK_SMEM_MAX = 232448;  // bytes of shared memory a block may hold
 
+// ---- the streaming solve ----
+constexpr int STREAM_THREADS = 128;   // 4 warps
+constexpr int STREAM_MIN_BLOCKS = 8;  // blocks an SM: 8 x 132 SMs >= 1,024 matrices
+constexpr int STREAM_BUFS = 2;        // panel buffers in the ring
+
 // the kernels, as chol_kernel_attributes and the routes number them
-enum KernelId { FACTOR_TILE, FACTOR_SHARED, SOLVE_TILE, SOLVE_SHARED, FACTOR_CLUSTER };
+enum KernelId {
+  FACTOR_TILE, FACTOR_SHARED, SOLVE_TILE, SOLVE_SHARED, FACTOR_CLUSTER, SOLVE_STREAM
+};
 
 // offset of element (r, c), c <= r, in the packed lower triangle
 __host__ __device__ inline int tri(int r, int c) { return r * (r + 1) / 2 + c; }
@@ -251,6 +297,13 @@ inline int cluster_threads(int n) {
 // its dynamic shared memory: the panel buffers and the diagonal tile
 constexpr size_t CLUSTER_SMEM =
     (PAN_BUFS * TILE * PAN_N + (TILE + 1) * TILE) * sizeof(float);
+
+// The streaming solve's dynamic shared memory at n: x and the pivots'
+// reciprocals (8 T floats each) and STREAM_BUFS panel buffers of 8 x 8 T
+// (20,736 B at n = 288)
+inline size_t stream_smem_bytes(int n) {
+  return static_cast<size_t>(2 + STREAM_BUFS * TILE) * TILE * tile_rows(n) * sizeof(float);
+}
 
 constexpr int MAX_DEVICES = 64;
 
@@ -466,11 +519,21 @@ __device__ __forceinline__ void update_rank8(Tile& a, const float* x, const floa
 // waits at the cluster barrier (5), which starts panel p + 1.  The thread
 // of the last tile clocks the loads and the first cluster barrier (0), its
 // store (6) and its whole run (7).
+// CHOL_PHASE_CLOCKS also clocks the two solves above 248, by thread 0 of each
+// block (g_chol_solve_cycles[kernel], SOLVE_PHASES of them, then the
+// blocks): the shared-memory solve's load (0), forward sweep (1), back sweep
+// (2) and store (3); the streaming solve's thread 0, which takes every
+// diagonal step: its prologue (0: the first panel issued, x and the
+// reciprocals loaded), its waits for its copies (1), the barrier after them
+// (2), the diagonal steps (3), issuing the next panel (4), the barrier after
+// the diagonal step (5), its own updates (6) and the store (7).
 #ifdef CHOL_PHASE_CLOCKS
 constexpr int CHOL_PHASES = 7;
 __device__ unsigned long long g_chol_cycles[CHOL_PHASES + 1];
 constexpr int CLUSTER_PHASES = 8;
 __device__ unsigned long long g_chol_cluster_cycles[CLUSTER_PHASES + 1];
+constexpr int SOLVE_PHASES = 8;
+__device__ unsigned long long g_chol_solve_cycles[2][SOLVE_PHASES + 1];
 #define PHASE_MARK(i)                      \
   if (threadIdx.x == blockDim.x - 1) {     \
     const long long now = clock64();       \
@@ -599,8 +662,24 @@ __global__ void __launch_bounds__(TILE_MAX_THREADS, 1) chol_factor_kernel(
 
 #ifdef CHOL_PHASE_CLOCKS
 #define CLK(...) __VA_ARGS__
+// thread 0 adds the SM cycles since its last mark to phase i of sclk
+#define SOLVE_MARK(i)                 \
+  if (threadIdx.x == 0) {             \
+    const long long now = clock64();  \
+    sclk[i] += now - slast;           \
+    slast = now;                      \
+  }
+// and, at its end, adds them to kernel k's sums
+#define SOLVE_CLOCKS_OUT(k)                                                    \
+  if (threadIdx.x == 0) {                                                      \
+    for (int i = 0; i < SOLVE_PHASES; ++i)                                     \
+      atomicAdd(&g_chol_solve_cycles[k][i], static_cast<unsigned long long>(sclk[i])); \
+    atomicAdd(&g_chol_solve_cycles[k][SOLVE_PHASES], 1ULL);                    \
+  }
 #else
 #define CLK(...)
+#define SOLVE_MARK(i)
+#define SOLVE_CLOCKS_OUT(k)
 #endif
 
 // One cluster of CLUSTER blocks factors one matrix, one lower 8 x 8 tile per
@@ -952,12 +1031,15 @@ __global__ void chol_solve_smem_kernel(const float* l, const float* rhs, float* 
   rhs += static_cast<long long>(blockIdx.x) * r_sb;
   x += static_cast<long long>(blockIdx.x) * x_sb;
 
+  CLK(long long sclk[SOLVE_PHASES] = {}; long long slast = clock64();)
+
   for (int e = t; e < n * n; e += blockDim.x) {
     const int r = e / n, c = e - r * n;
     if (c <= r) a[tri(r, c)] = l[r * l_sr + c * l_sc];
   }
   float xt = (t < n) ? rhs[t * r_sn] : 0.0f;
   __syncthreads();
+  SOLVE_MARK(0)
 
   // forward: x[j] = x[j] / L[j][j]; x[t] -= L[t][j] x[j] for t > j
   for (int j = 0; j < n; ++j) {
@@ -968,6 +1050,7 @@ __global__ void chol_solve_smem_kernel(const float* l, const float* rhs, float* 
     __syncthreads();
     if (t > j && t < n) xt = fmaf(-a[tri(t, j)], slot[j & 1], xt);
   }
+  SOLVE_MARK(1)
   // back: x[j] = x[j] / L[j][j]; x[t] -= L[j][t] x[j] for t < j
   for (int j = n - 1; j >= 0; --j) {
     if (t == j) {
@@ -977,7 +1060,196 @@ __global__ void chol_solve_smem_kernel(const float* l, const float* rhs, float* 
     __syncthreads();
     if (t < j) xt = fmaf(-a[tri(j, t)], slot[j & 1], xt);
   }
+  SOLVE_MARK(2)
   if (t < n) x[t * x_sn] = xt;
+  SOLVE_MARK(3)
+  SOLVE_CLOCKS_OUT(0)
+}
+
+// Asynchronous copies from device memory into shared memory (cp.async): the
+// issuing thread waits for those it committed with copy_wait, and no
+// thread reads a destination before that and a barrier.  16 bytes (both
+// addresses 16-byte aligned; cached in L2 only) or 4.  smem_address: the
+// shared-memory address of p, as the copies take it.
+__device__ __forceinline__ unsigned smem_address(const float* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void copy_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               ::"r"(smem_address(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               ::"r"(smem_address(dst)), "l"(src) : "memory");
+}
+
+// close this thread's copies issued since the last commit into a group
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most `Pending` of the groups this thread committed are in
+// flight
+template <int Pending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(Pending) : "memory");
+}
+
+// The lower triangle of the 8 x 8 tile at s (row i at s + i * ld) from
+// shared memory; the entries above the diagonal, which no diagonal step
+// reads, are zeros.
+__device__ __forceinline__ void smem_tile(Tile& a, const float* s, int ld) {
+#pragma unroll
+  for (int i = 0; i < TILE; ++i)
+#pragma unroll
+    for (int k = 0; k < TILE; ++k) a[i][k] = k <= i ? s[i * ld + k] : 0.0f;
+}
+
+// Issue the copies of the streaming solve's step s into buf.  For s < nt - 1
+// the forward sweep's tile column p = s, rows 8 p ... n - 1, row r at buf +
+// 8 (r - 8 p); then the back sweep's tile row p = 2 nt - 2 - s, columns 0 ...
+// 8 p + 7, row 8 p + k at buf + k n8, its rows past the edge written as the
+// identity's.  Nothing above the diagonal is copied but the rest of a chunk
+// that starts on or below it.  `vec`: unit column stride, 16-byte aligned
+// rows, n % 4 == 0: 16-byte chunks, each wholly inside the matrix or past
+// its edge; otherwise element by element.  Warps 1, 2, ... copy, each
+// thread always the same half row or column of 8 (so its addresses step by
+// a constant), while thread 0 takes the diagonal step (warp 0 issuing its
+// share after that step lengthened every step's chain).
+__device__ __forceinline__ void stream_panel(float* buf, const float* l, int n, int nt,
+                                             int s, long long sr, long long sc,
+                                             bool vec) {
+  constexpr int CN = STREAM_THREADS - 32;  // copying threads: warps 1, 2, ...
+  const int ct = static_cast<int>(threadIdx.x) - 32;
+  if (ct < 0) return;
+  const int n8 = TILE * nt;
+  if (s < nt - 1) {
+    const int p = s, rows = n - TILE * p;
+    const float* lp = l + TILE * p * (sr + sc);  // L[8 p][8 p]
+    if (vec) {
+      const int h = (ct & 1) * 4;
+      for (int r = ct >> 1; r < rows; r += CN / 2)
+        if (h <= r) copy_async16(buf + TILE * r + h, lp + r * sr + h);
+    } else {
+      const int k = ct & 7;
+      for (int r = ct >> 3; r < rows; r += CN / 8)
+        if (k <= r) copy_async4(buf + TILE * r + k, lp + r * sr + k * sc);
+    }
+    return;
+  }
+  const int p = 2 * nt - 2 - s, k = ct & 7, r = TILE * p + k;
+  const float* lr = l + r * sr;  // row r
+  float* const d = buf + k * n8;
+  if (vec) {
+    for (int c = (ct >> 3) * 4; c < TILE * (p + 1); c += CN / 2) {
+      if (r >= n)
+        *reinterpret_cast<float4*>(d + c) = make_float4(r == c, r == c + 1, r == c + 2, r == c + 3);
+      else if (c <= r)
+        copy_async16(d + c, lr + c);
+    }
+  } else {
+    for (int c = ct >> 3; c < TILE * (p + 1); c += CN / 8) {
+      if (r >= n)
+        d[c] = r == c ? 1.0f : 0.0f;
+      else if (c <= r)
+        copy_async4(d + c, lr + c * sc);
+    }
+  }
+}
+
+// One block solves L L^T x = rhs for one matrix, streaming L through shared
+// memory a panel at a time (any n up to chol_max_n(); blockDim.x =
+// STREAM_THREADS, stream_smem_bytes(n) bytes of dynamic shared memory).  x
+// may alias rhs.  `vec` as stream_panel.
+__global__ void __launch_bounds__(STREAM_THREADS, STREAM_MIN_BLOCKS)
+    chol_solve_stream_kernel(const float* l, const float* rhs, float* x, int n,
+                             long long l_sr, long long l_sc, long long l_sb,
+                             long long r_sn, long long r_sb, long long x_sn,
+                             long long x_sb, int vec) {
+  extern __shared__ __align__(16) float ssmem[];
+  const int nt = tile_rows(n), n8 = TILE * nt;
+  float* const xs = ssmem;             // x, padded with zeros
+  float* const rcs = ssmem + n8;       // 1 / L[j][j], 1 past the edge
+  float* const ring = ssmem + 2 * n8;  // STREAM_BUFS panel buffers, TILE * n8 each
+  const int t = threadIdx.x;
+  l += static_cast<long long>(blockIdx.x) * l_sb;
+  rhs += static_cast<long long>(blockIdx.x) * r_sb;
+  x += static_cast<long long>(blockIdx.x) * x_sb;
+  CLK(long long sclk[SOLVE_PHASES] = {}; long long slast = clock64();)
+  // forward steps 0 ... nt - 2, then back steps from tile nt - 1 down to 0
+  const int steps = 2 * nt - 1;
+
+  stream_panel(ring, l, n, nt, 0, l_sr, l_sc, vec != 0);
+  copy_commit();
+  for (int j = t; j < n8; j += blockDim.x) {
+    xs[j] = j < n ? rhs[j * r_sn] : 0.0f;
+    rcs[j] = j < n ? 1.0f / l[j * (l_sr + l_sc)] : 1.0f;
+  }
+  SOLVE_MARK(0)
+
+  // Padded entries of x are +0 and stay so (in a lane whose x is finite);
+  // the forward updates skip them, and in the back updates a padded row's
+  // term, fma(-(+0), +0, v), leaves v as it is, bit for bit.
+  for (int s = 0; s < steps; ++s) {
+    const bool fwd = s < nt - 1;
+    const int p = fwd ? s : steps - 1 - s;
+    const float* pan = ring + (s % STREAM_BUFS) * TILE * n8;
+    // step s's panel has landed (each thread's copies), and every thread
+    // is done with step s - 1 (its buffer is free, x is up to date)
+    copy_wait<0>();
+    SOLVE_MARK(1)
+    __syncthreads();
+    SOLVE_MARK(2)
+    if (t == 0) {
+      Tile a;
+      if (fwd)
+        smem_tile(a, pan, TILE);
+      else
+        smem_tile(a, pan + TILE * p, n8);
+      bool rc_ok = true;
+#pragma unroll
+      for (int i = 0; i < TILE; ++i) rc_ok &= div_in_range(a[i][i]);
+      solve_diag(xs, rcs, a, rc_ok, p, fwd || p == nt - 1, !fwd, l, n, l_sr, l_sc);
+    }
+    SOLVE_MARK(3)
+    // the next step's panel, into the other buffer (warps 1, 2, ...)
+    if (s + 1 < steps)
+      stream_panel(ring + ((s + 1) % STREAM_BUFS) * TILE * n8, l, n, nt, s + 1, l_sr,
+                   l_sc, vec != 0);
+    copy_commit();
+    SOLVE_MARK(4)
+    if (s == steps - 1) break;
+    __syncthreads();
+    SOLVE_MARK(5)
+    float xp[TILE];
+    get8(xp, xs + TILE * p);
+    if (fwd) {
+      // x_r -= L[r][8 p + k] x_p[k], k = 0, 1, ..., for r >= 8 (p + 1)
+      for (int r = TILE * (p + 1) + t; r < n; r += blockDim.x) {
+        float lr[TILE];
+        get8(lr, pan + TILE * (r - TILE * p));
+        float v = xs[r];
+#pragma unroll
+        for (int k = 0; k < TILE; ++k) v = fmaf(-lr[k], xp[k], v);
+        xs[r] = v;
+      }
+    } else {
+      // x_c -= L[8 p + k][c] x_p[k], k = 7, 6, ..., for c < 8 p
+      for (int c = t; c < TILE * p; c += blockDim.x) {
+        float v = xs[c];
+#pragma unroll
+        for (int k = TILE - 1; k >= 0; --k) v = fmaf(-pan[k * n8 + c], xp[k], v);
+        xs[c] = v;
+      }
+    }
+    SOLVE_MARK(6)
+  }
+  __syncthreads();
+  for (int r = t; r < n; r += blockDim.x) x[r * x_sn] = xs[r];
+  SOLVE_MARK(7)
+  SOLVE_CLOCKS_OUT(1)
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
@@ -1079,6 +1351,20 @@ int launch_solve_smem(const float* l, const float* rhs, float* x, int n, int bat
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_solve_stream(const float* l, const float* rhs, float* x, int n, int batch,
+                        long long l_sr, long long l_sc, long long l_sb,
+                        long long r_sn, long long r_sb, long long x_sn,
+                        long long x_sb, cudaStream_t stream) {
+  const bool vec = vec_ok(n, l_sr, l_sc, l_sb, l, true);
+  const size_t smem = stream_smem_bytes(n) + CHOL_EXTRA_SMEM;
+  static int have[MAX_DEVICES] = {};
+  const cudaError_t err = ensure_smem(chol_solve_stream_kernel, have, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  chol_solve_stream_kernel<<<batch, STREAM_THREADS, smem, stream>>>(
+      l, rhs, x, n, l_sr, l_sc, l_sb, r_sn, r_sb, x_sn, x_sb, vec ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // What `kernel` is compiled to (registers, local bytes, static shared
 // bytes) and, launched at n as its entry point launches it (threads, dynamic
 // shared bytes), how many of its blocks an SM holds.
@@ -1118,14 +1404,14 @@ int chol_max_n() {
 }
 
 // Largest n chol_factor and chol_solve give their register-tile kernels;
-// above it, the cluster factor and the shared-memory solve.
+// above it, the cluster factor and the streaming solve.
 int chol_factor_tile_max_n() { return TILE_MAX_N; }
 
 // The kernel chol_factor launches at n: FACTOR_TILE or FACTOR_CLUSTER.
 int chol_factor_route(int n) { return n <= TILE_MAX_N ? FACTOR_TILE : FACTOR_CLUSTER; }
 
-// The kernel chol_solve launches at n: SOLVE_TILE or SOLVE_SHARED.
-int chol_solve_route(int n) { return n <= TILE_MAX_N ? SOLVE_TILE : SOLVE_SHARED; }
+// The kernel chol_solve launches at n: SOLVE_TILE or SOLVE_STREAM.
+int chol_solve_route(int n) { return n <= TILE_MAX_N ? SOLVE_TILE : SOLVE_STREAM; }
 
 // Factor `batch` matrices on `stream`.  Element (r, c) of matrix b is at
 // m[r * m_sr + c * m_sc + b * m_sb] (strides in elements); l likewise, and
@@ -1174,11 +1460,22 @@ int chol_solve(const float* l, const float* rhs, float* x, int n, int batch,
   if (chol_solve_route(n) == SOLVE_TILE)
     return launch_solve_tile(l, rhs, x, n, batch, l_sr, l_sc, l_sb, r_sn, r_sb,
                              x_sn, x_sb, st);
-  return launch_solve_smem(l, rhs, x, n, batch, l_sr, l_sc, l_sb, r_sn, r_sb,
-                           x_sn, x_sb, st);
+  return launch_solve_stream(l, rhs, x, n, batch, l_sr, l_sc, l_sb, r_sn, r_sb,
+                             x_sn, x_sb, st);
 }
 
-// chol_solve through the shared-memory kernel at any n (to compare the two
+// chol_solve through the streaming kernel at any n (to hold it to the tile
+// solve at n <= 248).
+int chol_solve_stream(const float* l, const float* rhs, float* x, int n, int batch,
+                      long long l_sr, long long l_sc, long long l_sb,
+                      long long r_sn, long long r_sb, long long x_sn,
+                      long long x_sb, void* stream) {
+  if (batch <= 0 || n <= 0) return 0;
+  return launch_solve_stream(l, rhs, x, n, batch, l_sr, l_sc, l_sb, r_sn, r_sb,
+                             x_sn, x_sb, static_cast<cudaStream_t>(stream));
+}
+
+// chol_solve through the shared-memory kernel at any n (to compare the
 // solve kernels on the same matrices).
 int chol_solve_shared(const float* l, const float* rhs, float* x, int n, int batch,
                       long long l_sr, long long l_sc, long long l_sb,
@@ -1196,7 +1493,7 @@ int chol_solve_shared(const float* l, const float* rhs, float* x, int n, int bat
 // (the cluster's size), and for the cluster factor the clusters the device
 // runs at once (cudaOccupancyMaxActiveClusters; 0 for the others).
 int chol_kernel_attributes(int kernel, int n, int* out) {
-  static int have[FACTOR_CLUSTER + 1][MAX_DEVICES] = {};
+  static int have[SOLVE_STREAM + 1][MAX_DEVICES] = {};
   switch (kernel) {
     case FACTOR_TILE:
       return attributes(chol_factor_kernel, tile_threads(n), CHOL_EXTRA_SMEM,
@@ -1225,6 +1522,9 @@ int chol_kernel_attributes(int kernel, int n, int* out) {
       out[7] = clusters;
       return 0;
     }
+    case SOLVE_STREAM:
+      return attributes(chol_solve_stream_kernel, STREAM_THREADS,
+                        stream_smem_bytes(n) + CHOL_EXTRA_SMEM, have[kernel], out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1250,6 +1550,21 @@ int chol_phase_cycles(unsigned long long* out) {
   if (err != cudaSuccess) return static_cast<int>(err);
   static const unsigned long long zero[CHOL_PHASES + 1] = {};
   return static_cast<int>(cudaMemcpyToSymbol(g_chol_cycles, zero, sizeof(zero)));
+}
+
+// The cycles by phase of thread 0 of the shared-memory solve (kernel =
+// SOLVE_SHARED) or of the streaming solve (SOLVE_STREAM) since the last call,
+// summed over the blocks, and the blocks (out[SOLVE_PHASES]); zeroes them.
+int chol_solve_phase_cycles(int kernel, unsigned long long* out) {
+  if (kernel != SOLVE_SHARED && kernel != SOLVE_STREAM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t off = (kernel == SOLVE_STREAM ? 1 : 0) * (SOLVE_PHASES + 1) *
+                     sizeof(unsigned long long);
+  const size_t size = (SOLVE_PHASES + 1) * sizeof(unsigned long long);
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_chol_solve_cycles, size, off);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static const unsigned long long zero[SOLVE_PHASES + 1] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(g_chol_solve_cycles, zero, size, off));
 }
 
 // The cluster factor's cycles by phase since the last call, summed over the

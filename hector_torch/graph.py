@@ -65,7 +65,7 @@ def kernel_counters():
     return ((fused_riccati, 'launches'), (fused_riccati, 'polish_launches'),
             (chol, 'factor_launches'), (chol, 'factor_shared_launches'),
             (chol, 'factor_cluster_launches'), (chol, 'solve_launches'),
-            (chol, 'solve_shared_launches'))
+            (chol, 'solve_shared_launches'), (chol, 'solve_stream_launches'))
 
 
 def leaves(tree):

@@ -20,20 +20,22 @@ per iteration.
 - Each kernel is chosen by n in the C entry point (:func:`route`): the
   factor and the solve on register tiles up to ``tile_max_n()`` (248; the
   interior point's n = 120); above it (up to 339; n = 288 at horizon 24)
-  the factor on register tiles over a cluster of two blocks, the solve on
-  the lower triangle in shared memory. :func:`factor_shared_cuda` and
-  :func:`solve_shared_cuda` launch the shared-memory kernels at any n, to
-  hold the others to them on the same matrices (the route no longer takes
-  the shared-triangle factor); :func:`factor_cluster_cuda` launches the
-  cluster factor at any n, to hold it to the tile kernel.
+  the factor on register tiles over a cluster of two blocks, the solve
+  streaming L through shared memory a panel at a time.
+  :func:`factor_shared_cuda` and :func:`solve_shared_cuda` launch the
+  shared-memory kernels, off the route, at any n, to hold the others to
+  them on the same matrices; :func:`factor_cluster_cuda` and
+  :func:`solve_stream_cuda` launch the cluster factor and the streaming
+  solve at any n, to hold them to the tile kernels.
 - :func:`cholesky_nnb_plain` and :func:`cholesky_solve_nnb_plain` are the
   textbook loops of the TPU kernels over the batch, in any float type.
 
 ``factor_launches`` and ``solve_launches`` count kernel launches (the plain
 versions never touch them); ``factor_shared_launches``,
-``factor_cluster_launches`` and ``solve_shared_launches`` count those of
-them that went to the shared-triangle factor, the cluster factor and the
-shared-memory solve.
+``factor_cluster_launches``, ``solve_shared_launches`` and
+``solve_stream_launches`` count those of them that went to the
+shared-triangle factor, the cluster factor, the shared-memory solve and the
+streaming solve.
 """
 
 from __future__ import annotations
@@ -52,13 +54,14 @@ NVCC_FLAGS = _nvcc.NVCC_FLAGS
 
 # the kernels of csrc/chol.cu, numbered as its KernelId
 KERNELS = ('factor_tile', 'factor_shared', 'solve_tile', 'solve_shared',
-           'factor_cluster')
+           'factor_cluster', 'solve_stream')
 
 factor_launches = 0     # launches of a factor kernel since import or reset
 factor_shared_launches = 0  # of which the shared-triangle factor kernel's
 factor_cluster_launches = 0  # of which the cluster factor kernel's
 solve_launches = 0      # launches of a solve kernel since import or reset
 solve_shared_launches = 0   # of which the shared-memory solve kernel's
+solve_stream_launches = 0   # of which the streaming solve kernel's
 build_info = {}         # ptxas report; nvcc command and seconds if built here
 _lib = None
 _max_n = None
@@ -138,7 +141,7 @@ def _load(so):
                lib.chol_factor_cluster):
         fn.argtypes = [ptr, ptr, i32, i32] + [i64] * 6 + [ptr]
         fn.restype = i32
-    for fn in (lib.chol_solve, lib.chol_solve_shared):
+    for fn in (lib.chol_solve, lib.chol_solve_shared, lib.chol_solve_stream):
         fn.argtypes = [ptr, ptr, ptr, i32, i32] + [i64] * 7 + [ptr]
         fn.restype = i32
     lib.chol_error_string.argtypes = [i32]
@@ -313,11 +316,21 @@ def _solve_launch(entry, l_bnn, rhs_bn, x_bn):
 def solve_cuda(l_bnn, rhs_bn, x_bn):
     """Launch the solve on (B, n, n) / (B, n) views: the kernel of
     ``route(n, 'solve')``."""
-    global solve_launches, solve_shared_launches
+    global solve_launches, solve_stream_launches
     n = _solve_launch('chol_solve', l_bnn, rhs_bn, x_bn)
     solve_launches += 1
-    solve_shared_launches += (KERNELS[_lib.chol_solve_route(n)]
-                              == 'solve_shared')
+    solve_stream_launches += (KERNELS[_lib.chol_solve_route(n)]
+                              == 'solve_stream')
+    return x_bn
+
+
+def solve_stream_cuda(l_bnn, rhs_bn, x_bn):
+    """Launch the streaming solve kernel at any n (at n <= ``tile_max_n()``
+    it computes what the tile kernel computes, bit for bit)."""
+    global solve_launches, solve_stream_launches
+    _solve_launch('chol_solve_stream', l_bnn, rhs_bn, x_bn)
+    solve_launches += 1
+    solve_stream_launches += 1
     return x_bn
 
 

@@ -6,9 +6,12 @@
 // cluster), __syncthreads is a std::barrier of the block, "bar.sync 1,
 // count" a counting barrier of the block, the cluster barrier a
 // std::barrier of the cluster's threads that a thread leaves when it
-// exits (barrier.cluster waits for the threads that have not exited), and
-// mapa the same offset in the partner block's dynamic shared memory.  It
-// checks indexing and ordering, not speed.
+// exits (barrier.cluster waits for the threads that have not exited), mapa
+// the same offset in the partner block's dynamic shared memory, and
+// cp.async a copy made when the issuing thread waits for its group, its
+// destination NaN from the issue until then (so a read before the wait, or
+// a copy into a buffer that is still being read, shows).  It checks
+// indexing and ordering, not speed.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -16,6 +19,7 @@
 #include <condition_variable>
 #include <cstddef>
 #include <cstring>
+#include <deque>
 #include <memory>
 #include <mutex>
 #include <thread>
@@ -119,12 +123,43 @@ inline thread_local std::barrier<>* host_cluster_barrier = nullptr;
 inline thread_local float* const* host_cluster_smem = nullptr;
 
 inline float* host_smem() { return host_block_smem; }
+inline size_t __cvta_generic_to_shared(const void* p) {
+  return reinterpret_cast<size_t>(p);
+}
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
 inline void host_cluster_sync() { host_cluster_barrier->arrive_and_wait(); }
 
 // mapa: the same offset in block `rank`'s dynamic shared memory
 inline float* host_map_shared(float* p, unsigned rank) {
   return host_cluster_smem[rank] + (p - host_block_smem);
+}
+
+// cp.async, commit_group, wait_group: each thread's copies since its last
+// commit, and its committed groups, oldest first
+struct HostCopy {
+  float* dst;
+  const float* src;
+  int bytes;
+};
+inline thread_local std::vector<HostCopy> host_copies_open;
+inline thread_local std::deque<std::vector<HostCopy>> host_copy_groups;
+
+inline void host_cp_async(float* dst, const float* src, int bytes) {
+  std::fill(dst, dst + bytes / sizeof(float), std::nanf(""));
+  host_copies_open.push_back({dst, src, bytes});
+}
+
+inline void host_cp_async_commit() {
+  host_copy_groups.push_back(std::move(host_copies_open));
+  host_copies_open.clear();
+}
+
+// make the copies of all but the `pending` newest groups
+inline void host_cp_async_wait(int pending) {
+  while (static_cast<int>(host_copy_groups.size()) > pending) {
+    for (const HostCopy& c : host_copy_groups.front()) std::memcpy(c.dst, c.src, c.bytes);
+    host_copy_groups.pop_front();
+  }
 }
 
 inline void host_bar_sync(int count) {
@@ -173,6 +208,9 @@ void host_run(Kernel kernel, int grid, int threads, size_t smem, int cluster,
           host_cluster_barrier = &cluster_bar;
           host_cluster_smem = smems.data();
           kernel(args...);
+          // a copy never waited for is never made
+          host_copies_open.clear();
+          host_copy_groups.clear();
           // an exited thread is waited for by neither barrier
           blocks[r].bar->arrive_and_drop();
           cluster_bar.arrive_and_drop();

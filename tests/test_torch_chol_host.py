@@ -5,9 +5,11 @@ the CPU.
 holds it to its plain versions.  Here g++ builds the same source against
 ``tests/host_cuda/cuda_runtime.h`` (threads of a block as std::threads,
 barriers as std::barrier, a cluster's blocks run together with one cluster
-barrier and each other's shared memory), so that the tile and cluster
-kernels' tile mapping, panel order, barrier counts, panel buffers, ragged
-edges, strides, aliasing and routes by n are checked on every run: against
+barrier and each other's shared memory, cp.async as a copy made at the
+issuing thread's wait, its destination NaN until then), so that the tile,
+cluster and streaming kernels' tile mapping, panel order, barrier counts,
+panel buffers and copies, ragged edges, strides, aliasing and routes by n
+are checked on every run: against
 ``chol.cholesky_nnb_plain`` and ``chol.cholesky_solve_nnb_plain`` lane by
 lane, and against the shared-memory kernels bit for bit (each pair takes the
 same FMAs in the same order; ``-ffp-contract=off`` keeps g++ from fusing any
@@ -83,7 +85,8 @@ TILE_MAX_N = 248
 def _host_source():
     """chol.cu with the device-only constructs rewritten for the stand-in:
     dynamic shared memory, the kernel launch, the counting barrier, the
-    cluster barrier and the map into the partner block's shared memory."""
+    cluster barrier, the map into the partner block's shared memory and the
+    asynchronous copies (16 and 4 bytes, commit, wait)."""
     src = chol.SOURCE.read_text()
     src = re.sub(r'extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];',
                  r'float* \1 = host_smem();', src)
@@ -96,7 +99,17 @@ def _host_source():
             ('asm volatile("barrier.cluster.arrive;\\n\\tbarrier.cluster.wait;" '
              '::: "memory");', 'host_cluster_sync();'),
             ('asm volatile("mapa.u64 %0, %1, %2;" : "=l"(r) : "l"(p), '
-             '"r"(rank));', 'r = host_map_shared(p, rank);')):
+             '"r"(rank));', 'r = host_map_shared(p, rank);'),
+            ('asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"\n'
+             '               ::"r"(smem_address(dst)), "l"(src) : "memory");',
+             'host_cp_async(dst, src, 16);'),
+            ('asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"\n'
+             '               ::"r"(smem_address(dst)), "l"(src) : "memory");',
+             'host_cp_async(dst, src, 4);'),
+            ('asm volatile("cp.async.commit_group;" ::: "memory");',
+             'host_cp_async_commit();'),
+            ('asm volatile("cp.async.wait_group %0;" ::"n"(Pending) : '
+             '"memory");', 'host_cp_async_wait(Pending);')):
         assert src.count(asm) == 1, asm
         src = src.replace(asm, host)
     assert ('asm volatile' not in src and 'asm(' not in src
@@ -122,7 +135,7 @@ def lib(tmp_path_factory):
                lib.chol_factor_cluster):
         fn.argtypes = [ptr, ptr, i32, i32] + [i64] * 6 + [ptr]
         fn.restype = i32
-    for fn in (lib.chol_solve, lib.chol_solve_shared):
+    for fn in (lib.chol_solve, lib.chol_solve_shared, lib.chol_solve_stream):
         fn.argtypes = [ptr, ptr, ptr, i32, i32] + [i64] * 7 + [ptr]
         fn.restype = i32
     for fn in (lib.chol_factor_tile_max_n, lib.chol_max_n):
@@ -261,23 +274,47 @@ def test_solve_matches_plain(lib):
     assert float(rel) <= 1e-4
 
 
-# 1 and 8: one tile; 7, 17, 117: ragged tile grids (the back sweep skips
-# the columns past the edge); 120: the interior point's n; 249: above the
-# register tiles, the shared-memory solve
-@pytest.mark.parametrize('n', [1, 7, 8, 17, 117, 120, 249])
-def test_solve_matches_plain_and_the_shared_kernel(lib, n):
-    """The solve against its plain version on every lane and against the
-    shared-memory solve bit for bit; the batch-minor views give the
-    (B, n, n) result bit for bit; x may alias rhs; a matrix with a zero
-    pivot goes non-finite alone."""
-    want = 'solve_tile' if n <= TILE_MAX_N else 'solve_shared'
-    assert chol.KERNELS[lib.chol_solve_route(n)] == want
-    bsz = 3
+def _solve_case(n):
+    """Seeded (B, n, n) factors (contiguous), right-hand sides, and the
+    factors with junk above the diagonal, which no solve may read; 3 lanes,
+    2 above the tile solve's n (the shared-memory solve is slow here)."""
+    bsz = 3 if n <= TILE_MAX_N else 2
     l_bnn = chol.cholesky_nnb_plain(
         _spd(bsz, n, seed=n + 1).permute(1, 2, 0)).permute(2, 0, 1)
     l_bnn = l_bnn.contiguous()
-    rhs = torch.tensor(np.random.default_rng(n).standard_normal((bsz, n)),
-                       dtype=torch.float32)
+    rng = np.random.default_rng(n)
+    rhs = torch.tensor(rng.standard_normal((bsz, n)), dtype=torch.float32)
+    junk = torch.tensor(np.triu(rng.standard_normal((bsz, n, n)), 1),
+                        dtype=torch.float32)
+    return l_bnn, rhs, l_bnn + 1e3 * junk
+
+
+def _edge(l_bnn, rhs):
+    """Factors and right-hand sides of four lanes: +0, -0, subnormal and
+    huge entries.  The fast divides of the tile and streaming solves take +0
+    and fall back to IEEE divides on the others (below 2^-60 and above
+    2^60); the signs of zeros count too."""
+    zero = torch.zeros(rhs.shape[1])
+    return (l_bnn[[0, 1, 0, 1]],
+            torch.stack([zero, -zero, rhs[0] * 1e-40, rhs[1] * 1e25]))
+
+
+# 1 and 8: one tile; 7, 17, 117: ragged tile grids (the back sweep skips
+# the columns past the edge); 120: the interior point's n; above the
+# register tiles, the streaming solve: 249 and 339 (the ceiling) element by
+# element, 252 and 300 (horizons 21 and 25, ragged tile grids) and 288
+# (horizon 24) in 16-byte copies
+@pytest.mark.parametrize('n', [1, 7, 8, 17, 117, 120, 249, 252, 288, 300,
+                               339])
+def test_solve_matches_plain_and_the_shared_kernel(lib, n):
+    """The solve against its plain version on every lane and against the
+    shared-memory solve bit for bit; the batch-minor views give the
+    (B, n, n) result bit for bit; x may alias rhs; junk above the diagonal
+    of L changes nothing; a matrix with a zero pivot goes non-finite
+    alone."""
+    want = 'solve_tile' if n <= TILE_MAX_N else 'solve_stream'
+    assert chol.KERNELS[lib.chol_solve_route(n)] == want
+    l_bnn, rhs, l_junk = _solve_case(n)
     x_k = _solve(lib.chol_solve, l_bnn, rhs, torch.full_like(rhs, np.nan))
     x_s = _solve(lib.chol_solve_shared, l_bnn, rhs,
                  torch.full_like(rhs, np.nan))
@@ -286,6 +323,8 @@ def test_solve_matches_plain_and_the_shared_kernel(lib, n):
     rel = (x_k - x_p).abs().amax(1) / x_p.abs().amax(1)
     assert float(rel.max()) <= SOLVE_TOL
     assert torch.equal(x_k.view(torch.int32), x_s.view(torch.int32))
+    x_j = _solve(lib.chol_solve, l_junk, rhs, torch.full_like(rhs, np.nan))
+    assert torch.equal(x_j.view(torch.int32), x_k.view(torch.int32))
     # (n, n, B) and (n, B) views: strided, element by element
     l_nnb = l_bnn.permute(1, 2, 0).contiguous()
     rhs_nb = rhs.t().contiguous()
@@ -298,17 +337,38 @@ def test_solve_matches_plain_and_the_shared_kernel(lib, n):
     bad = l_bnn.clone()
     bad[1, n // 2, n // 2] = 0.0
     x_bad = _solve(lib.chol_solve, bad, rhs, torch.empty_like(rhs))
+    others = [i for i in range(len(rhs)) if i != 1]
     assert not torch.isfinite(x_bad[1]).all()
-    assert torch.equal(x_bad[[0, 2]], x_k[[0, 2]])
-    # the register-tile solve's fast divides hold only in a range: +0 goes
-    # through them; -0, subnormal entries (where the fast quotient would be
-    # off) and entries above 2^60 take the IEEE divides; the signs of zeros
-    # count too
-    zero = torch.zeros(n)
-    for odd in (torch.stack([zero, -zero, rhs[2] * 1e-40]), rhs * 1e25):
-        x_k = _solve(lib.chol_solve, l_bnn, odd, torch.empty_like(odd))
-        x_s = _solve(lib.chol_solve_shared, l_bnn, odd, torch.empty_like(odd))
-        assert torch.equal(x_k.view(torch.int32), x_s.view(torch.int32))
+    assert torch.equal(x_bad[others], x_k[others])
+    l_e, odd = _edge(l_bnn, rhs)
+    x_k = _solve(lib.chol_solve, l_e, odd, torch.empty_like(odd))
+    x_s = _solve(lib.chol_solve_shared, l_e, odd, torch.empty_like(odd))
+    assert torch.equal(x_k.view(torch.int32), x_s.view(torch.int32))
+
+
+# the streaming solve below its route: one tile (no forward step, the
+# diagonal step forward and back at once), a ragged grid, the interior
+# point's n (16-byte copies)
+@pytest.mark.parametrize('n', [8, 117, 120])
+def test_stream_solve_is_the_tile_solve(lib, n):
+    l_bnn, rhs, l_junk = _solve_case(n)
+    l_e, odd = _edge(l_bnn, rhs)
+    for ell, ell_m, r in ((l_bnn, l_bnn, rhs), (l_bnn, l_junk, rhs),
+                          (l_e, l_e, odd)):
+        x_t = _solve(lib.chol_solve, ell, r, torch.full_like(r, np.nan))
+        x_m = _solve(lib.chol_solve_stream, ell_m, r, torch.full_like(r, np.nan))
+        assert torch.equal(x_m.view(torch.int32), x_t.view(torch.int32))
+
+
+def test_solve_route(lib):
+    # the tile solve up to 248, the streaming one above, up to chol_max_n();
+    # the shared-memory solve on no n
+    assert chol.KERNELS[lib.chol_solve_route(TILE_MAX_N)] == 'solve_tile'
+    assert chol.KERNELS[lib.chol_solve_route(TILE_MAX_N + 1)] == 'solve_stream'
+    assert all(chol.KERNELS[lib.chol_solve_route(n)] == 'solve_stream'
+               for n in range(TILE_MAX_N + 1, lib.chol_max_n() + 1))
+    assert all(chol.KERNELS[lib.chol_solve_route(n)] != 'solve_shared'
+               for n in range(1, lib.chol_max_n() + 1))
 
 
 def test_fast_divide_is_the_ieee_divide(lib):

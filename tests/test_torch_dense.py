@@ -294,8 +294,8 @@ def test_kernel_source_and_flags():
     assert '_chol_kernel' in src and '_solve_kernel' in src
     assert 'What bounds them on the card' in src
     # the register-tile factor and solve; above their n the cluster factor
-    # and the shared-memory solve; the shared-triangle factor off the route;
-    # the C entry points choose by n
+    # and the streaming solve; the shared-triangle factor and the
+    # shared-memory solve off the route; the C entry points choose by n
     assert ('__global__ void __launch_bounds__(TILE_MAX_THREADS, 1) '
             'chol_factor_kernel(') in src
     assert ('__global__ void __launch_bounds__(TILE_MAX_THREADS, 1) '
@@ -306,7 +306,9 @@ def test_kernel_source_and_flags():
     assert ('__global__ void __launch_bounds__(TILE_MAX_THREADS, 1) '
             'chol_solve_kernel(') in src
     assert '__global__ void chol_solve_smem_kernel' in src
-    assert 'return n <= TILE_MAX_N ? SOLVE_TILE : SOLVE_SHARED;' in src
+    assert ('__global__ void __launch_bounds__(STREAM_THREADS, '
+            'STREAM_MIN_BLOCKS)\n    chol_solve_stream_kernel(') in src
+    assert 'return n <= TILE_MAX_N ? SOLVE_TILE : SOLVE_STREAM;' in src
     assert 'extern "C"' in src
     for banned in ('cusolver', 'cublas', 'rsqrtf'):
         assert banned not in src.lower()
