@@ -88,12 +88,24 @@ Phases, one JSON line each:
               the robustness rollout, the 'kf' and 'filtered' loops and the
               tier-2 loop (GRAPH_PERIODS periods at 1,024 lanes) and the
               chained planning step (32,768 lanes, 16 steps; 4 with
-              polish_rounds=8): bit for bit, one launch a step of <false>
-              (<true> with the polish) replayed and eager, the replays run
-              under set_sync_debug_mode('error'), both timed, the capture's
-              seconds and its graph's nodes; then one torch.profiler trace
-              (hector_torch.io.profiling.trace) of 5 replayed tier-1
-              periods: the top device ops and the card's idle share;
+              polish_rounds=8), and the dense interior point: its period
+              under 'dense_auto' and 'xla' (GRAPH_PERIODS periods at 1,024
+              lanes) and 'pallas_interpret' (2 periods at 16 lanes), its
+              chained step (4,096 lanes, 8 steps), its horizon-24 batch
+              solve through pdip.make_solver (1,024 lanes) alone and inside
+              a step that is itself captured: bit for bit, the same
+              launches replayed and eager (one of <false> a step, <true>
+              with the polish; 15 factors and 29 solves a dense step or
+              period, at horizon 24 all on the cluster factor and the
+              streaming solve), one capture, the replays run under
+              set_sync_debug_mode('error'), both timed, the capture's
+              seconds, its graph's nodes, the peak device memory, and
+              whether what the Cholesky wrappers saw starts on 16 bytes
+              (the kernels' float4 test) in the capture and eager; then
+              torch.profiler traces (hector_torch.io.profiling.trace) of
+              5 replayed tier-1 periods, of the dense chained step's 8
+              replayed steps and of the replayed horizon-24 solve
+              (graph_trace): the top device ops and the card's idle share;
   chol        the Cholesky factor and solve kernels against their plain
               versions on the KKT matrices the dense interior point meets on
               closed-loop states (at its start and at iteration 5), at 4,096
@@ -119,16 +131,23 @@ Phases, one JSON line each:
               library, shared memory, tiles) at 4,096 lanes, beside the
               plain versions and torch.linalg.cholesky;
   dense       plan_step_fn with backend='dense_auto' at 4,096 lanes, 8
-              chained steps: 15 factor and 29 solve launches a step, forces
-              against the 'pallas_interpret' run and the fused Riccati run
-              on the same states;
-  dense_loop  make_rollout with backend='dense_auto', 40 periods at 256
-              lanes: no fall, no quarantine;
-  dense_long  mpc.solve with backend='dense_auto' at horizon 24 (n = 288)
-              at 1,024 lanes: 15 launches of the cluster factor (none of
-              the shared-triangle one), 29 of the streaming solve (none of
-              the shared-memory one; the first of 3 timed solves; the median
-              is the solve's time); the
+              chained steps through bench.make_chain (captured, replayed)
+              timed beside the eager chain and bit for bit it, with the
+              capture's seconds, nodes and peak memory: 15 factor and 29
+              solve launches a step in both, forces against the
+              'pallas_interpret' run and the fused Riccati run on the same
+              states;
+  dense_loop  make_rollout with backend='dense_auto', 40 periods at 1,024
+              lanes, one captured period replayed a period: 15 factor and
+              29 solve launches a period, no fall, no quarantine;
+  dense_long  the batch solve at horizon 24 (n = 288) at 1,024 lanes
+              through pdip.make_solver (captured, replayed) and mpc.solve
+              with backend='dense_auto' (eager), 3 of each in turns (the
+              first of each counted, the medians reported), bit for bit:
+              15 launches of the cluster factor (none of the
+              shared-triangle one), 29 of the streaming solve (none of the
+              shared-memory one) in both, the capture's seconds, nodes
+              and peak memory; the
               forces no further from a float64 solve of the same QPs than
               the 'pallas_interpret' run's plus 2e-2 N (at this n the two
               float32 runs differ by ~0.1 N, while the factor keeps to 1e-4
@@ -217,7 +236,7 @@ HBM_BYTES_PER_S = 3.35e12
 
 DENSE_BATCH = 4096    # the batch at which the dense path is stated (README)
 DENSE_CHAIN = 8
-DENSE_LOOP_BATCH = 256
+DENSE_LOOP_BATCH = 1024
 DENSE_LOOP_PERIODS = 40
 RAGGED_BATCH = 4099
 # max |L_k - L_p| over max |L_p|, lower triangle, on every lane
@@ -373,6 +392,8 @@ MULTIHOST_PERIODS = 20
 GRAPH_PERIODS = 20     # each captured loop against its eager run (graph)
 GRAPH_ROBUST_EVENTS = ROBUST_SHORT_EVENTS
 GRAPH_TRACE_PERIODS = 5
+GRAPH_SMALL_BATCH = 16   # the dense period under the plain versions (graph)
+GRAPH_SMALL_PERIODS = 2
 GRAPH_TOP_OPS = 12
 RUN_KEYS = ['mean_height', 'min_height', 'fallen_frac', 'qp_mu_max',
             'qp_r_dual_max', 'x_traveled']
@@ -529,18 +550,18 @@ def factor_vs_plain(l_k, m):
             float((d / scale.clamp(min=1e-30)).max()))
 
 
-CHOL_COUNTS = ('factor', 'factor_shared', 'factor_cluster', 'solve',
-               'solve_shared', 'solve_stream')
+def launch_counts():
+    """Every kernel wrapper's launch count that is not 0, by counter name
+    (graph.kernel_counters)."""
+    from hector_torch import graph
+    return {name: getattr(obj, name) for obj, name in graph.kernel_counters()
+            if getattr(obj, name)}
 
 
-def chol_counts(CH):
-    """The Cholesky wrappers' launch counts, by count name."""
-    return {k: getattr(CH, f'{k}_launches') for k in CHOL_COUNTS}
-
-
-def reset_chol_counts(CH):
-    for k in CHOL_COUNTS:
-        setattr(CH, f'{k}_launches', 0)
+def reset_launch_counts():
+    from hector_torch import graph
+    for obj, name in graph.kernel_counters():
+        setattr(obj, name, 0)
 
 
 def to_cpu(tree):
@@ -857,18 +878,16 @@ def riccati_phase(card, dev):
     every step within RICCATI_VS_FUSED_TOL of the fused kernel's."""
     from hector_torch import runtime as RT
     from hector_torch.config import DEFAULT_CONFIG as CFG
-    from hector_torch.qp import chol as CH
-    from hector_torch.qp import fused_riccati as FR
 
     plan = RT.plan_step_fn(CFG)
     carry, plant, cmd = scenarios(RICCATI_BATCH, 11, dev)
     plan_r = RT.plan_step_fn(with_solver(CFG, backend='riccati'))
     chain(plan_r, carry, plant, cmd, 1)             # warm-up, not counted
-    counts_before = (FR.launches, FR.polish_launches, chol_counts(CH))
+    reset_launch_counts()
     w_r = []
     total_ms, _ = cuda_timed(
         lambda: chain(plan_r, carry, plant, cmd, RICCATI_CHAIN, w_r))
-    r_counts = (FR.launches, FR.polish_launches, chol_counts(CH))
+    r_counts = launch_counts()
     riccati_step_ms = total_ms / RICCATI_CHAIN
     all_finite(riccati_wrench=torch.stack(w_r))
     # the same chained states through the fused kernel on the card, and the
@@ -888,15 +907,13 @@ def riccati_phase(card, dev):
     emit(dict(phase='riccati', batch=RICCATI_BATCH, chain=RICCATI_CHAIN,
               ms_per_step=riccati_step_ms,
               solves_per_s=RICCATI_BATCH / riccati_step_ms * 1e3,
-              kernel_launches=r_counts[0] - counts_before[0]
-              + r_counts[1] - counts_before[1],
-              cholesky_launches=r_counts[2],
+              launches=r_counts,
               max_abs_vs_cpu=d_cpu, max_abs_vs_fused_kernel=d_fused,
               cpu_auto_equals_riccati=auto_is_riccati,
               wrench_scale=float(w_r_cpu.abs().max()), card=card))
-    if r_counts != counts_before:
+    if r_counts:
         raise RuntimeError(f"'riccati' launched kernels of the port: "
-                           f'{counts_before} -> {r_counts}')
+                           f'{r_counts}')
     if not d_cpu <= STEP_TOL:
         raise RuntimeError(f"'riccati' on the card vs the CPU: {d_cpu} N > "
                            f'{STEP_TOL} N')
@@ -975,8 +992,6 @@ def robust_phase(card, dev):
     from hector_torch import runtime as RT
     from hector_torch.plant import srb
     from hector_torch.config import DEFAULT_CONFIG as CFG
-    from hector_torch.qp import chol as CH
-    from hector_torch.qp import fused_riccati as FR
 
     groups, cmd, dist, sched = robust_inputs(ROBUST_BATCH, ROBUST_PERIODS,
                                              ROBUST_EVENTS, dev)
@@ -985,23 +1000,20 @@ def robust_phase(card, dev):
     roll = RT.make_rollout(ROBUST_PERIODS, CFG, with_disturbance=True,
                            with_schedule=True)
     torch.cuda.synchronize()
-    FR.launches = FR.polish_launches = 0
-    reset_chol_counts(CH)
+    reset_launch_counts()
     t0 = time.perf_counter()
     carry, plant, diags = roll(carry, plant, cmd, dist, sched)
     torch.cuda.synchronize()
     robust_s = time.perf_counter() - t0
-    robust_launches = (FR.launches, FR.polish_launches, chol_counts(CH))
+    robust_launches = launch_counts()
     all_finite(robust_position=plant.position, robust_height=diags['height'])
     res, failed = robust_checks(groups, diags, plant, ROBUST_EVENTS)
     emit(dict(phase='robust', batch=ROBUST_BATCH, periods=ROBUST_PERIODS,
-              launches=robust_launches[0],
-              other_launches=[robust_launches[1], robust_launches[2]],
-              seconds=robust_s,
+              launches=robust_launches, seconds=robust_s,
               sim_s_per_wall_s=ROBUST_PERIODS * 5 * CFG.plant.dt / robust_s,
               capture_seconds=capture_seconds(roll.graphed),
               groups=res, failed=failed, card=card))
-    if robust_launches != (ROBUST_PERIODS, 0, dict.fromkeys(CHOL_COUNTS, 0)):
+    if robust_launches != {'launches': ROBUST_PERIODS}:
         raise RuntimeError(f'robust rollout launched {robust_launches}, '
                            f'expected {ROBUST_PERIODS} <false> and nothing '
                            f'else')
@@ -1118,19 +1130,17 @@ def timed_rollout(roll, carry, plant, cmd, periods, CFG):
     """One rollout on the card, host clock, synchronised: (carry, plant,
     diagnostics, seconds, simulated s per wall s, launches of <false>, of
     everything else)."""
-    from hector_torch.qp import chol as CH
-    from hector_torch.qp import fused_riccati as FR
     torch.cuda.synchronize()
-    FR.launches = FR.polish_launches = 0
-    reset_chol_counts(CH)
+    reset_launch_counts()
     t0 = time.perf_counter()
     carry, plant, diags = roll(carry, plant, cmd)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    others = FR.polish_launches + sum(chol_counts(CH).values())
+    counts = launch_counts()
+    launches = counts.pop('launches', 0)
     return (carry, plant, diags, sec,
             periods * CFG.mpc.mpc_cadence * CFG.plant.dt / sec,
-            FR.launches, others)
+            launches, sum(counts.values()))
 
 
 def check_launches(phase, launches, others, periods):
@@ -1344,19 +1354,17 @@ def run_cli(argv):
     import contextlib
     import io
     from hector_torch import cli
-    from hector_torch.qp import chol as CH
-    from hector_torch.qp import fused_riccati as FR
     buf = io.StringIO()
     torch.cuda.synchronize()
-    FR.launches = FR.polish_launches = 0
-    reset_chol_counts(CH)
+    reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rec = cli.main(argv)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    others = FR.polish_launches + sum(chol_counts(CH).values())
-    return rec, buf.getvalue(), sec, FR.launches, others
+    counts = launch_counts()
+    launches = counts.pop('launches', 0)
+    return rec, buf.getvalue(), sec, launches, sum(counts.values())
 
 
 def tree_to(tree, device=None, dtype=None):
@@ -1712,34 +1720,84 @@ def idle_share(events):
     return 1.0 - busy / span, span
 
 
+class WrapperPointers:
+    """Records whether each tensor the dense interior point hands the
+    Cholesky wrappers (and each they return) starts on 16 bytes, the
+    address test by which the tile and cluster kernels take their float4
+    path (chol.cu vec_ok), split by where the call ran: 'capture' (the
+    step being recorded) or 'eager' (a warm-up or an eager run)."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def _note(self, *tensors):
+        where = ('capture' if torch.cuda.is_current_stream_capturing()
+                 else 'eager')
+        for t in tensors:
+            key = (where, t.data_ptr() % 16 == 0)
+            self.seen[key] = self.seen.get(key, 0) + 1
+
+    def __enter__(self):
+        from hector_torch.qp import chol as CH
+        self.fns = factor_fn, solve_fn = CH.cholesky_bnn, CH.cholesky_solve_bnn
+
+        def factor(m):
+            ell = factor_fn(m)
+            self._note(m, ell)
+            return ell
+
+        def solve(ell, rhs):
+            x = solve_fn(ell, rhs)
+            self._note(ell, rhs, x)
+            return x
+
+        CH.cholesky_bnn, CH.cholesky_solve_bnn = factor, solve
+        return self
+
+    def __exit__(self, *exc):
+        from hector_torch.qp import chol as CH
+        CH.cholesky_bnn, CH.cholesky_solve_bnn = self.fns
+
+    def summary(self):
+        """{where: {'aligned16': n, 'not_aligned16': n}}."""
+        out = {}
+        for (where, ok), count in sorted(self.seen.items()):
+            out.setdefault(where, {})['aligned16' if ok else
+                                      'not_aligned16'] = count
+        return out
+
+
 def graph_case(name, steps, run_graph, run_eager, steps_per_call, unit_s,
                launches=None):
     """One captured path against its eager run on the card, same inputs:
     the graph's first call (warm-up, capture, replays), a second call
     under set_sync_debug_mode('error'), the eager run, each timed on the
-    host clock (synchronised), held bit for bit; launches of the second
-    call and of the eager run, (<false>, every other kernel) = ``launches``
-    (default: one <false> a step); the nodes of the captured step.  Emits
-    the record and returns it."""
-    from hector_torch.qp import chol as CH
-    from hector_torch.qp import fused_riccati as FR
+    host clock (synchronised), held bit for bit; the launches of the
+    second call and of the eager run (launch_counts) both ``launches``
+    (default: one <false> a step); the nodes of the captured step; the
+    peak device memory of the first call and of the eager run above what
+    was allocated before each; the
+    alignment of what the Cholesky wrappers saw (WrapperPointers).
+    Emits the record and returns it."""
 
     def timed(fn):
         torch.cuda.synchronize()
-        FR.launches = FR.polish_launches = 0
-        reset_chol_counts(CH)
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        return out, sec, (FR.launches, FR.polish_launches
-                          + sum(chol_counts(CH).values()))
+        return (out, sec, launch_counts(),
+                torch.cuda.max_memory_allocated() - held)
 
-    first, first_s, _ = timed(run_graph)
-    cap_s = capture_seconds(steps)
-    out_g, graph_s, graph_l = timed(
-        lambda: without_sync(f'{name} (graph replays)', run_graph))
-    out_e, eager_s, eager_l = timed(run_eager)
+    with WrapperPointers() as pointers:
+        first, first_s, _, peak = timed(run_graph)
+        cap_s = capture_seconds(steps)
+        out_g, graph_s, graph_l, _ = timed(
+            lambda: without_sync(f'{name} (graph replays)', run_graph))
+        out_e, eager_s, eager_l, eager_peak = timed(run_eager)
     (nodes,) = graph_nodes(steps)
     same = tree_equal(out_g, out_e) and tree_equal(first, out_g)
     rec = dict(phase='graph', path=name, steps=steps_per_call,
@@ -1747,7 +1805,9 @@ def graph_case(name, steps, run_graph, run_eager, steps_per_call, unit_s,
                first_call_seconds=first_s, graph_seconds=graph_s,
                eager_seconds=eager_s, graph_over_eager=eager_s / graph_s,
                graph_launches=graph_l, eager_launches=eager_l,
-               graph_nodes=nodes, bit_equal=same)
+               graph_nodes=nodes, peak_bytes=peak,
+               eager_peak_bytes=eager_peak,
+               cholesky_wrapper_pointers=pointers.summary(), bit_equal=same)
     if unit_s:
         rec.update(graph_sim_s_per_wall_s=steps_per_call * unit_s / graph_s,
                    eager_sim_s_per_wall_s=steps_per_call * unit_s / eager_s)
@@ -1755,23 +1815,63 @@ def graph_case(name, steps, run_graph, run_eager, steps_per_call, unit_s,
     if not same:
         raise RuntimeError(f'graph {name}: the replayed run is not bit for '
                            f'bit the eager run')
-    expected = launches or (steps_per_call, 0)
+    expected = {'launches': steps_per_call} if launches is None else launches
     if graph_l != eager_l or graph_l != expected:
         raise RuntimeError(f'graph {name}: launches {graph_l} replayed, '
                            f'{eager_l} eager, expected {expected}')
+    if len(steps.captures) != 1:
+        raise RuntimeError(f'graph {name}: {len(steps.captures)} captures '
+                           f'of one signature')
     return rec
+
+
+def trace_replays(card, path, batch, run, steps, rec, out):
+    """One torch.profiler trace (hector_torch.io.profiling.trace, into
+    ``out``) of ``run``, a warmed-up captured path of ``steps`` replayed
+    steps, beside ``rec``, the graph_case record of the same path (its
+    replays ran without the profiler): the device activities and time a
+    step, the card's idle share in the profiled span and against the
+    unprofiled wall time, the top device ops a step.  Emits the record."""
+    from hector_torch.io import profiling
+    run()
+    torch.cuda.synchronize()
+    with profiling.trace(str(out)) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    if not events:
+        raise RuntimeError(f'graph: the trace of replayed {path} holds no '
+                           f'device activity')
+    idle, span = idle_share(events)
+    by_name = {}
+    for name, _, d in events:
+        by_name[name] = by_name.get(name, 0.0) + d
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:GRAPH_TOP_OPS]
+    busy_ms = sum(by_name.values()) / 1e3 / steps
+    wall_ms = rec['graph_seconds'] * 1e3 / rec['steps']
+    emit(dict(phase='graph_trace', path=path, batch=batch, steps=steps,
+              device_events_per_step=len(events) / steps,
+              device_ms_per_step=busy_ms,
+              span_ms_per_step=span / 1e3 / steps, idle_share=idle,
+              unprofiled_wall_ms_per_step=wall_ms,
+              unprofiled_idle_share=1.0 - busy_ms / wall_ms,
+              top_ops_us_per_step=[(name, d / steps) for name, d in top],
+              trace=str(out / 'trace.json'), card=card))
 
 
 def graph_phase(card, dev, work):
     """Each captured path against its eager run on the card (graph_case):
     the tier-1 loop, the robustness rollout, the 'kf' and 'filtered' loops,
-    the tier-2 loop under the cheater, the chained planning step; then one
-    torch.profiler trace of replayed tier-1 periods through
-    hector_torch.io.profiling.trace: the top device ops and the card's
-    idle share."""
-    from hector_torch import bench, prng
+    the tier-2 loop under the cheater, the chained planning step (with and
+    without the polish); the dense interior point's period under
+    'dense_auto', 'xla' and 'pallas_interpret', its chained step, its
+    horizon-24 batch solve (pdip.make_solver) alone and inside a captured
+    step; torch.profiler traces of the dense step's and the solve's
+    replays and of replayed tier-1 periods (trace_replays)."""
+    from hector_torch import bench, graph, prng
+    from hector_torch import mpc as M
     from hector_torch import runtime as RT
-    from hector_torch.io import profiling
+    from hector_torch.qp import pdip as PD
     from hector_torch.plant import srb
     from hector_torch.plant import whole_body as WB
     from hector_torch.config import DEFAULT_CONFIG as CFG
@@ -1785,11 +1885,13 @@ def graph_phase(card, dev, work):
     walk = RT.walking_command(b, vx=0.5, device=dev)
     recs = []
 
-    def rollout_case(name, roll, plant, args, key=None):
+    def rollout_case(name, roll, plant, args, key=None, periods=n,
+                     launches=None):
         carry = roll.init(plant, key)
         recs.append(graph_case(
             name, roll.graphed, lambda: roll(carry, plant, *args),
-            lambda: roll.eager(carry, plant, *args), n, period_s))
+            lambda: roll.eager(carry, plant, *args), periods, period_s,
+            launches))
 
     plant = srb.init_plant_state(b, CFG, device=dev)
     rollout_case('loop', RT.make_rollout(n, CFG), plant, (mixed,))
@@ -1817,41 +1919,82 @@ def graph_phase(card, dev, work):
         'plan_step (polish)', chained_p,
         lambda: chained_p((carry, plant), cmd),
         lambda: chain(plan_p, carry, plant, cmd, POLISH_CHAIN)[:2],
-        POLISH_CHAIN, None, launches=(0, POLISH_CHAIN)))
+        POLISH_CHAIN, None, launches={'polish_launches': POLISH_CHAIN}))
+
+    # the dense interior point: a period under each of its backends (the
+    # kernels at 1,024 lanes, torch.linalg likewise, the plain versions at
+    # a few lanes: their loops make a period of some 50,000 nodes), the
+    # chained step, the horizon-24 batch solve and that solve inside a
+    # step that is itself captured
+    it = CFG.solver.iterations
+    dense_step = {'factor_launches': it + 1, 'solve_launches': 2 * it + 1}
+
+    def times(k, counts):
+        return {name: k * v for name, v in counts.items()}
+
+    dense = with_solver(CFG, backend='dense_auto')
+    plant = srb.init_plant_state(b, CFG, device=dev)
+    rollout_case('dense_loop (dense_auto)', RT.make_rollout(n, dense), plant,
+                 (mixed,), launches=times(n, dense_step))
+    rollout_case("dense_loop ('xla')",
+                 RT.make_rollout(n, with_solver(CFG, backend='xla')), plant,
+                 (mixed,), launches={})
+    small = GRAPH_SMALL_BATCH
+    rollout_case("dense_loop ('pallas_interpret')",
+                 RT.make_rollout(GRAPH_SMALL_PERIODS, with_solver(
+                     CFG, backend='pallas_interpret')),
+                 srb.init_plant_state(small, CFG, device=dev),
+                 (RT.walking_command(small, vx=0.5, device=dev),),
+                 periods=GRAPH_SMALL_PERIODS, launches={})
+
+    carry, plant, cmd = bench.initial_state(DENSE_BATCH, device=dev)
+    plan_d = RT.plan_step_fn(dense)
+    chained_d = bench.make_chain(plan_d, DENSE_CHAIN).steps
+    recs.append(graph_case(
+        'plan_step (dense)', chained_d, lambda: chained_d((carry, plant), cmd),
+        lambda: chain(plan_d, carry, plant, cmd, DENSE_CHAIN)[:2],
+        DENSE_CHAIN, None, launches=times(DENSE_CHAIN, dense_step)))
+    trace_replays(card, 'plan_step (dense)', DENSE_BATCH,
+                  lambda: chained_d((carry, plant), cmd), DENSE_CHAIN,
+                  recs[-1], work / 'trace_dense_step')
+    del carry, plant, cmd
+
+    long_cfg = dataclasses.replace(dense, mpc=dataclasses.replace(
+        CFG.mpc, horizon=LONG_HORIZON))
+    long_scfg = dataclasses.replace(long_cfg.solver, backend='auto')
+    qp_long = scenario_problem(LONG_BATCH, 10, dev, M.build_dense, long_cfg)
+    long_step = {**dense_step, 'factor_cluster_launches': it + 1,
+                 'solve_stream_launches': 2 * it + 1}
+    solver = PD.make_solver(long_scfg)
+    recs.append(graph_case(
+        'make_solver (h=24)', solver.steps, lambda: solver(qp_long),
+        lambda: M.solve(qp_long, long_cfg), 1, None, launches=long_step))
+    trace_replays(card, 'make_solver (h=24)', LONG_BATCH,
+                  lambda: solver(qp_long), 1, recs[-1],
+                  work / 'trace_dense_long')
+    # the solve captures a graph of its own in the outer step's warm-up
+    # and is solve_batched inside the outer recording
+    inner = PD.make_solver(long_scfg)
+    outer = graph.StepGraph(lambda state, qp, i: (state, inner(qp)), 1)
+    recs.append(graph_case(
+        'make_solver (h=24) inside a captured step', outer,
+        lambda: outer((), qp_long),
+        lambda: ((), PD.QPSolution(*[
+            x[:, None] for x in PD.solve_batched(qp_long, long_scfg)])),
+        1, None, launches=long_step))
+    if len(inner.steps.captures) != 1:
+        raise RuntimeError('graph: the solve inside a captured step made '
+                           f'{len(inner.steps.captures)} captures of its own')
+    del solver, inner, outer, qp_long
 
     # one trace of replayed tier-1 periods
     roll = RT.make_rollout(GRAPH_TRACE_PERIODS, CFG)
     plant = srb.init_plant_state(b, CFG, device=dev)
     carry = roll.init(plant)
-    roll(carry, plant, mixed)
-    torch.cuda.synchronize()
-    with profiling.trace(str(work / 'trace')) as prof:
-        roll(carry, plant, mixed)
-        torch.cuda.synchronize()
-    events = device_events(prof)
-    if not events:
-        raise RuntimeError('graph: the trace of replayed periods holds no '
-                           'device activity')
-    idle, span = idle_share(events)
-    by_name = {}
-    for name, _, d in events:
-        by_name[name] = by_name.get(name, 0.0) + d
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:GRAPH_TOP_OPS]
-    busy_ms = sum(by_name.values()) / 1e3 / GRAPH_TRACE_PERIODS
     # the loop case's replays ran without the profiler: its wall time a
     # period against the device time a period the trace shows
-    wall_ms = recs[0]['graph_seconds'] * 1e3 / recs[0]['steps']
-    emit(dict(phase='graph_trace', path='loop', batch=b,
-              periods=GRAPH_TRACE_PERIODS,
-              device_events_per_period=len(events) / GRAPH_TRACE_PERIODS,
-              device_ms_per_period=busy_ms,
-              span_ms_per_period=span / 1e3 / GRAPH_TRACE_PERIODS,
-              idle_share=idle,
-              unprofiled_wall_ms_per_period=wall_ms,
-              unprofiled_idle_share=1.0 - busy_ms / wall_ms,
-              top_ops_us_per_period=[
-                  (name, d / GRAPH_TRACE_PERIODS) for name, d in top],
-              trace=str(work / 'trace' / 'trace.json'), card=card))
+    trace_replays(card, 'loop', b, lambda: roll(carry, plant, mixed),
+                  GRAPH_TRACE_PERIODS, recs[0], work / 'trace')
     return recs
 
 
@@ -2012,17 +2155,15 @@ def main():
     chained = bench.make_chain(plan, MAIN_CHAIN).steps
     chained((carry, plant), cmd)        # warm-up and capture, not counted
     chain(plan, carry, plant, cmd, 2)   # eager warm-up, not counted
-    FR.launches = FR.polish_launches = 0
-    reset_chol_counts(CH)
+    reset_launch_counts()
     total_ms, ((c, p), _) = cuda_timed(
         lambda: chained((carry, plant), cmd))
     main_launches = FR.launches
     step_ms = total_ms / MAIN_CHAIN
-    if main_launches != MAIN_CHAIN:
-        raise RuntimeError(f'main path launched the warp kernel '
-                           f'{main_launches} times, expected {MAIN_CHAIN}')
-    if FR.polish_launches or sum(chol_counts(CH).values()):
-        raise RuntimeError('main path launched a kernel that is not its own')
+    if launch_counts() != {'launches': MAIN_CHAIN}:
+        raise RuntimeError(f'main path launched {launch_counts()}, expected '
+                           f'{MAIN_CHAIN} of the warp kernel and nothing '
+                           f'else')
     eager_ms, (c_e, p_e, wrench, motor) = cuda_timed(
         lambda: chain(plan, carry, plant, cmd, MAIN_CHAIN))
     eager_step_ms = eager_ms / MAIN_CHAIN
@@ -2368,32 +2509,41 @@ def main():
               card=card))
     del m_nnb, l_nnb, m_time, l_time, rhs_col
 
-    # ---- dense path: chained planning steps through the two kernels ----
+    # ---- dense path: chained planning steps through the two kernels,
+    # captured (bench.make_chain) and eager ----
     carry, plant, cmd = scenarios(DENSE_BATCH, 7, dev)
     plan_dense = RT.plan_step_fn(with_solver(CFG, backend='dense_auto'))
+    chained_dense = bench.make_chain(plan_dense, DENSE_CHAIN).steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    chained_dense((carry, plant), cmd)  # warm-up and capture, not counted
+    torch.cuda.synchronize()
+    dense_peak = torch.cuda.max_memory_allocated() - held
     chain(plan_dense, carry, plant, cmd, 1)         # warm-up, not counted
-    FR.launches = FR.polish_launches = 0
-    reset_chol_counts(CH)
-    w_dense = []
-    total_ms, (c, p, wrench, motor) = cuda_timed(
-        lambda: chain(plan_dense, carry, plant, cmd, DENSE_CHAIN, w_dense))
+    reset_launch_counts()
+    total_ms, ((c, p), _) = cuda_timed(
+        lambda: chained_dense((carry, plant), cmd))
+    dense_launches = launch_counts()
     dense_factor_launches = CH.factor_launches
-    dense_larger_n_launches = (CH.factor_shared_launches
-                               + CH.factor_cluster_launches
-                               + CH.solve_shared_launches
-                               + CH.solve_stream_launches)
     dense_solve_launches = CH.solve_launches
     dense_step_ms = total_ms / DENSE_CHAIN
-    want = (DENSE_CHAIN * (scfg.iterations + 1),
-            DENSE_CHAIN * (2 * scfg.iterations + 1))
-    if ((dense_factor_launches, dense_solve_launches) != want
-            or dense_larger_n_launches or FR.launches or FR.polish_launches):
+    reset_launch_counts()
+    w_dense = []
+    eager_ms, (c_e, p_e, wrench, motor) = cuda_timed(
+        lambda: chain(plan_dense, carry, plant, cmd, DENSE_CHAIN, w_dense))
+    dense_eager_launches = launch_counts()
+    dense_eager_step_ms = eager_ms / DENSE_CHAIN
+    want = {'factor_launches': DENSE_CHAIN * (scfg.iterations + 1),
+            'solve_launches': DENSE_CHAIN * (2 * scfg.iterations + 1)}
+    if dense_launches != want or dense_eager_launches != want:
         raise RuntimeError(
-            f'dense path launched factor/solve {dense_factor_launches}/'
-            f'{dense_solve_launches} times (the kernels for a larger n '
-            f'{dense_larger_n_launches} times, the Riccati kernel '
-            f'{FR.launches + FR.polish_launches} times), expected '
-            f'{want[0]}/{want[1]} (and 0, 0)')
+            f'dense path launched {dense_launches} captured and '
+            f'{dense_eager_launches} eager, expected {want} (the kernels '
+            f'for a larger n and the Riccati kernels not at all)')
+    if not tree_equal((c, p), (c_e, p_e)):
+        raise RuntimeError('dense path: the captured chain is not bit for '
+                           'bit the eager chain')
     all_finite(dense_wrench=torch.stack(w_dense), dense_tau=motor.tau,
                dense_f_ff=c.planner.f_ff, dense_position=p.position)
     # the same states through the plain versions and through the fused
@@ -2403,7 +2553,7 @@ def main():
           carry, plant, cmd, DENSE_CHAIN, w_interp)
     chain(plan, carry, plant, cmd, DENSE_CHAIN, w_riccati)
     torch.cuda.synchronize()
-    if (CH.factor_launches, CH.solve_launches) != want:
+    if (CH.factor_launches, CH.solve_launches) != tuple(want.values()):
         raise RuntimeError('the comparison runs launched Cholesky kernels')
     d_interp = float((torch.stack(w_dense) - torch.stack(w_interp)).abs().max())
     d_riccati = float((torch.stack(w_dense)
@@ -2411,10 +2561,13 @@ def main():
     kernels_ms = ((scfg.iterations + 1) * factor_ms
                   + (2 * scfg.iterations + 1) * solve_ms)
     emit(dict(phase='dense', batch=DENSE_BATCH, chain=DENSE_CHAIN,
-              factor_launches=dense_factor_launches,
-              larger_n_kernel_launches=dense_larger_n_launches,
-              solve_launches=dense_solve_launches,
+              launches=dense_launches, eager_launches=dense_eager_launches,
               ms_per_step=dense_step_ms,
+              eager_ms_per_step=dense_eager_step_ms,
+              graph_over_eager=dense_eager_step_ms / dense_step_ms,
+              capture_seconds=capture_seconds(chained_dense),
+              graph_nodes=graph_nodes(chained_dense)[0],
+              capture_peak_bytes=dense_peak,
               solves_per_s=DENSE_BATCH / dense_step_ms * 1e3,
               kernels_ms_per_step=kernels_ms,
               kernels_share_of_step=kernels_ms / dense_step_ms,
@@ -2429,7 +2582,9 @@ def main():
         raise RuntimeError(f'dense path vs fused Riccati: {d_riccati} N > '
                            f'{DENSE_VS_RICCATI_TOL} N')
 
-    # ---- dense closed loop ----
+    del chained_dense
+
+    # ---- dense closed loop, one captured period replayed a period ----
     half = DENSE_LOOP_BATCH // 2
     plant = srb.init_plant_state(DENSE_LOOP_BATCH, CFG, device=dev)
     carry = RT.init_controller_carry(plant, CFG)
@@ -2438,36 +2593,42 @@ def main():
     roll = RT.make_rollout(DENSE_LOOP_PERIODS,
                            with_solver(CFG, backend='dense_auto'))
     torch.cuda.synchronize()
-    CH.factor_launches = CH.solve_launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     carry, plant, diags = roll(carry, plant, cmd)
     torch.cuda.synchronize()
     dense_loop_s = time.perf_counter() - t0
+    dense_loop_launches = launch_counts()
     fallen = int(diags['fallen'].sum())
     quarantined = int(diags['quarantined'].sum())
     h = diags['height'].cpu().numpy()
     emit(dict(phase='dense_loop', batch=DENSE_LOOP_BATCH,
-              periods=DENSE_LOOP_PERIODS,
-              factor_launches=CH.factor_launches,
-              solve_launches=CH.solve_launches, seconds=dense_loop_s,
+              periods=DENSE_LOOP_PERIODS, launches=dense_loop_launches,
+              captures=len(roll.graphed.captures),
+              capture_seconds=capture_seconds(roll.graphed),
+              seconds=dense_loop_s,
+              sim_s_per_wall_s=(DENSE_LOOP_PERIODS * CFG.mpc.mpc_cadence
+                                * CFG.plant.dt / dense_loop_s),
               fallen_lane_periods=fallen,
               quarantined_lane_periods=quarantined,
               min_height=float(h.min()),
               max_qp_mu=float(diags['qp_mu'].max()),
               walk_x_final=float(plant.position[:half, 0].mean()),
               card=card))
-    want = (DENSE_LOOP_PERIODS * (scfg.iterations + 1),
-            DENSE_LOOP_PERIODS * (2 * scfg.iterations + 1))
-    if (CH.factor_launches, CH.solve_launches) != want:
-        raise RuntimeError(f'dense loop launched factor/solve '
-                           f'{CH.factor_launches}/{CH.solve_launches} times, '
-                           f'expected {want[0]}/{want[1]}')
+    want = {'factor_launches': DENSE_LOOP_PERIODS * (scfg.iterations + 1),
+            'solve_launches': DENSE_LOOP_PERIODS * (2 * scfg.iterations + 1)}
+    if dense_loop_launches != want:
+        raise RuntimeError(f'dense loop launched {dense_loop_launches}, '
+                           f'expected {want}')
+    if len(roll.graphed.captures) != 1:
+        raise RuntimeError('dense loop: the period was not captured once')
     if fallen or quarantined:
         raise RuntimeError('dense loop: lanes fell or were quarantined')
     all_finite(dense_loop_height=diags['height'],
                dense_loop_position=plant.position)
     if not h.min() > 0.4:
         raise RuntimeError('dense loop: a lane collapsed')
+    del roll
 
     # ---- dense path at a long horizon: the cluster factor, the streaming
     # solve ----
@@ -2478,22 +2639,51 @@ def main():
         with_solver(CFG, backend='dense_auto'),
         mpc=dataclasses.replace(CFG.mpc, horizon=LONG_HORIZON))
     qp_long = scenario_problem(LONG_BATCH, 10, dev, M.build_dense, long_cfg)
+    # the batch solve's compiled entry (JAX's make_solver), captured at its
+    # first call, beside the eager mpc.solve
+    solver_long = PD.make_solver(dataclasses.replace(long_cfg.solver,
+                                                     backend='auto'))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    solver_long(qp_long)                # warm-up and capture, not counted
+    torch.cuda.synchronize()
+    long_peak = torch.cuda.max_memory_allocated() - held
     M.solve(qp_long, long_cfg)                      # warm-up, not counted
-    FR.launches = FR.polish_launches = 0
-    reset_chol_counts(CH)
-    long_ms, sol_long = cuda_timed(lambda: M.solve(qp_long, long_cfg))
-    long_launches = chol_counts(CH)
-    # a solve is host-bound (eager small ops): the median of LONG_SOLVES
-    long_ms_turns = [long_ms] + [
-        cuda_timed(lambda: M.solve(qp_long, long_cfg))[0]
-        for _ in range(LONG_SOLVES - 1)]
+    # LONG_SOLVES of each in turns (captured, eager, eager, captured, ...);
+    # the first of each counted, the median reported
+    long_ms_turns, long_eager_ms_turns = [], []
+    long_launches = long_eager_launches = None
+    for k in range(2 * LONG_SOLVES):
+        eager = k % 4 in (1, 2)
+        reset_launch_counts()
+        ms, sol = cuda_timed(
+            (lambda: M.solve(qp_long, long_cfg)) if eager
+            else (lambda: solver_long(qp_long)))
+        if eager:
+            long_eager_ms_turns.append(ms)
+            long_eager_launches = long_eager_launches or launch_counts()
+            sol_long_eager = sol
+        else:
+            long_ms_turns.append(ms)
+            long_launches = long_launches or launch_counts()
+            sol_long = sol
     long_step_ms = sorted(long_ms_turns)[LONG_SOLVES // 2]
+    long_eager_step_ms = sorted(long_eager_ms_turns)[LONG_SOLVES // 2]
     it = scfg.iterations
-    want = dict(factor=it + 1, factor_shared=0, factor_cluster=it + 1,
-                solve=2 * it + 1, solve_shared=0, solve_stream=2 * it + 1)
-    if long_launches != want or FR.launches or FR.polish_launches:
+    want = dict(factor_launches=it + 1, factor_cluster_launches=it + 1,
+                solve_launches=2 * it + 1, solve_stream_launches=2 * it + 1)
+    if long_launches != want or long_eager_launches != want:
         raise RuntimeError(f'long-horizon dense solve launched '
-                           f'{long_launches}, expected {want}')
+                           f'{long_launches} captured and '
+                           f'{long_eager_launches} eager, expected {want}')
+    if not tree_equal(sol_long, sol_long_eager):
+        raise RuntimeError('long-horizon dense solve: the captured solve is '
+                           'not bit for bit mpc.solve')
+    long_captures = len(solver_long.steps.captures)
+    long_nodes = graph_nodes(solver_long.steps)[0]
+    long_capture_s = capture_seconds(solver_long.steps)
+    del solver_long, sol_long_eager
     sol_long_int = M.solve(qp_long, with_solver(long_cfg,
                                                 backend='pallas_interpret'))
     # the same QPs in float64 (torch.linalg): the answer both float32 runs
@@ -2577,8 +2767,14 @@ def main():
     long_s_bound = bound_ms(LONG_BATCH * CH.solve_bytes(n_long),
                             LONG_BATCH * sum(CH.solve_op_count(n_long).values()))
     emit(dict(phase='dense_long', batch=LONG_BATCH, horizon=LONG_HORIZON,
-              n=n_long, launches=long_launches, ms_per_solve=long_step_ms,
+              n=n_long, launches=long_launches,
+              eager_launches=long_eager_launches, ms_per_solve=long_step_ms,
               ms_per_solve_turns=long_ms_turns,
+              eager_ms_per_solve=long_eager_step_ms,
+              eager_ms_per_solve_turns=long_eager_ms_turns,
+              graph_over_eager=long_eager_step_ms / long_step_ms,
+              captures=long_captures, capture_seconds=long_capture_s,
+              graph_nodes=long_nodes, capture_peak_bytes=long_peak,
               max_abs_vs_pallas_interpret=d_long,
               max_abs_vs_f64=dict(kernels=d_long_f64,
                                   pallas_interpret=d_int_f64),
@@ -2733,7 +2929,7 @@ def main():
         dict(name='chol_factor_cluster', route='cuda',
              source='hector_torch/csrc/chol.cu',
              replaces='hector/qp/pallas_chol.py:48',
-             launches=long_launches['factor_cluster'],
+             launches=long_launches.get('factor_cluster_launches', 0),
              max_abs_err=cluster_err, ms=long_factor_ms,
              plain_ms=long_plain_ms, bound_ms=long_bound[0],
              bound_by=long_bound[1], library_ms=long_lib_ms),
@@ -2741,7 +2937,7 @@ def main():
         dict(name='chol_factor_shared', route='cuda',
              source='hector_torch/csrc/chol.cu',
              replaces='hector/qp/pallas_chol.py:48',
-             launches=long_launches['factor_shared'], max_abs_err=shared_err,
+             launches=long_launches.get('factor_shared_launches', 0), max_abs_err=shared_err,
              ms=long_shared_ms, plain_ms=long_plain_ms,
              bound_ms=long_bound[0], bound_by=long_bound[1],
              library_ms=long_lib_ms),
@@ -2754,7 +2950,7 @@ def main():
         dict(name='chol_solve_stream', route='cuda',
              source='hector_torch/csrc/chol.cu',
              replaces='hector/qp/pallas_chol.py:77',
-             launches=long_launches['solve_stream'],
+             launches=long_launches.get('solve_stream_launches', 0),
              max_abs_err=stream_err, ms=long_solve_ms,
              plain_ms=long_solve_plain_ms, bound_ms=long_s_bound[0],
              bound_by=long_s_bound[1], library_ms=long_solve_lib_ms),
@@ -2763,7 +2959,7 @@ def main():
         dict(name='chol_solve_shared', route='cuda',
              source='hector_torch/csrc/chol.cu',
              replaces='hector/qp/pallas_chol.py:77',
-             launches=long_launches['solve_shared'],
+             launches=long_launches.get('solve_shared_launches', 0),
              max_abs_err=solve_shared_err, ms=long_solve_shared_ms,
              plain_ms=long_solve_plain_ms, bound_ms=long_s_bound[0],
              bound_by=long_s_bound[1], library_ms=long_solve_lib_ms)]})

@@ -54,8 +54,9 @@ WARMUP = 2          # eager runs of the step on a side stream before capture
 # capture's set-up frees cached device memory, holds off the cyclic GC and
 # puts the counters back as they were, all process-wide, so threads that
 # drive cards of their own (a thread a card) capture in turns and lose no
-# count
-_LOCK = threading.Lock()
+# count.  Reentrant: a step may call another StepGraph (pdip.make_solver's
+# solve), which captures and replays in the outer capture's warm-up.
+_LOCK = threading.RLock()
 
 
 def kernel_counters():
@@ -135,7 +136,7 @@ class Capture:
 
     def __init__(self, step, n_steps, counters, state, inputs):
         self.step, self.n_steps, self.counters = step, n_steps, counters
-        self.device = leaves(state)[0].device
+        self.device = leaves((state, inputs))[0].device
         self.state = tree_map(torch.clone, state)
         self.inputs = tree_map(torch.clone, inputs)
         self.i = torch.zeros(1, dtype=torch.int64, device=self.device)

@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import constant
+from .. import constant, graph
 from ..config import SolverConfig
 from .builder import QPData
 from .fused_riccati import QPSolution
@@ -249,14 +249,31 @@ def solve_batched(qp: QPData, scfg: SolverConfig = SolverConfig()
 
 
 def make_solver(scfg: SolverConfig = SolverConfig()):
-    """``solve_batched`` with ``scfg`` bound: ``solver(qp) -> QPSolution``
-    on a batch-first ``QPData``.  An alias kept so that the port has the
-    JAX package's public names (JAX's ``make_solver``, pdip.py:264-285, is
-    the vmappable form); nothing in the port calls it."""
+    """``solve_batched`` with ``scfg`` bound, compiled: ``solver(qp) ->
+    QPSolution`` on a batch-first ``QPData`` (JAX's ``make_solver``,
+    pdip.py:264-285, is the form that runs under ``jit``).
+
+    The solve is a graph.StepGraph of one step (``solver.steps``): on the
+    card it is captured as a CUDA graph at the first call for the QP's
+    shapes, dtype and device and replayed by every later call; on the CPU
+    the same runner runs it eagerly on its buffers.  What it returns is a
+    copy that aliases no buffer of the runner.  Inside a capture (a step
+    that holds this solve being recorded) it is ``solve_batched`` itself:
+    captures do not nest, and the enclosing graph holds the solve."""
+
+    def step(state, qp, i):
+        return state, solve_batched(qp, scfg)
+
+    steps = graph.StepGraph(step, 1)
 
     def solver(qp: QPData) -> QPSolution:
-        return solve_batched(qp, scfg)
+        if (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            return solve_batched(qp, scfg)
+        _, sol = steps((), qp)
+        return QPSolution(*[x[:, 0] for x in sol])
 
+    solver.steps = steps
     return solver
 
 

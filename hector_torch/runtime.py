@@ -297,13 +297,16 @@ def _where_tree(cond, new, old):
 
 # The solver backends whose MPC period is captured as a CUDA graph and
 # replayed (graph.StepGraph, the counterpart of the reference's jax.jit over
-# its lax.scan), on the tier-1 and the tier-2 plant: the fused Riccati
-# solver, kernel or plain version.  Every other backend runs the eager loop
-# of periods, by this rule and on every device: the dense interior point
-# ('dense_auto', 'pallas', 'pallas_interpret', 'xla') has not been held to
-# its eager run under capture; the stage solver 'riccati' waits on the card
-# in its torch.cholesky_solve calls; 'qpoases' solves on the host.
-GRAPH_BACKENDS = M.RICCATI_BACKENDS
+# its lax.scan), on the tier-1 and the tier-2 plant, in every call form and
+# under every estimator: the fused Riccati solver and the dense interior
+# point, kernels or plain versions ('xla' included: its torch.linalg calls
+# capture on the card, where chip_smoke.py holds every one of these
+# backends' replays bit for bit to their eager runs).  The two others run
+# the eager loop of periods, by this rule and on every device: the stage
+# solver 'riccati' waits on the card in each of its torch.cholesky_solve
+# calls (a capture refuses a wait); 'qpoases' solves on the host, a lane at
+# a time, which a graph cannot hold.
+GRAPH_BACKENDS = M.RICCATI_BACKENDS + M.DENSE_BACKENDS
 
 
 def _rollout(n_periods, cfg, with_disturbance, estimator, with_schedule,
@@ -312,8 +315,8 @@ def _rollout(n_periods, cfg, with_disturbance, estimator, with_schedule,
     and ``plant_step(plant, motor_cmd, wrench, stance, push, terrain)``
     advances the plant one tick.  Returns the rollout in the call form the
     two switches select, with ``.init(plant, key=None)`` and ``.eager``, the
-    same call form run as a Python loop of periods (what a backend outside
-    GRAPH_BACKENDS runs)."""
+    same call form run as a Python loop of periods (what 'riccati' and
+    'qpoases', the backends outside GRAPH_BACKENDS, run)."""
     if estimator not in EST.KINDS:
         raise ValueError(f'unknown estimator kind {estimator!r}; expected '
                          f'{EST.KINDS}')

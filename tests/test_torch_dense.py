@@ -17,13 +17,15 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from hector import runtime as JRT
 from hector import srbd as jsrbd
 from hector.config import SolverConfig
 from hector.qp import pallas_chol as PC
 from hector.qp import pdip as jpdip
 from hector.qp.builder import build_qp as jbuild_qp
 
-from hector_torch import convert
+from hector_torch import convert, graph
+from hector_torch import runtime as TRT
 from hector_torch import srbd as tsrbd
 from hector_torch.qp import builder as tbuild
 from hector_torch.qp import chol
@@ -31,6 +33,9 @@ from hector_torch.qp import pdip as tpdip
 
 from .test_torch_fused_riccati import (
     CFG, GOLD, I_BODY, _closed_loop_inputs, _golden_inputs, _tcfg)
+from .test_torch_slice import (
+    JCFG, JIT_IK_TOL, TCFG, _jax_batch, _to_port, _with_solver,
+    assert_tree_close, todict)
 
 # the batches here are tiny; one intra-op thread per test worker keeps
 # parallel test workers from oversubscribing the CPU
@@ -401,3 +406,77 @@ def test_pdip_rejects_unknown_backend():
     with pytest.raises(ValueError, match='backend'):
         tpdip.solve_batched(_port_qp(_golden_inputs()),
                             _tcfg(backend='riccati'))
+
+
+# ------------------------------------------------ the compiled entry points
+
+def _bit_equal(a, b):
+    la, lb = graph.leaves(a), graph.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize('backend', ['auto', 'xla', 'pallas_interpret'])
+def test_make_solver_is_solve_batched_bit_for_bit(backend):
+    """pdip.make_solver on CPU tensors: the runner runs the solve eagerly on
+    its buffers, bit for bit solve_batched, twice over on the same buffers
+    (one capture entry for the QPs' shapes, dtype and device), and what it
+    returns aliases none of them."""
+    scfg = _tcfg(iterations=2, backend=backend)
+    qp = _port_qp(_closed_loop_inputs(4, seed=3), torch.float32)
+    qp2 = _port_qp(_closed_loop_inputs(4, seed=4), torch.float32)
+    solver = tpdip.make_solver(scfg)
+    first = solver(qp)
+    held = graph.tree_map(torch.clone, first)
+    assert type(first) is type(tpdip.solve_batched(qp, scfg))
+    assert _bit_equal(first, tpdip.solve_batched(qp, scfg))
+    assert _bit_equal(solver(qp2), tpdip.solve_batched(qp2, scfg))
+    assert len(solver.steps.captures) == 1
+    assert _bit_equal(first, held)
+    (cap,) = solver.steps.captures.values()
+    buffers = {t.untyped_storage().data_ptr()
+               for t in graph.leaves((cap.inputs, cap.outs))}
+    assert not buffers & {t.untyped_storage().data_ptr()
+                          for t in graph.leaves(first)}
+
+
+def test_make_solver_inside_a_capture_is_solve_batched(monkeypatch):
+    """While a CUDA stream records (a step that holds this solve being
+    captured), the solver is solve_batched itself and touches no runner:
+    captures do not nest.  Here the recording is simulated."""
+    scfg = _tcfg(iterations=2)
+    qp = _port_qp(_closed_loop_inputs(3, seed=5), torch.float32)
+    solver = tpdip.make_solver(scfg)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(torch.cuda, 'is_current_stream_capturing',
+                        lambda: True)
+    assert _bit_equal(solver(qp), tpdip.solve_batched(qp, scfg))
+    assert not solver.steps.captures
+
+
+# The port's runner against JAX's jax.jit of its lax.scan, float64, under
+# the same dense backend.  Measured differences after 2 periods: the
+# wrench 4e-12 (xla) and 7e-12 N (pallas_interpret), every state field
+# but the joints below 3e-15; the joints carry the jitted IK's 2.5e-7 rad
+# (JIT_IK_TOL) through the joint servo (qd = dq / 0.02 s): q 4.6e-9 rad,
+# qd 1.4e-6 rad/s, the bars test_torch_slice.py's rollout test holds them
+# to.
+@pytest.mark.parametrize('backend', ['xla', 'pallas_interpret'])
+def test_dense_rollout_runner_matches_jax_jit(backend):
+    carry, plant, cmd = _jax_batch(4, jnp.float64, seed=1)
+    t_carry, t_plant, t_cmd = _to_port(carry, plant, cmd, F64)
+    carry, plant, j_diags = JRT.make_rollout(
+        2, _with_solver(JCFG, backend=backend), batched=True)(
+            carry, plant, cmd)
+    roll = TRT.make_rollout(2, _with_solver(TCFG, backend=backend))
+    t_carry, t_plant, t_diags = roll(t_carry, t_plant, t_cmd)
+    assert len(roll.graphed.captures) == 1
+    j_diags = todict(j_diags)
+    t_diags = {k: v.numpy() for k, v in t_diags.items()}
+    assert float(np.abs(j_diags['wrench']).max()) > 10.0
+    joints = {'q': JIT_IK_TOL, 'qd': 1e-5}
+    assert_tree_close(j_diags, t_diags, 1e-9)
+    assert_tree_close(todict(plant), convert.to_numpy(t_plant), 1e-9,
+                      overrides=joints)
+    assert_tree_close(todict(carry), convert.to_numpy(t_carry), 1e-9)

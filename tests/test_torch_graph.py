@@ -9,7 +9,8 @@ chaining, the per-step input slots and the clones out.  The card holds the
 graph itself bit for bit against its eager run (``chip_smoke.py``, phase
 ``graph``).  The JAX-parity tests of the rollouts under
 ``'riccati_pallas'`` (tests/test_torch_slice.py, test_torch_robustness.py,
-test_torch_estimation.py) and the bench chain (test_torch_bench.py) run
+test_torch_estimation.py), under the dense backends
+(test_torch_dense.py) and the bench chain (test_torch_bench.py) run
 through the runner too.
 """
 
@@ -37,6 +38,10 @@ FS = dataclasses.replace(TCFG, solver=dataclasses.replace(
     TCFG.solver, backend='riccati_pallas'))
 FS_SHORT = dataclasses.replace(FS, solver=dataclasses.replace(
     FS.solver, iterations=2))
+# the dense interior point, likewise (on CPU tensors 'dense_auto' runs the
+# Cholesky kernels' plain versions through their wrappers)
+DENSE_SHORT = dataclasses.replace(TCFG, solver=dataclasses.replace(
+    TCFG.solver, backend='dense_auto', iterations=2))
 # ops that wait on the device or copy from the host: a Python value made a
 # tensor (torch.tensor), a tensor read as a Python value, a truth test, a
 # data-dependent shape
@@ -89,23 +94,31 @@ def _period_call(kind, cfg):
     return lambda: roll(carry, plant, cmd)
 
 
+PLAN_CFGS = {'plan_step': FS_SHORT,
+             'plan_step_polish': dataclasses.replace(
+                 FS_SHORT, solver=dataclasses.replace(
+                     FS_SHORT.solver, polish_rounds=1, polish_iters=1)),
+             'plan_step_dense': DENSE_SHORT}
+
+
 @pytest.mark.parametrize('kind', ['cheater', 'filtered', 'kf',
-                                  'pushed+scheduled', 'whole_body',
-                                  'plan_step', 'plan_step_polish'])
+                                  'pushed+scheduled', 'whole_body', 'dense',
+                                  'plan_step', 'plan_step_polish',
+                                  'plan_step_dense'])
 def test_a_warm_period_makes_no_host_round_trip(kind):
     """A warmed-up MPC period (a tier-1 rollout of each estimator kind, one
-    with a push and a schedule, a tier-2 rollout) and a planning step
-    (with and without the polish) dispatch no op that copies from the host
-    or waits on the device: what a CUDA graph cannot hold."""
-    if kind.startswith('plan_step'):
-        cfg = FS_SHORT if kind == 'plan_step' else dataclasses.replace(
-            FS_SHORT, solver=dataclasses.replace(
-                FS_SHORT.solver, polish_rounds=1, polish_iters=1))
+    with a push and a schedule, a tier-2 rollout, one on the dense interior
+    point) and a planning step (with and without the polish, and on the
+    dense interior point) dispatch no op that copies from the host or waits
+    on the device: what a CUDA graph cannot hold."""
+    if kind in PLAN_CFGS:
         carry, plant, cmd = bench.initial_state(B, device=CPU)
-        plan = TRT.plan_step_fn(cfg)
+        plan = TRT.plan_step_fn(PLAN_CFGS[kind])
 
         def call():
             return plan(carry, plant, cmd)
+    elif kind == 'dense':
+        call = _period_call('cheater', DENSE_SHORT)
     else:
         call = _period_call(kind, FS_SHORT)
     call()
@@ -170,21 +183,53 @@ def test_b_whole_body_runner_is_the_eager_loop_bit_for_bit():
                       roll.eager(carry, plant, *args))
 
 
-def test_b_bench_chain_is_the_eager_chain_bit_for_bit():
-    """bench.make_chain (the chained step through the runner) equals the
-    chain as a Python loop of plan_step_fn."""
-    carry, plant, cmd = bench.initial_state(B, torch.float64, CPU)
-    plan = TRT.plan_step_fn(FS)
+def _chain_bit_for_bit(cfg, dtype, n):
+    """bench.make_chain of plan_step_fn(cfg) against the chain as a Python
+    loop of the same planning step, n steps."""
+    carry, plant, cmd = bench.initial_state(B, dtype, CPU)
+    plan = TRT.plan_step_fn(cfg)
     key = prng.PRNGKey(4, CPU)
-    got = bench.make_chain(plan, 3)(key, carry, plant, cmd)
+    got = bench.make_chain(plan, n)(key, carry, plant, cmd)
     noise = 1e-6 * prng.uniform(key, plant.position.shape,
                                 plant.position.dtype)
     p = plant._replace(position=plant.position + noise)
     c = carry
-    for _ in range(3):
+    for _ in range(n):
         c, wrench, _ = plan(c, p, cmd)
         p = p._replace(position=p.position + 1e-9 * wrench[:, 0, :3])
     _assert_bit_equal(got, (p.position.sum() + c.planner.f_ff.sum(), c, p))
+
+
+def test_b_bench_chain_is_the_eager_chain_bit_for_bit():
+    """bench.make_chain (the chained step through the runner) equals the
+    chain as a Python loop of plan_step_fn."""
+    _chain_bit_for_bit(FS, torch.float64, 3)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32],
+                         ids=['f64', 'f32'])
+@pytest.mark.parametrize('backend', ['xla', 'pallas_interpret',
+                                     'dense_auto'])
+def test_b_dense_runner_is_the_eager_loop_bit_for_bit(backend, dtype):
+    """The dense interior point through the runner: a rollout with a push
+    and a schedule equals its eager loop of periods (twice over, one
+    capture), and bench.make_chain equals the Python chain, bit for bit,
+    under each dense backend (the plain versions of the Cholesky kernels
+    under 'dense_auto' on CPU tensors)."""
+    n = 2
+    cfg = dataclasses.replace(DENSE_SHORT, solver=dataclasses.replace(
+        DENSE_SHORT.solver, backend=backend))
+    plant = TSRB.init_plant_state(B, cfg, dtype=dtype, device=CPU)
+    roll = TRT.make_rollout(n, cfg, with_disturbance=True,
+                            with_schedule=True)
+    carry = roll.init(plant)
+    cmd = TRT.walking_command(B, vx=0.5, dtype=dtype, device=CPU)
+    args = _form_args((True, True), cmd, n, dtype)
+    want = roll.eager(carry, plant, *args)
+    _assert_bit_equal(roll(carry, plant, *args), want)
+    _assert_bit_equal(roll(carry, plant, *args), want)
+    assert len(roll.graphed.captures) == 1
+    _chain_bit_for_bit(cfg, dtype, 2)
 
 
 def test_c_outputs_do_not_alias_the_buffers():
@@ -264,13 +309,15 @@ def test_e_launches_are_counted_per_replay():
 
 def test_eager_backends_keep_the_loop():
     """The backends outside runtime.GRAPH_BACKENDS run the eager loop by
-    rule: a dense-backend rollout makes no capture."""
+    rule: a rollout on the stage solver 'riccati' makes no capture.  The
+    rule holds the fused solver and every dense backend."""
     cfg = dataclasses.replace(TCFG, solver=dataclasses.replace(
-        TCFG.solver, backend='xla', iterations=2))
+        TCFG.solver, backend='riccati', iterations=2))
     roll = TRT.make_rollout(1, cfg)
     plant = TSRB.init_plant_state(B, cfg, device=CPU)
     roll(roll.init(plant), plant, TRT.walking_command(B, device=CPU))
     assert not roll.graphed.captures
-    assert 'xla' not in TRT.GRAPH_BACKENDS
-    assert set(TRT.GRAPH_BACKENDS) == {'riccati_pallas',
-                                       'riccati_pallas_interpret'}
+    assert set(TRT.GRAPH_BACKENDS) == {
+        'riccati_pallas', 'riccati_pallas_interpret', 'dense_auto', 'pallas',
+        'pallas_interpret', 'xla'}
+    assert not {'riccati', 'qpoases'} & set(TRT.GRAPH_BACKENDS)
