@@ -28,11 +28,15 @@ Phases, one JSON line each:
               backend='riccati_pallas_interpret' (the plain solver on CUDA
               tensors: no kernel launch);
   riccati     plan_step_fn with backend='riccati' (the Mehrotra stage solver,
-              batched PyTorch ops) at 4,096 closed-loop lanes, 8 chained
-              steps, timed: no kernel of the port launched; the first step
-              within 1e-2 N of the CPU's 'riccati' step, which the CPU's
-              default 'auto' step equals bit for bit; every step within
-              5e-2 N of the fused kernel's;
+              batched PyTorch ops) at 4,096 closed-loop lanes: one eager
+              step, and one with polish_rounds=8, under
+              set_sync_debug_mode('error') (the solve waits on nothing); 8
+              chained steps through bench.make_chain (captured, replayed)
+              timed beside the eager chain and bit for bit it, with the
+              capture's seconds and nodes: no kernel of the port launched;
+              the first step within 1e-2 N of the CPU's 'riccati' step,
+              which the CPU's default 'auto' step equals bit for bit; every
+              step within 5e-2 N of the fused kernel's;
   main        runtime.plan_step_fn at 32,768 lanes, 16 chained steps as
               bench.py chains them, counting kernel launches: the chained
               step captured as a CUDA graph and replayed (bench.make_chain,
@@ -93,19 +97,26 @@ Phases, one JSON line each:
               lanes) and 'pallas_interpret' (2 periods at 16 lanes), its
               chained step (4,096 lanes, 8 steps), its horizon-24 batch
               solve through pdip.make_solver (1,024 lanes) alone and inside
-              a step that is itself captured: bit for bit, the same
-              launches replayed and eager (one of <false> a step, <true>
-              with the polish; 15 factors and 29 solves a dense step or
-              period, at horizon 24 all on the cluster factor and the
-              streaming solve), one capture, the replays run under
+              a step that is itself captured, and the stage solver
+              'riccati': its period (GRAPH_PERIODS periods at 1,024 lanes),
+              its chained step (4,096 lanes, 8 steps) and its horizon-24
+              batch solve through riccati.make_solver (1,024 lanes; its
+              largest force gaps to the float64 stage solver and to the
+              dense solve on the same scenarios recorded, graph_gaps): bit
+              for bit, the same launches replayed and eager (one of <false>
+              a step, <true> with the polish; 15 factors and 29 solves a
+              dense step or period, at horizon 24 all on the cluster factor
+              and the streaming solve; none under 'riccati'), one capture,
+              the replays run under
               set_sync_debug_mode('error'), both timed, the capture's
               seconds, its graph's nodes, the peak device memory, and
               whether what the Cholesky wrappers saw starts on 16 bytes
               (the kernels' float4 test) in the capture and eager; then
               torch.profiler traces (hector_torch.io.profiling.trace) of
-              5 replayed tier-1 periods, of the dense chained step's 8
-              replayed steps and of the replayed horizon-24 solve
-              (graph_trace): the top device ops and the card's idle share;
+              5 replayed tier-1 periods, of the dense and the stage
+              solver's chained steps (8 replayed steps each) and of the
+              replayed dense horizon-24 solve (graph_trace): the top device
+              ops and the card's idle share;
   chol        the Cholesky factor and solve kernels against their plain
               versions on the KKT matrices the dense interior point meets on
               closed-loop states (at its start and at iteration 5), at 4,096
@@ -872,24 +883,43 @@ def robust_checks(groups, diags, plant, events):
 
 def riccati_phase(card, dev):
     """The Mehrotra stage solver ('riccati') on the card: RICCATI_CHAIN
-    chained planning steps at RICCATI_BATCH closed-loop lanes, timed; no
-    kernel of the port launched; the first step within STEP_TOL of the CPU's
+    chained planning steps at RICCATI_BATCH closed-loop lanes through
+    bench.make_chain (captured, replayed), timed beside the eager chain and
+    bit for bit it; one eager step, and one with polish_rounds=8, under
+    set_sync_debug_mode('error') (the solve waits on nothing); no kernel of
+    the port launched; the first step within STEP_TOL of the CPU's
     'riccati' step, which the CPU's default 'auto' step equals bit for bit;
     every step within RICCATI_VS_FUSED_TOL of the fused kernel's."""
+    from hector_torch import bench
     from hector_torch import runtime as RT
     from hector_torch.config import DEFAULT_CONFIG as CFG
 
     plan = RT.plan_step_fn(CFG)
     carry, plant, cmd = scenarios(RICCATI_BATCH, 11, dev)
-    plan_r = RT.plan_step_fn(with_solver(CFG, backend='riccati'))
+    cfg_r = with_solver(CFG, backend='riccati')
+    plan_r = RT.plan_step_fn(cfg_r)
     chain(plan_r, carry, plant, cmd, 1)             # warm-up, not counted
+    # the proof that the solve waits on nothing: eager steps that would
+    # raise at any wait, with and without the polish
+    without_sync("'riccati' planning step", lambda: plan_r(carry, plant, cmd))
+    plan_rp = RT.plan_step_fn(with_solver(cfg_r, polish_rounds=POLISH_ROUNDS))
+    plan_rp(carry, plant, cmd)                      # warm-up
+    without_sync("'riccati' planning step (polish)",
+                 lambda: plan_rp(carry, plant, cmd))
+    chained = bench.make_chain(plan_r, RICCATI_CHAIN).steps
+    chained((carry, plant), cmd)        # warm-up and capture, not counted
+    reset_launch_counts()
+    total_ms, ((c, p), _) = cuda_timed(lambda: chained((carry, plant), cmd))
+    g_counts = launch_counts()
     reset_launch_counts()
     w_r = []
-    total_ms, _ = cuda_timed(
+    eager_ms, (c_e, p_e, _, _) = cuda_timed(
         lambda: chain(plan_r, carry, plant, cmd, RICCATI_CHAIN, w_r))
     r_counts = launch_counts()
     riccati_step_ms = total_ms / RICCATI_CHAIN
-    all_finite(riccati_wrench=torch.stack(w_r))
+    eager_step_ms = eager_ms / RICCATI_CHAIN
+    captured_is_eager = tree_equal((c, p), (c_e, p_e))
+    all_finite(riccati_wrench=torch.stack(w_r), riccati_f_ff=c.planner.f_ff)
     # the same chained states through the fused kernel on the card, and the
     # first step on the CPU under 'riccati' and under the default 'auto'
     w_f = []
@@ -905,15 +935,25 @@ def riccati_phase(card, dev):
     auto_is_riccati = bool(torch.equal(w_auto_cpu, w_r_cpu)
                            and torch.equal(m_auto_cpu.tau, m_r_cpu.tau))
     emit(dict(phase='riccati', batch=RICCATI_BATCH, chain=RICCATI_CHAIN,
-              ms_per_step=riccati_step_ms,
+              ms_per_step=riccati_step_ms, eager_ms_per_step=eager_step_ms,
+              graph_over_eager=eager_step_ms / riccati_step_ms,
               solves_per_s=RICCATI_BATCH / riccati_step_ms * 1e3,
-              launches=r_counts,
+              capture_seconds=capture_seconds(chained),
+              graph_nodes=graph_nodes(chained)[0],
+              captured_bit_equal_eager=captured_is_eager,
+              launches=r_counts, graph_launches=g_counts,
               max_abs_vs_cpu=d_cpu, max_abs_vs_fused_kernel=d_fused,
               cpu_auto_equals_riccati=auto_is_riccati,
               wrench_scale=float(w_r_cpu.abs().max()), card=card))
-    if r_counts:
+    if r_counts or g_counts:
         raise RuntimeError(f"'riccati' launched kernels of the port: "
-                           f'{r_counts}')
+                           f'{r_counts} eager, {g_counts} captured')
+    if not captured_is_eager:
+        raise RuntimeError("'riccati': the captured chain is not bit for bit "
+                           'the eager chain')
+    if len(chained.captures) != 1:
+        raise RuntimeError(f"'riccati': {len(chained.captures)} captures of "
+                           f'one signature')
     if not d_cpu <= STEP_TOL:
         raise RuntimeError(f"'riccati' on the card vs the CPU: {d_cpu} N > "
                            f'{STEP_TOL} N')
@@ -1866,12 +1906,16 @@ def graph_phase(card, dev, work):
     without the polish); the dense interior point's period under
     'dense_auto', 'xla' and 'pallas_interpret', its chained step, its
     horizon-24 batch solve (pdip.make_solver) alone and inside a captured
-    step; torch.profiler traces of the dense step's and the solve's
-    replays and of replayed tier-1 periods (trace_replays)."""
+    step; the stage solver 'riccati': its period, its chained step and its
+    horizon-24 batch solve (riccati.make_solver, with its gaps to the
+    float64 stage solver and to the dense solve); torch.profiler traces of
+    the dense and stage steps' and the dense solve's replays and of
+    replayed tier-1 periods (trace_replays)."""
     from hector_torch import bench, graph, prng
     from hector_torch import mpc as M
     from hector_torch import runtime as RT
     from hector_torch.qp import pdip as PD
+    from hector_torch.qp import riccati as TR
     from hector_torch.plant import srb
     from hector_torch.plant import whole_body as WB
     from hector_torch.config import DEFAULT_CONFIG as CFG
@@ -1946,6 +1990,11 @@ def graph_phase(card, dev, work):
                  srb.init_plant_state(small, CFG, device=dev),
                  (RT.walking_command(small, vx=0.5, device=dev),),
                  periods=GRAPH_SMALL_PERIODS, launches={})
+    # the Mehrotra stage solver: its period (torch.linalg calls, no kernel
+    # of the port)
+    stage = with_solver(CFG, backend='riccati')
+    rollout_case("riccati_loop ('riccati')", RT.make_rollout(n, stage),
+                 plant, (mixed,), launches={})
 
     carry, plant, cmd = bench.initial_state(DENSE_BATCH, device=dev)
     plan_d = RT.plan_step_fn(dense)
@@ -1957,12 +2006,24 @@ def graph_phase(card, dev, work):
     trace_replays(card, 'plan_step (dense)', DENSE_BATCH,
                   lambda: chained_d((carry, plant), cmd), DENSE_CHAIN,
                   recs[-1], work / 'trace_dense_step')
-    del carry, plant, cmd
+    carry, plant, cmd = bench.initial_state(RICCATI_BATCH, device=dev)
+    plan_r = RT.plan_step_fn(stage)
+    chained_r = bench.make_chain(plan_r, RICCATI_CHAIN).steps
+    recs.append(graph_case(
+        'plan_step (riccati)', chained_r,
+        lambda: chained_r((carry, plant), cmd),
+        lambda: chain(plan_r, carry, plant, cmd, RICCATI_CHAIN)[:2],
+        RICCATI_CHAIN, None, launches={}))
+    trace_replays(card, 'plan_step (riccati)', RICCATI_BATCH,
+                  lambda: chained_r((carry, plant), cmd), RICCATI_CHAIN,
+                  recs[-1], work / 'trace_riccati_step')
+    del carry, plant, cmd, chained_r
 
     long_cfg = dataclasses.replace(dense, mpc=dataclasses.replace(
         CFG.mpc, horizon=LONG_HORIZON))
     long_scfg = dataclasses.replace(long_cfg.solver, backend='auto')
-    qp_long = scenario_problem(LONG_BATCH, 10, dev, M.build_dense, long_cfg)
+    long_state = scenarios(LONG_BATCH, 10, dev)
+    qp_long = state_problem(*long_state, M.build_dense, long_cfg)
     long_step = {**dense_step, 'factor_cluster_launches': it + 1,
                  'solve_stream_launches': 2 * it + 1}
     solver = PD.make_solver(long_scfg)
@@ -1985,7 +2046,36 @@ def graph_phase(card, dev, work):
     if len(inner.steps.captures) != 1:
         raise RuntimeError('graph: the solve inside a captured step made '
                            f'{len(inner.steps.captures)} captures of its own')
+    u_dense = solver(qp_long).u
     del solver, inner, outer, qp_long
+
+    # the stage solver's horizon-24 batch solve (riccati.make_solver) on
+    # the same scenarios, and its gaps to the float64 stage solver and to
+    # the captured dense solve: records, not gates
+    long_r = with_solver(long_cfg, backend='riccati')
+    sqp_long = state_problem(*long_state, M.build_stage, long_r)
+    solver_r = TR.make_solver(long_r.solver)
+    recs.append(graph_case(
+        'make_solver (riccati, h=24)', solver_r.steps,
+        lambda: solver_r(sqp_long), lambda: M.solve(sqp_long, long_r), 1,
+        None, launches={}))
+    u_r = solver_r(sqp_long).u
+    u_64 = TR.solve_batched(TR.StageQPData(*[x.double() for x in sqp_long]),
+                            long_r.solver).u
+    all_finite(riccati_long_u=u_r, riccati_long_u64=u_64)
+
+    def gap(a, b):
+        d = (a.double() - b.double()).abs()
+        return float(d.max()), float(d[:, :12].max())
+
+    emit(dict(phase='graph_gaps', path='make_solver (riccati, h=24)',
+              batch=LONG_BATCH, horizon=LONG_HORIZON,
+              max_abs_u_vs_f64_stage=gap(u_r, u_64)[0],
+              max_abs_wrench_vs_f64_stage=gap(u_r, u_64)[1],
+              max_abs_u_vs_dense_captured=gap(u_r, u_dense)[0],
+              max_abs_wrench_vs_dense_captured=gap(u_r, u_dense)[1],
+              u_scale=float(u_64.abs().max()), card=card))
+    del solver_r, sqp_long, long_state, u_r, u_64, u_dense
 
     # one trace of replayed tier-1 periods
     roll = RT.make_rollout(GRAPH_TRACE_PERIODS, CFG)

@@ -22,10 +22,25 @@ residual, as in the JAX solver.  The JAX package computes this module in
 XLA, not in a Pallas kernel, so it runs as batched PyTorch ops on any
 device; the ``lax.scan`` sweeps are Python loops over the horizon.
 
-A lane whose Riccati matrix is not positive definite gets a NaN factor, as
-``jnp.linalg.cholesky`` returns it (``torch.linalg.cholesky`` would raise on
-a CPU tensor and synchronise on a CUDA one); the skip rule then keeps that
-lane's iterate and leaves its neighbours alone.
+Each stage's 12x12 linear algebra: ``jnp.linalg.cholesky`` is
+``torch.linalg.cholesky_ex``; JAX's ``jax.scipy.linalg.cho_solve`` (the
+gain K and the feed-forward, two triangular solves each) is here L^-1,
+formed once a stage and factor by one batched
+``torch.linalg.solve_triangular`` against I (:func:`_factor`), and two
+batched products a solve, L^-T (L^-1 rhs) (:func:`_cho_solve`).  It
+agrees with the two triangular solves to float32 rounding and ran ahead of
+them on an H100 (``profile_stage_solver.py`` times both in turns).  None
+of these calls waits on the card: the factor's status stays a device
+tensor, and the rest is cuBLAS's batched trsm and products
+(``torch.cholesky_solve`` would read a status on the host at every call).
+So a planning step under ``backend='riccati'`` is captured as a CUDA graph
+like the other backends' (``runtime.GRAPH_BACKENDS``), and
+:func:`make_solver` is the batch solve's compiled form.  A lane whose
+Riccati matrix is not positive definite gets a NaN factor, as
+``jnp.linalg.cholesky`` returns it (``torch.linalg.cholesky`` would raise
+on a CPU tensor and synchronise on a CUDA one); its L^-1 and its solves
+are NaN, and the skip rule then keeps that lane's iterate and leaves its
+neighbours alone.
 """
 
 from __future__ import annotations
@@ -34,7 +49,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import constant
+from .. import constant, graph
 from ..config import SolverConfig
 from .fused_riccati import QPSolution
 
@@ -72,6 +87,23 @@ def _cholesky(re):
     return torch.where((info == 0)[:, None, None], ell, float('nan'))
 
 
+def _factor(re):
+    """L^-1 for the lower Cholesky factor L of each lane's symmetrized
+    matrix (:func:`_cholesky`): one batched triangular solve against I;
+    NaN on a lane that is not positive definite."""
+    ell = _cholesky(re)
+    eye = torch.eye(ell.shape[-1], dtype=ell.dtype, device=ell.device)
+    return torch.linalg.solve_triangular(ell, eye.expand_as(ell),
+                                         upper=False)
+
+
+def _cho_solve(linv, rhs):
+    """(L L^T)^-1 rhs = L^-T (L^-1 rhs) from :func:`_factor`'s L^-1, as
+    ``jax.scipy.linalg.cho_solve`` computes it from L: (B, 12, 12) and
+    (B, 12, m)."""
+    return linv.transpose(-1, -2) @ (linv @ rhs)
+
+
 def solve_batched(sqp: StageQPData, scfg: SolverConfig = SolverConfig()
                   ) -> QPSolution:
     """Solve a batch of stage-form MPC QPs (leading batch dim on every field
@@ -91,6 +123,8 @@ def solve_batched(sqp: StageQPData, scfg: SolverConfig = SolverConfig()
     lb_c = torch.where(mask_l, lb, 0.0)
     ub_c = torch.where(mask_u, ub, 0.0)
 
+    # build_stage_qp hands the weights as device tensors (constant), so
+    # these copy nothing from the host
     q2 = (2.0 * torch.as_tensor(q_diag, dtype=dtype, device=dev)
           ).expand(bsz, 13)
     r2 = (2.0 * torch.as_tensor(r_diag, dtype=dtype, device=dev)
@@ -128,17 +162,17 @@ def solve_batched(sqp: StageQPData, scfg: SolverConfig = SolverConfig()
 
     def factor(d_row):
         """Backward Riccati sweep over barrier row weights d_row (B, h, 16):
-        per stage (L, K, G)."""
+        per stage (L^-1, K, G)."""
         cdc = torch.einsum('bki,bhk,bkj->bhij', c_blk, d_row, c_blk)
         rq = cdc + r2_mat[:, None]                        # (B, h, 12, 12)
         p = q2_mat
         fac = [None] * h
         for k in range(h - 1, -1, -1):
             bp = b_k[k].transpose(-1, -2) @ p              # B^T P  (12, 13)
-            ell = _cholesky(rq[:, k] + bp @ b_k[k])
+            linv = _factor(rq[:, k] + bp @ b_k[k])
             g = bp @ a                                     # (12, 13)
-            k_gain = torch.cholesky_solve(g, ell)
-            fac[k] = (ell, k_gain, g)
+            k_gain = _cho_solve(linv, g)
+            fac[k] = (linv, k_gain, g)
             if k > 0:                   # the P after stage 0 is never read
                 p = (q2_mat + (a.transpose(-1, -2) @ p) @ a
                      - g.transpose(-1, -2) @ k_gain)
@@ -152,9 +186,9 @@ def solve_batched(sqp: StageQPData, scfg: SolverConfig = SolverConfig()
         p_vec = q_lin[:, h - 1]
         kffs = [None] * h
         for k in range(h - 1, -1, -1):
-            ell, _, g = fac[k]
+            linv, _, g = fac[k]
             beta = r_lin[:, k] + _mtv(b_k[k], p_vec)
-            kffs[k] = torch.cholesky_solve(beta[..., None], ell)[..., 0]
+            kffs[k] = _cho_solve(linv, beta[..., None])[..., 0]
             if k > 0:
                 p_vec = (_mtv(a, p_vec) - _mtv(g, kffs[k])
                          + q_lin[:, k - 1])
@@ -362,12 +396,31 @@ def _polish(u, lam_l, lam_u, mask_l, mask_u, lb_c, ub_c, scfg, apply_c,
 
 
 def make_solver(scfg: SolverConfig = SolverConfig()):
-    """The batched solver as one callable ``solver(sqp) -> QPSolution``
-    (the JAX ``make_solver`` is its vmappable form)."""
+    """``solve_batched`` with ``scfg`` bound, compiled: ``solver(sqp) ->
+    QPSolution`` on a batch-first ``StageQPData`` (JAX's ``make_solver``,
+    riccati.py:425-446, is the form that runs under ``jit``).
+
+    The solve is a graph.StepGraph of one step (``solver.steps``): on the
+    card it is captured as a CUDA graph at the first call for the QP's
+    shapes, dtype and device and replayed by every later call; on the CPU
+    the same runner runs it eagerly on its buffers.  What it returns is a
+    copy that aliases no buffer of the runner.  Inside a capture (a step
+    that holds this solve being recorded) it is ``solve_batched`` itself:
+    captures do not nest, and the enclosing graph holds the solve."""
+
+    def step(state, sqp, i):
+        return state, solve_batched(sqp, scfg)
+
+    steps = graph.StepGraph(step, 1)
 
     def solver(sqp: StageQPData) -> QPSolution:
-        return solve_batched(sqp, scfg)
+        if (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            return solve_batched(sqp, scfg)
+        _, sol = steps((), sqp)
+        return QPSolution(*[x[:, 0] for x in sol])
 
+    solver.steps = steps
     return solver
 
 

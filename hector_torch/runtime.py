@@ -7,7 +7,8 @@ the 200 Hz cadence.  Every tensor carries the scenario batch as its leading
 dimension.  The reference jits a lax.scan over the periods; here one period
 is captured as a CUDA graph once per rollout object, batch size, dtype and
 device, and replayed once a period (graph.StepGraph), for the backends in
-GRAPH_BACKENDS; the others run the periods as a Python loop.
+GRAPH_BACKENDS (every backend but 'qpoases', which runs the periods as a
+Python loop).
 """
 
 from __future__ import annotations
@@ -298,15 +299,14 @@ def _where_tree(cond, new, old):
 # The solver backends whose MPC period is captured as a CUDA graph and
 # replayed (graph.StepGraph, the counterpart of the reference's jax.jit over
 # its lax.scan), on the tier-1 and the tier-2 plant, in every call form and
-# under every estimator: the fused Riccati solver and the dense interior
-# point, kernels or plain versions ('xla' included: its torch.linalg calls
-# capture on the card, where chip_smoke.py holds every one of these
-# backends' replays bit for bit to their eager runs).  The two others run
-# the eager loop of periods, by this rule and on every device: the stage
-# solver 'riccati' waits on the card in each of its torch.cholesky_solve
-# calls (a capture refuses a wait); 'qpoases' solves on the host, a lane at
-# a time, which a graph cannot hold.
-GRAPH_BACKENDS = M.RICCATI_BACKENDS + M.DENSE_BACKENDS
+# under every estimator: the fused Riccati solver, the Mehrotra stage solver
+# 'riccati' and the dense interior point, kernels or plain versions ('riccati'
+# and 'xla' included: their torch.linalg calls wait on nothing and capture on
+# the card, where chip_smoke.py holds every one of these backends' replays
+# bit for bit to their eager runs).  Only 'qpoases' runs the eager loop of
+# periods, by this rule and on every device: it solves on the host, a lane
+# at a time, which a graph cannot hold.
+GRAPH_BACKENDS = M.RICCATI_BACKENDS + M.STAGE_BACKENDS + M.DENSE_BACKENDS
 
 
 def _rollout(n_periods, cfg, with_disturbance, estimator, with_schedule,
@@ -315,8 +315,8 @@ def _rollout(n_periods, cfg, with_disturbance, estimator, with_schedule,
     and ``plant_step(plant, motor_cmd, wrench, stance, push, terrain)``
     advances the plant one tick.  Returns the rollout in the call form the
     two switches select, with ``.init(plant, key=None)`` and ``.eager``, the
-    same call form run as a Python loop of periods (what 'riccati' and
-    'qpoases', the backends outside GRAPH_BACKENDS, run)."""
+    same call form run as a Python loop of periods (what 'qpoases', the one
+    backend outside GRAPH_BACKENDS, runs)."""
     if estimator not in EST.KINDS:
         raise ValueError(f'unknown estimator kind {estimator!r}; expected '
                          f'{EST.KINDS}')

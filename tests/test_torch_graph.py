@@ -9,15 +9,17 @@ chaining, the per-step input slots and the clones out.  The card holds the
 graph itself bit for bit against its eager run (``chip_smoke.py``, phase
 ``graph``).  The JAX-parity tests of the rollouts under
 ``'riccati_pallas'`` (tests/test_torch_slice.py, test_torch_robustness.py,
-test_torch_estimation.py), under the dense backends
-(test_torch_dense.py) and the bench chain (test_torch_bench.py) run
-through the runner too.
+test_torch_estimation.py), under the stage solver ``'riccati'``
+(test_torch_slice.py, and every rollout of the CPU's default ``'auto'``),
+under the dense backends (test_torch_dense.py) and the bench chain
+(test_torch_bench.py) run through the runner too.
 """
 
 import collections
 import dataclasses
 import types
 
+import numpy as np
 import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -42,6 +44,9 @@ FS_SHORT = dataclasses.replace(FS, solver=dataclasses.replace(
 # Cholesky kernels' plain versions through their wrappers)
 DENSE_SHORT = dataclasses.replace(TCFG, solver=dataclasses.replace(
     TCFG.solver, backend='dense_auto', iterations=2))
+# the Mehrotra stage solver, likewise (batched torch.linalg calls)
+STAGE_SHORT = dataclasses.replace(TCFG, solver=dataclasses.replace(
+    TCFG.solver, backend='riccati', iterations=2))
 # ops that wait on the device or copy from the host: a Python value made a
 # tensor (torch.tensor), a tensor read as a Python value, a truth test, a
 # data-dependent shape
@@ -98,27 +103,34 @@ PLAN_CFGS = {'plan_step': FS_SHORT,
              'plan_step_polish': dataclasses.replace(
                  FS_SHORT, solver=dataclasses.replace(
                      FS_SHORT.solver, polish_rounds=1, polish_iters=1)),
-             'plan_step_dense': DENSE_SHORT}
+             'plan_step_dense': DENSE_SHORT,
+             'plan_step_stage': STAGE_SHORT,
+             'plan_step_stage_polish': dataclasses.replace(
+                 STAGE_SHORT, solver=dataclasses.replace(
+                     STAGE_SHORT.solver, polish_rounds=1, polish_iters=1))}
+PERIOD_CFGS = {'dense': DENSE_SHORT, 'stage': STAGE_SHORT}
 
 
 @pytest.mark.parametrize('kind', ['cheater', 'filtered', 'kf',
                                   'pushed+scheduled', 'whole_body', 'dense',
-                                  'plan_step', 'plan_step_polish',
-                                  'plan_step_dense'])
+                                  'stage', 'plan_step', 'plan_step_polish',
+                                  'plan_step_dense', 'plan_step_stage',
+                                  'plan_step_stage_polish'])
 def test_a_warm_period_makes_no_host_round_trip(kind):
     """A warmed-up MPC period (a tier-1 rollout of each estimator kind, one
     with a push and a schedule, a tier-2 rollout, one on the dense interior
-    point) and a planning step (with and without the polish, and on the
-    dense interior point) dispatch no op that copies from the host or waits
-    on the device: what a CUDA graph cannot hold."""
+    point, one on the stage solver) and a planning step (with and without
+    the polish, on the dense interior point, and on the stage solver with
+    and without its polish) dispatch no op that copies from the host or
+    waits on the device: what a CUDA graph cannot hold."""
     if kind in PLAN_CFGS:
         carry, plant, cmd = bench.initial_state(B, device=CPU)
         plan = TRT.plan_step_fn(PLAN_CFGS[kind])
 
         def call():
             return plan(carry, plant, cmd)
-    elif kind == 'dense':
-        call = _period_call('cheater', DENSE_SHORT)
+    elif kind in PERIOD_CFGS:
+        call = _period_call('cheater', PERIOD_CFGS[kind])
     else:
         call = _period_call(kind, FS_SHORT)
     call()
@@ -206,19 +218,11 @@ def test_b_bench_chain_is_the_eager_chain_bit_for_bit():
     _chain_bit_for_bit(FS, torch.float64, 3)
 
 
-@pytest.mark.parametrize('dtype', [torch.float64, torch.float32],
-                         ids=['f64', 'f32'])
-@pytest.mark.parametrize('backend', ['xla', 'pallas_interpret',
-                                     'dense_auto'])
-def test_b_dense_runner_is_the_eager_loop_bit_for_bit(backend, dtype):
-    """The dense interior point through the runner: a rollout with a push
-    and a schedule equals its eager loop of periods (twice over, one
-    capture), and bench.make_chain equals the Python chain, bit for bit,
-    under each dense backend (the plain versions of the Cholesky kernels
-    under 'dense_auto' on CPU tensors)."""
+def _runner_bit_for_bit(cfg, dtype):
+    """A rollout with a push and a schedule through the runner equals its
+    eager loop of periods (twice over, one capture), and bench.make_chain
+    equals the Python chain, bit for bit."""
     n = 2
-    cfg = dataclasses.replace(DENSE_SHORT, solver=dataclasses.replace(
-        DENSE_SHORT.solver, backend=backend))
     plant = TSRB.init_plant_state(B, cfg, dtype=dtype, device=CPU)
     roll = TRT.make_rollout(n, cfg, with_disturbance=True,
                             with_schedule=True)
@@ -230,6 +234,27 @@ def test_b_dense_runner_is_the_eager_loop_bit_for_bit(backend, dtype):
     _assert_bit_equal(roll(carry, plant, *args), want)
     assert len(roll.graphed.captures) == 1
     _chain_bit_for_bit(cfg, dtype, 2)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32],
+                         ids=['f64', 'f32'])
+@pytest.mark.parametrize('backend', ['xla', 'pallas_interpret',
+                                     'dense_auto'])
+def test_b_dense_runner_is_the_eager_loop_bit_for_bit(backend, dtype):
+    """The dense interior point through the runner (_runner_bit_for_bit),
+    under each dense backend (the plain versions of the Cholesky kernels
+    under 'dense_auto' on CPU tensors)."""
+    _runner_bit_for_bit(dataclasses.replace(
+        DENSE_SHORT, solver=dataclasses.replace(DENSE_SHORT.solver,
+                                                backend=backend)), dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32],
+                         ids=['f64', 'f32'])
+def test_b_stage_runner_is_the_eager_loop_bit_for_bit(dtype):
+    """The Mehrotra stage solver 'riccati' through the runner
+    (_runner_bit_for_bit)."""
+    _runner_bit_for_bit(STAGE_SHORT, dtype)
 
 
 def test_c_outputs_do_not_alias_the_buffers():
@@ -307,17 +332,29 @@ def test_e_launches_are_counted_per_replay():
     assert ns.count == 8
 
 
-def test_eager_backends_keep_the_loop():
-    """The backends outside runtime.GRAPH_BACKENDS run the eager loop by
-    rule: a rollout on the stage solver 'riccati' makes no capture.  The
-    rule holds the fused solver and every dense backend."""
+def test_eager_backends_keep_the_loop(monkeypatch):
+    """The one backend outside runtime.GRAPH_BACKENDS, 'qpoases' (a host
+    solve a lane), runs the eager loop by rule: its rollout makes no
+    capture (here with a stand-in for the library that plans zeros).  The
+    stage solver 'riccati' is in the rule: its rollout makes one capture
+    per batch size, dtype and device."""
+    from hector_torch import mpc as TM
+    from hector_torch.qp import ref_check
+    assert set(TRT.GRAPH_BACKENDS) == set(TM.BACKENDS) - {'auto', 'qpoases'}
+    assert 'riccati' in TRT.GRAPH_BACKENDS
+    roll = TRT.make_rollout(1, STAGE_SHORT)
+    for batch in (B, B, B + 1):
+        plant = TSRB.init_plant_state(batch, STAGE_SHORT, device=CPU)
+        roll(roll.init(plant), plant, TRT.walking_command(batch, device=CPU))
+    assert len(roll.graphed.captures) == 2
+    monkeypatch.setattr(ref_check, 'qpoases_available', lambda: True)
+    monkeypatch.setattr(ref_check, 'qpoases_solve_dense',
+                        lambda h, g, *args, **kw: np.zeros(len(g)))
     cfg = dataclasses.replace(TCFG, solver=dataclasses.replace(
-        TCFG.solver, backend='riccati', iterations=2))
+        TCFG.solver, backend='qpoases'))
     roll = TRT.make_rollout(1, cfg)
     plant = TSRB.init_plant_state(B, cfg, device=CPU)
-    roll(roll.init(plant), plant, TRT.walking_command(B, device=CPU))
+    _, _, diags = roll(roll.init(plant), plant,
+                       TRT.walking_command(B, device=CPU))
     assert not roll.graphed.captures
-    assert set(TRT.GRAPH_BACKENDS) == {
-        'riccati_pallas', 'riccati_pallas_interpret', 'dense_auto', 'pallas',
-        'pallas_interpret', 'xla'}
-    assert not {'riccati', 'qpoases'} & set(TRT.GRAPH_BACKENDS)
+    assert torch.equal(diags['wrench'], torch.zeros_like(diags['wrench']))

@@ -23,7 +23,7 @@ from hector.config import (DEFAULT_CONFIG as JCFG, MPCConfig,
 from hector.qp.builder import build_stage_qp
 from hector.qp import riccati
 
-from hector_torch import convert
+from hector_torch import convert, graph
 from hector_torch import runtime as TRT
 from hector_torch.config import (DEFAULT_CONFIG as TCFG,
                                  MPCConfig as TMPCConfig,
@@ -208,6 +208,70 @@ def test_single_problem_and_make_solver():
         assert one.u.shape == (120,) and one.mu.shape == ()
         np.testing.assert_allclose(one.u.numpy(), batched.u[k].numpy(),
                                    atol=1e-12, rtol=0)
+
+
+# ------------------------------------------------ the compiled entry point
+
+def _bit_equal(a, b):
+    la, lb = graph.leaves(a), graph.leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize('h', [10, 8])
+def test_make_solver_is_solve_batched_bit_for_bit(h):
+    """riccati.make_solver on CPU tensors: the runner runs the solve
+    eagerly on its buffers, bit for bit solve_batched, twice over on the
+    same buffers (one capture entry for the QPs' shapes, dtype and device),
+    and what it returns aliases none of them."""
+    scfg = _tcfg(iterations=3)
+    sqp = _port_sqp(_both_cases(), torch.float32, h)
+    sqp2 = sqp._replace(xd=sqp.xd + 0.01)
+    solver = TR.make_solver(scfg)
+    first = solver(sqp)
+    held = graph.tree_map(torch.clone, first)
+    assert type(first) is type(TR.solve_batched(sqp, scfg))
+    assert first.u.shape == (sqp.x0.shape[0], 12 * h)
+    assert _bit_equal(first, TR.solve_batched(sqp, scfg))
+    assert _bit_equal(solver(sqp2), TR.solve_batched(sqp2, scfg))
+    assert len(solver.steps.captures) == 1
+    assert _bit_equal(first, held)
+    (cap,) = solver.steps.captures.values()
+    buffers = {t.untyped_storage().data_ptr()
+               for t in graph.leaves((cap.inputs, cap.outs))}
+    assert not buffers & {t.untyped_storage().data_ptr()
+                          for t in graph.leaves(first)}
+
+
+def test_make_solver_inside_a_capture_is_solve_batched(monkeypatch):
+    """While a CUDA stream records (a step that holds this solve being
+    captured), the solver is solve_batched itself and touches no runner:
+    captures do not nest.  Here the recording is simulated."""
+    scfg = _tcfg(iterations=3)
+    sqp = _port_sqp(_both_cases(), torch.float32)
+    solver = TR.make_solver(scfg)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(torch.cuda, 'is_current_stream_capturing',
+                        lambda: True)
+    assert _bit_equal(solver(sqp), TR.solve_batched(sqp, scfg))
+    assert not solver.steps.captures
+
+
+@pytest.mark.parametrize('polish_rounds', [0, 8], ids=['ip', 'polish'])
+def test_solve_batched_waits_on_nothing(monkeypatch, polish_rounds):
+    """The CPU's proxy for a solve that never waits on the card: with
+    torch.cholesky_solve (which reads a status on the host) made to raise,
+    the solve runs, with and without the polish."""
+    def refuse(*args, **kw):
+        raise AssertionError('torch.cholesky_solve called')
+
+    sqp = _port_sqp(_both_cases(), torch.float64)
+    scfg = _tcfg(polish_rounds=polish_rounds)
+    monkeypatch.setattr(torch, 'cholesky_solve', refuse)
+    sol = TR.solve_batched(sqp, scfg)
+    assert float(sol.u.abs().max()) > 10.0
+    assert torch.isfinite(sol.u).all()
 
 
 def test_fused_solver_on_stage_data():

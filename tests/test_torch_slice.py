@@ -11,6 +11,7 @@ point under the same backend name, ``'xla'`` or ``'pallas_interpret'``.
 """
 
 import dataclasses
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -285,16 +286,33 @@ def test_solve_checks_its_problem_form(backend):
         TM.solve(wrong, cfg)
 
 
-def test_rollout_matches_jax_period_by_period():
-    n_periods = 4
-    carry, plant, cmd = _jax_batch(4, jnp.float64, seed=1)
+ROLLOUT_PERIODS = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_rollout():
+    """JAX's jax.jit rollout under 'riccati' with fixed sigma from
+    _jax_batch(4, float64, seed=1), compiled and run once for the module:
+    (the inputs, the final carry, plant and diagnostics as numpy trees)."""
+    inputs = _jax_batch(4, jnp.float64, seed=1)
+    carry, plant, diags = JRT.make_rollout(ROLLOUT_PERIODS, JCFG_FS,
+                                           batched=True)(*inputs)
+    return inputs, todict(carry), todict(plant), todict(diags)
+
+
+# the port's two counterparts of JCFG_FS: the fused solver (its plain
+# version here) and the stage solver with the same fixed centering
+@pytest.mark.parametrize('port_cfg', [
+    TCFG_FS, _with_solver(TCFG, backend='riccati', mehrotra=False)],
+    ids=['riccati_pallas', 'riccati'])
+def test_rollout_matches_jax_period_by_period(port_cfg):
+    n_periods = ROLLOUT_PERIODS
+    (carry, plant, cmd), j_carry, j_plant, j_diags = _jax_rollout()
     t_carry, t_plant, t_cmd = _to_port(carry, plant, cmd, torch.float64)
-    j_roll = JRT.make_rollout(n_periods, JCFG_FS, batched=True)
-    carry, plant, j_diags = j_roll(carry, plant, cmd)
-    t_carry, t_plant, t_diags = TRT.make_rollout(n_periods, TCFG_FS)(
-        t_carry, t_plant, t_cmd)
+    roll = TRT.make_rollout(n_periods, port_cfg)
+    t_carry, t_plant, t_diags = roll(t_carry, t_plant, t_cmd)
+    assert len(roll.graphed.captures) == 1
     t_diags = {k: v.numpy() for k, v in t_diags.items()}
-    j_diags = todict(j_diags)
     assert set(t_diags) == set(j_diags)
     # the jitted IK's 2.5e-7 rad (JIT_IK_TOL) reaches the plant through the
     # joint servo (qd = dq / 0.02 s): measured over 20 ticks, qd differs by
@@ -304,8 +322,8 @@ def test_rollout_matches_jax_period_by_period():
         assert_tree_close({n: v[:, k] for n, v in j_diags.items()},
                           {n: v[:, k] for n, v in t_diags.items()}, tol,
                           f'period {k}', over)
-    assert_tree_close(todict(plant), convert.to_numpy(t_plant), tol, '', over)
-    assert_tree_close(todict(carry), convert.to_numpy(t_carry), tol, '', over)
+    assert_tree_close(j_plant, convert.to_numpy(t_plant), tol, '', over)
+    assert_tree_close(j_carry, convert.to_numpy(t_carry), tol, '', over)
     assert not t_diags['fallen'].any()
 
 
