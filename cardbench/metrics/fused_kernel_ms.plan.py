@@ -1,0 +1,7 @@
+"""Device time of the fused Riccati kernel ``<false>`` a planning step
+(qp.fused_riccati, csrc/fused_riccati_warp.cu), from the trace."""
+from cardbench.yardstick import trace as T
+
+
+def read(ctx):
+    return T.per_unit_ms(ctx, T.FUSED_FALSE)
