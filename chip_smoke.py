@@ -3,14 +3,23 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each:
-  build       compile hector_torch/csrc/fused_riccati_warp.cu and chol.cu
-              for sm_90a (one nvcc each, both started together) and report
-              each kernel's registers, spills, shared memory and resident
-              warps an SM; no instantiation of the Riccati kernel and no
-              Cholesky kernel may use local memory, the Riccati kernel
+  build       compile hector_torch/csrc/fused_riccati_warp.cu, chol.cu and
+              srb_plant.cu for sm_90a (one nvcc each, all started together)
+              and report each kernel's registers, spills, shared memory and
+              resident warps an SM; no instantiation of the Riccati kernel
+              and no Cholesky kernel may use local memory, the plant kernel
+              may not spill (its precise trigonometry keeps a stack frame
+              for the slow argument reduction), the Riccati kernel
               without polish must keep to 128 registers and 16 warps an SM,
               the cluster factor to 128 registers, and the streaming solve
               must hold 8 blocks an SM at n = 288;
+  plant       the tier-1 plant kernel (srb_plant_step_kernel, one thread a
+              lane) against srb.step_plain on 16,384 seeded lanes with the
+              bars of tests/test_torch_plant_kernel.py, under the default
+              and another configuration (float64, float32, non-finite
+              masks); the kernel alone at 1,024 and 16,384 lanes from a
+              CUDA graph of 100 launches, beside the plain step and the
+              bytes a lane reads and writes at 3.35 TB/s;
   kernel      the Riccati kernel without polish (the fused interior point,
               one warp a scenario) against its plain PyTorch version on the
               same QPs
@@ -64,7 +73,8 @@ Phases, one JSON line each:
               periods (1.5 s) at 1,024 lanes in five groups (robust_inputs):
               each group's checks from tests/test_robustness.py and
               tests/test_fsm_transitions.py, 300 launches of the kernel
-              without polish and nothing else; the same rollout for 10
+              without polish, 1,500 of the plant kernel and nothing else;
+              the same rollout for 10
               periods at 16 lanes on the card and on the CPU under
               'riccati_pallas': every period's wrench within 1e-2 N, the
               final plant state within ROBUST_SHORT_STATE_TOL;
@@ -73,7 +83,8 @@ Phases, one JSON line each:
               EST_BATCH lanes walking at 0.5 m/s, each lane's noise keyed
               fold_in(PRNGKey(7), lane): the checks of
               tests/test_estimation.py:149-178, one launch of the kernel
-              without polish a period and nothing else, the tier-1 loop's
+              without polish a period, one of the plant kernel a tick and
+              nothing else, the tier-1 loop's
               speed; one est_update('kf') tick timed, and run under
               torch.cuda.set_sync_debug_mode('error'); the same rollout for
               10 periods at 16 lanes on the card and on the CPU under
@@ -180,7 +191,8 @@ Phases, one JSON line each:
   cli         the entry-point layer (hector_torch.cli, parallel, io):
               `batch` at 1,024 lanes for 1 s in this process (the sharded
               rollout on the one-card mesh: 200 launches of the kernel
-              without polish and nothing else, the metrics finite, the
+              without polish, 1,000 of the plant kernel and nothing else,
+              the metrics finite, the
               mean height in the band of tests/test_parallel.py, the JSONL
               line equal to the printed record, a checkpoint), the same
               command at 16 lanes on the card and on --device cpu
@@ -200,8 +212,9 @@ Phases, one JSON line each:
               rendezvous, world size 1, rank 0), make_batch at 1,024 lanes
               over its mesh and a 20-period sharded rollout, against the
               same run without a group: the group on NCCL and the mesh the
-              current card, 20 launches of the kernel without polish and
-              nothing else, both tensors all_reduce sees on that card (the
+              current card, 20 launches of the kernel without polish, 100
+              of the plant kernel and nothing else, both tensors all_reduce
+              sees on that card (the
               rank's own, not another rank's), the metrics and the final
               plant state bit for bit (a one-rank reduction is exact);
 then the kernels line, the card's name and power limit, and the result
@@ -210,6 +223,7 @@ printed.  Needs one CUDA device; imports nothing of JAX or of hector/.
 """
 
 import dataclasses
+import importlib.util
 import json
 import math
 import subprocess
@@ -594,6 +608,8 @@ def chain(plan, carry, plant, cmd, n, wrenches=None):
 
 
 KERNEL_NAMES = (('fused_riccati_warp_kernelILb0E', 'fused_riccati'),
+                ('srb_plant_step_kernelIfE', 'srb_plant'),
+                ('srb_plant_step_kernelIdE', 'srb_plant_f64'),
                 ('fused_riccati_warp_kernelILb1E', 'fused_riccati_polish'),
                 ('chol_factor_kernel', 'chol_factor'),
                 ('chol_factor_smem_kernel', 'chol_factor_shared'),
@@ -1026,8 +1042,9 @@ def stage_entry_phase(main_state, card):
 def robust_phase(card, dev):
     """make_rollout with pushes and a command/mode schedule on the card
     (robust_inputs, robust_checks), ROBUST_PERIODS at ROBUST_BATCH lanes
-    under the default config: ROBUST_PERIODS launches of <false> and
-    nothing else; then the same rollout, short, on the card and on the CPU
+    under the default config: ROBUST_PERIODS launches of <false>, five of
+    the plant kernel a period and nothing else; then the same rollout,
+    short, on the card and on the CPU
     under 'riccati_pallas'."""
     from hector_torch import runtime as RT
     from hector_torch.plant import srb
@@ -1053,9 +1070,11 @@ def robust_phase(card, dev):
               sim_s_per_wall_s=ROBUST_PERIODS * 5 * CFG.plant.dt / robust_s,
               capture_seconds=capture_seconds(roll.graphed),
               groups=res, failed=failed, card=card))
-    if robust_launches != {'launches': ROBUST_PERIODS}:
+    if robust_launches != {'launches': ROBUST_PERIODS,
+                           'plant_launches': 5 * ROBUST_PERIODS}:
         raise RuntimeError(f'robust rollout launched {robust_launches}, '
-                           f'expected {ROBUST_PERIODS} <false> and nothing '
+                           f'expected {ROBUST_PERIODS} <false>, '
+                           f'{5 * ROBUST_PERIODS} plant steps and nothing '
                            f'else')
     if failed:
         raise RuntimeError(f'robust rollout: groups {failed} failed their '
@@ -1168,8 +1187,8 @@ def card_vs_cpu(phase, make, periods, batch, keys_seed, make_plant,
 
 def timed_rollout(roll, carry, plant, cmd, periods, CFG):
     """One rollout on the card, host clock, synchronised: (carry, plant,
-    diagnostics, seconds, simulated s per wall s, launches of <false>, of
-    everything else)."""
+    diagnostics, seconds, simulated s per wall s, launches of <false>, the
+    other counters that moved)."""
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -1180,14 +1199,124 @@ def timed_rollout(roll, carry, plant, cmd, periods, CFG):
     launches = counts.pop('launches', 0)
     return (carry, plant, diags, sec,
             periods * CFG.mpc.mpc_cadence * CFG.plant.dt / sec,
-            launches, sum(counts.values()))
+            launches, counts)
 
 
-def check_launches(phase, launches, others, periods):
-    if (launches, others) != (periods, 0):
+PLANT_CHECK_BATCH = 16384   # lanes of the plant kernel's checks
+PLANT_TIME_BATCHES = (1024, 16384)
+PLANT_GRAPH_LAUNCHES = 100  # plant kernel launches in the timed graph
+
+
+def plant_test_module():
+    """tests/test_torch_plant_kernel.py (it imports no JAX): the seeded
+    batches and the checks the plant phase holds the kernel to."""
+    path = Path(__file__).resolve().parent / 'tests' / \
+        'test_torch_plant_kernel.py'
+    spec = importlib.util.spec_from_file_location('plant_kernel_tests', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def graph_ms(fn, launches, reps=5):
+    """Device milliseconds a call of fn() takes, from a CUDA graph of
+    ``launches`` calls replayed ``reps`` times: no host time between the
+    calls, as inside a captured period."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+
+    def replay():
+        for _ in range(reps):
+            g.replay()
+
+    replay()
+    return cuda_timed(replay)[0] / (reps * launches)
+
+
+def plant_phase(card, dev, ptxas, attrs):
+    """srb_plant_step_kernel against srb.step_plain on the card with the
+    seeded batches and the bars of tests/test_torch_plant_kernel.py
+    (float64 within 1e-12 of each output's size, times the stance IK's
+    condition number on the joints of a stance leg; float32 at the 50th
+    and 90th percentile and the widest lane no wider than twice the plain
+    float32 step's gap to the plain float64 one; the non-finite masks
+    exact), under the default and another configuration; then the kernel
+    alone at 1,024 and 16,384 lanes from a CUDA graph, beside the plain
+    step (from a graph and eager) and the bytes a lane reads and writes at
+    the HBM rate.  Emits the record; returns the kernels line's entry."""
+    from hector_torch.config import DEFAULT_CONFIG as CFG
+    from hector_torch.plant import srb
+    T = plant_test_module()
+    checks = {}
+    for name, cfg, seed in (('default', CFG, 303),
+                            ('other', T.OTHER_CFG, 404)):
+        d = T.batch(PLANT_CHECK_BATCH, seed=seed, cfg=cfg)
+        a64 = T.inputs(d, torch.float64, dev)
+        got, ref = srb.step(*a64, cfg=cfg), srb.step_plain(*a64, cfg=cfg)
+        a32 = T.inputs(d, torch.float32, dev)
+        kern, plain = srb.step(*a32, cfg=cfg), srb.step_plain(*a32, cfg=cfg)
+        try:
+            for pair in ((got, ref), (kern, plain), (kern, ref)):
+                T.nonfinite_masks_agree(*pair)
+            masks = True
+        except AssertionError:
+            masks = False
+        fin = T.finite_lanes(ref)
+        checks[name] = dict(
+            f64_excess=T.f64_excess(got, ref, a64, cfg),
+            f32_kernel_gap=T.quantiles(T.lane_gaps(kern, ref)[fin]),
+            f32_plain_gap=T.quantiles(T.lane_gaps(plain, ref)[fin]),
+            nonfinite_masks_agree=masks, finite_lanes=int(fin.sum()))
+    times = {}
+    for n in PLANT_TIME_BATCHES:
+        args = T.inputs(T.batch(n, seed=5, nonfinite=False), torch.float32,
+                        dev)
+        turns = [graph_ms(lambda: srb.step_cuda(*args), PLANT_GRAPH_LAUNCHES)
+                 for _ in range(2)]
+        ms = sum(turns) / 2
+        bound = bound_ms(n * srb.bytes_per_lane(), 0)[0]
+        times[n] = dict(ms=ms, ms_turns=turns,
+                        plain_graph_ms=graph_ms(
+                            lambda: srb.step_plain(*args), 5, 2),
+                        plain_eager_ms=cuda_ms(
+                            lambda: srb.step_plain(*args), 5),
+                        bound_ms=bound, share_of_bound=bound / ms)
+    emit(dict(phase='plant', checks=checks, times=times,
+              bytes_per_lane=srb.bytes_per_lane(),
+              ptxas={k: ptxas.get(k, {}) for k in attrs}, attributes=attrs,
+              card=card))
+    for name, c in checks.items():
+        if not (c['nonfinite_masks_agree'] and c['f64_excess'] <= 1.0
+                and all(k <= T.F32_FACTOR * p for k, p in
+                        zip(c['f32_kernel_gap'], c['f32_plain_gap']))):
+            raise RuntimeError(f'plant kernel ({name}) against its plain '
+                               f'version: {c}')
+    t = times[PLANT_TIME_BATCHES[0]]
+    return dict(name='srb_plant', route='cuda',
+                source='hector_torch/csrc/srb_plant.cu', replaces=None,
+                launches=None,      # the loop phase's, set there
+                max_abs_err=max(
+                    c['f32_kernel_gap'][-1] for c in checks.values()),
+                ms=t['ms'], plain_ms=t['plain_graph_ms'],
+                bound_ms=t['bound_ms'], bound_by='bytes', library_ms=None)
+
+
+def check_launches(phase, launches, others, periods, plant_steps=0):
+    """<false> launched once a period, the plant kernel once a tier-1 plant
+    step (``plant_steps``), and nothing else."""
+    want = {'plant_launches': plant_steps} if plant_steps else {}
+    if (launches, others) != (periods, want):
         raise RuntimeError(f'{phase}: <false> launched {launches} times and '
                            f'the other kernels {others}, expected {periods} '
-                           f'and 0')
+                           f'and {want}')
 
 
 def without_sync(name, fn):
@@ -1231,7 +1360,8 @@ def estimators_phase(card, dev):
             rest, c_mid, p_mid, cmd, EST_PERIODS - EST_CHECK_PERIODS, CFG)
         diags = {k: torch.cat([d_a[k], d_b[k]], dim=1) for k in d_a}
         sec, launches = sec_a + sec_b, launches + launches_b
-        others += others_b
+        others = {k: others.get(k, 0) + others_b.get(k, 0)
+                  for k in {**others, **others_b}}
         rate = EST_PERIODS * CFG.mpc.mpc_cadence * CFG.plant.dt / sec
         all_finite(est_position=plant.position, est_height=diags['height'])
         res, failed = estimator_checks(kind, diags, c_mid, p_mid)
@@ -1249,7 +1379,8 @@ def estimators_phase(card, dev):
                          lambda: EST.est_update('kf', carry.est, obs, CFG))
             rec['kf_tick_synchronises'] = False
         emit(rec)
-        check_launches(f'estimators ({kind})', launches, others, EST_PERIODS)
+        check_launches(f'estimators ({kind})', launches, others, EST_PERIODS,
+                       EST_PERIODS * CFG.mpc.mpc_cadence)
         if failed:
             raise RuntimeError(f'estimators ({kind}): {failed} failed')
 
@@ -1404,7 +1535,7 @@ def run_cli(argv):
     sec = time.perf_counter() - t0
     counts = launch_counts()
     launches = counts.pop('launches', 0)
-    return rec, buf.getvalue(), sec, launches, sum(counts.values())
+    return rec, buf.getvalue(), sec, launches, counts
 
 
 def tree_to(tree, device=None, dtype=None):
@@ -1466,7 +1597,7 @@ def cli_phase(card, dev, work):
     log, ckpt = f'{work}/batch.jsonl', f'{work}/ckpt'
     period = CFG.mpc.dt * CFG.mpc.mpc_cadence
 
-    # ---- batch at full width: 200 <false> launches and nothing else ----
+    # ---- batch at full width: 200 <false> and 1,000 plant launches ----
     periods = int(CLI_SECONDS / period)
     rec, out, sec, launches, others = run_cli(
         ['batch', '--batch', str(CLI_BATCH), '--seconds', str(CLI_SECONDS),
@@ -1479,7 +1610,8 @@ def cli_phase(card, dev, work):
               periods=periods, launches=launches, other_launches=others,
               seconds=sec, sim_s_per_wall_s=CLI_SECONDS / sec,
               record=rec, card=card))
-    check_launches('cli batch', launches, others, periods)
+    check_launches('cli batch', launches, others, periods,
+                   periods * CFG.mpc.mpc_cadence)
     if not all(math.isfinite(v) for v in metrics.values()):
         raise RuntimeError(f'cli batch: metrics not finite: {metrics}')
     if not CLI_HEIGHT_BAND[0] < rec['mean_height'] < CLI_HEIGHT_BAND[1]:
@@ -1500,7 +1632,8 @@ def cli_phase(card, dev, work):
               periods=int(CLI_SHORT_SECONDS / period), card_record=rec_k,
               cpu_record=rec_c, abs_mean_height=d_h, rel_qp_mu_max=d_mu))
     check_launches('cli batch (short)', launches, others,
-                   int(CLI_SHORT_SECONDS / period))
+                   int(CLI_SHORT_SECONDS / period),
+                   int(CLI_SHORT_SECONDS / period) * CFG.mpc.mpc_cadence)
     if not (d_h <= CLI_HEIGHT_TOL and d_mu <= CLI_MU_RTOL
             and rec_k['fallen_count'] == rec_c['fallen_count']):
         raise RuntimeError(f'cli card vs cpu: mean height {d_h} m (bar '
@@ -1653,7 +1786,8 @@ def multihost_phase(card, work):
     (file:// rendezvous under ``work``), make_batch(MULTIHOST_BATCH) over its
     mesh and a MULTIHOST_PERIODS-period sharded rollout, against the same
     run without a group: the mesh the current card, one <false> launch a
-    period and nothing else, every tensor all_reduce sees on that card,
+    period, one plant launch a tick and nothing else, every tensor
+    all_reduce sees on that card,
     the metrics and the final state bit for bit."""
     import tempfile
     import torch.distributed as dist
@@ -1699,7 +1833,8 @@ def multihost_phase(card, work):
               seconds_without_group=alone[3],
               metrics={k: float(v) for k, v in metrics_g.items()},
               card=card))
-    check_launches('multihost', launches, others, MULTIHOST_PERIODS)
+    check_launches('multihost', launches, others, MULTIHOST_PERIODS,
+                   MULTIHOST_PERIODS * CFG.mpc.mpc_cadence)
     if backend != 'nccl' or mesh != (own,):
         raise RuntimeError(f'multihost: backend {backend}, mesh {mesh}, '
                            f'expected nccl on {own}')
@@ -1930,12 +2065,17 @@ def graph_phase(card, dev, work):
     recs = []
 
     def rollout_case(name, roll, plant, args, key=None, periods=n,
-                     launches=None):
+                     launches=None, tier1=True):
+        """``launches``: of the solver's kernels (default one <false> a
+        period); a tier-1 loop adds one plant kernel a tick."""
         carry = roll.init(plant, key)
+        want = {'launches': periods} if launches is None else dict(launches)
+        if tier1:
+            want['plant_launches'] = CFG.mpc.mpc_cadence * periods
         recs.append(graph_case(
             name, roll.graphed, lambda: roll(carry, plant, *args),
             lambda: roll.eager(carry, plant, *args), periods, period_s,
-            launches))
+            want))
 
     plant = srb.init_plant_state(b, CFG, device=dev)
     rollout_case('loop', RT.make_rollout(n, CFG), plant, (mixed,))
@@ -1948,7 +2088,8 @@ def graph_phase(card, dev, work):
                      RT.make_rollout(n, CFG, estimator=kind), plant, (walk,),
                      keys)
     rollout_case('whole_body (cheater)', RT.make_rollout_whole_body(n, CFG),
-                 WB.init_whole_body_state(0.545, b, device=dev), (mixed,))
+                 WB.init_whole_body_state(0.545, b, device=dev), (mixed,),
+                 tier1=False)
 
     carry, plant, cmd = bench.initial_state(MAIN_BATCH, device=dev)
     plan = RT.plan_step_fn(CFG)
@@ -2111,15 +2252,18 @@ def main():
 
     # ---- build: one nvcc per source, all started together ----
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for fut in [pool.submit(FR.build), pool.submit(CH.build)]:
+    with ThreadPoolExecutor(3) as pool:
+        for fut in [pool.submit(FR.build), pool.submit(CH.build),
+                    pool.submit(srb.build)]:
             fut.result()
     build_s = time.perf_counter() - t0
     ptxas = {}
     nvcc_seconds = {}
-    for info in (*FR.build_info.values(), CH.build_info):
+    for info in (*FR.build_info.values(), CH.build_info,
+                 *srb.build_info.values()):
         ptxas.update(parse_ptxas(info.get('ptxas', '')))
-    for name, info in (*FR.build_info.items(), ('chol.cu', CH.build_info)):
+    for name, info in (*FR.build_info.items(), ('chol.cu', CH.build_info),
+                       *srb.build_info.items()):
         nvcc_seconds[name] = info.get('seconds')
     n = 12 * CFG.mpc.horizon            # the dense path's KKT matrices
     n_long = 12 * LONG_HORIZON
@@ -2136,8 +2280,18 @@ def main():
                                                        'solve_shared'),
              'chol_solve_stream': CH.kernel_attributes(n_long,
                                                        'solve_stream')}
+    plant_attrs = {'srb_plant': srb.kernel_attributes(torch.float32),
+                   'srb_plant_f64': srb.kernel_attributes(torch.float64)}
     emit(dict(phase='build', seconds=build_s, card=card,
-              nvcc_seconds=nvcc_seconds, ptxas=ptxas, attributes=attrs))
+              nvcc_seconds=nvcc_seconds, ptxas=ptxas,
+              attributes={**attrs, **plant_attrs}))
+    # the plant kernel's precise sin/cos/asin/acos keep a stack frame for
+    # their slow argument reduction; nothing may spill
+    for name in plant_attrs:
+        rep = ptxas.get(name, {})
+        if not (rep and rep['spill_store_bytes'] == 0
+                and rep['spill_load_bytes'] == 0):
+            raise RuntimeError(f'{name} spills: {rep}')
     for name, attr in attrs.items():
         rep = ptxas.get(name, {})
         if not (rep and rep['spill_store_bytes'] == 0
@@ -2160,6 +2314,8 @@ def main():
                            f'{ip_attr["registers"]} registers and '
                            f'{ip_attr["warps_per_sm"]} warps an SM, not '
                            f'<= {IP_MAX_REGISTERS} and {IP_WARPS_PER_SM}')
+
+    plant_entry = plant_phase(card, dev, ptxas, plant_attrs)
 
     # ---- the kernel without polish vs its plain version ----
     max_err = 0.0
@@ -2287,19 +2443,21 @@ def main():
                     RT.standing_command(LOOP_BATCH - half, device=dev))
     roll = RT.make_rollout(LOOP_PERIODS, CFG)
     torch.cuda.synchronize()
-    FR.launches = 0
+    FR.launches = srb.plant_launches = 0
     t0 = time.perf_counter()
     carry, plant, diags = roll(carry, plant, cmd)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     loop_launches = FR.launches
+    loop_plant_launches = srb.plant_launches
     h = diags['height'].cpu().numpy()
     vx = diags['vx'].cpu().numpy()
     fallen = int(diags['fallen'].sum())
     quarantined = int(diags['quarantined'].sum())
     res = dict(
         phase='loop', batch=LOOP_BATCH, periods=LOOP_PERIODS,
-        launches=loop_launches, seconds=loop_s,
+        launches=loop_launches, plant_launches=loop_plant_launches,
+        seconds=loop_s,
         sim_s_per_wall_s=LOOP_PERIODS * 5 * CFG.plant.dt / loop_s,
         capture_seconds=capture_seconds(roll.graphed),
         fallen_lane_periods=fallen, quarantined_lane_periods=quarantined,
@@ -2311,9 +2469,13 @@ def main():
         stand_vx_final=float(plant.v_world[half:, 0].abs().max()),
         card=card)
     emit(res)
-    if loop_launches != LOOP_PERIODS:
+    if (loop_launches, loop_plant_launches) != (
+            LOOP_PERIODS, LOOP_PERIODS * CFG.mpc.mpc_cadence):
         raise RuntimeError(f'closed loop launched the kernel {loop_launches} '
-                           f'times, expected {LOOP_PERIODS}')
+                           f'times and the plant kernel '
+                           f'{loop_plant_launches}, expected {LOOP_PERIODS} '
+                           f'and {LOOP_PERIODS * CFG.mpc.mpc_cadence}')
+    plant_entry['launches'] = loop_plant_launches
     if fallen or quarantined:
         raise RuntimeError('closed loop: lanes fell or were quarantined')
     # the bands of tests/test_closedloop.py
@@ -2706,7 +2868,8 @@ def main():
               walk_x_final=float(plant.position[:half, 0].mean()),
               card=card))
     want = {'factor_launches': DENSE_LOOP_PERIODS * (scfg.iterations + 1),
-            'solve_launches': DENSE_LOOP_PERIODS * (2 * scfg.iterations + 1)}
+            'solve_launches': DENSE_LOOP_PERIODS * (2 * scfg.iterations + 1),
+            'plant_launches': DENSE_LOOP_PERIODS * CFG.mpc.mpc_cadence}
     if dense_loop_launches != want:
         raise RuntimeError(f'dense loop launched {dense_loop_launches}, '
                            f'expected {want}')
@@ -2998,6 +3161,7 @@ def main():
     multihost_phase(card, str(build_dir / 'chip_smoke_multihost'))
 
     emit({'kernels': [
+        plant_entry,
         dict(name='fused_riccati', route='cuda',
              source='hector_torch/csrc/fused_riccati_warp.cu',
              replaces='hector/qp/pallas_riccati.py:63',

@@ -407,7 +407,7 @@ def test_warp_kernel_source():
     assert src.count('newton_dir(s, cst, lane);') == 1
     assert not (FR.WARP_SOURCE.parent / 'fused_riccati.cu').exists()
     assert sorted(p.name for p in FR.WARP_SOURCE.parent.glob('*.cu')) == [
-        'chol.cu', 'fused_riccati_warp.cu']
+        'chol.cu', 'fused_riccati_warp.cu', 'srb_plant.cu']
     assert not [n for n in vars(FR) if 'thread' in n.lower()]
     for gone in ('SOURCE', 'SCRATCH_PER_SCENARIO', '_lib'):
         assert not hasattr(FR, gone), gone
