@@ -98,6 +98,12 @@
 //     kept (lam_ip), and it reads the bounds again from the cache and
 //     recomputes the primal residuals after each newton_dir instead of
 //     carrying them across it.  No local memory, 16 warps an SM.
+//   - The fallback count.  A lane whose polish is rejected keeps the
+//     interior point's iterate.  Lane 0 of each warp adds one to the
+//     device's g_polish_counts[0] (lanes polished) and, where the polish was
+//     rejected, one to g_polish_counts[1], under the same `if constexpr`,
+//     so <false> neither carries nor touches them;
+//     fused_riccati_warp_polish_counts reads both back.
 //
 // Floating point: no fast math and no flush-to-zero.  The isfinite guards,
 // the inf ratios of the dual step and the skip logic need IEEE division,
@@ -148,6 +154,10 @@ static_assert(UREGS <= SLOTS, "u_b lives in a row array");
 #ifndef FR_EXTRA_SMEM
 #define FR_EXTRA_SMEM 0
 #endif
+
+// Lanes <true> polished, and lanes whose polish it rejected, since the
+// library was loaded, on this device (see the fallback count above).
+__device__ unsigned long long g_polish_counts[2];
 
 // Phase clocks, for profile_warp_kernel.py (built with -DFR_PHASE_CLOCKS;
 // in the default build PHASE() is nothing): at each mark lane 0 adds the
@@ -1100,6 +1110,10 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
   PHASE(10);
   if (lane == 0) {
     if constexpr (!POLISH) stats_out[b] = mu;
+    if constexpr (POLISH) {
+      atomicAdd(&g_polish_counts[0], 1ull);
+      if (!pol_ok) atomicAdd(&g_polish_counts[1], 1ull);
+    }
     stats_out[B + b] = r_d_max;
     stats_out[2 * B + b] = r_prim;
   }
@@ -1180,6 +1194,15 @@ int fused_riccati_warp_attributes(int polish, int* num_regs, int* local_bytes,
                                    threads, blocks_per_sm)
                 : attributes<false>(num_regs, local_bytes, static_smem, dynamic_smem,
                                     threads, blocks_per_sm);
+}
+
+// The lanes the kernel with polish polished, and those whose polish it
+// rejected, since the library was loaded, on the current device, into
+// out[2] (a copy on the legacy default stream: the caller synchronises the
+// device first, since PyTorch's own streams do not wait for it).
+int fused_riccati_warp_polish_counts(unsigned long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_polish_counts, 2 * sizeof(*out)));
 }
 
 #ifdef FR_PHASE_CLOCKS

@@ -26,7 +26,10 @@ one warp per scenario, a template compiled twice.
 ``fused_riccati_warp_kernel<false>`` is the interior point alone, which the
 default configuration (``polish_rounds = 0``) launches; ``launches`` counts
 it.  ``fused_riccati_warp_kernel<true>`` adds the polish and serves
-``polish_rounds > 0``; ``polish_launches`` counts it.
+``polish_rounds > 0``; ``polish_launches`` counts it, and
+:func:`polish_counts` reads the kernel's own counts of the lanes it polished
+and of those whose polish it rejected (they keep the interior point's
+iterate).  Their ratio is the fallback rate.
 
 The plain version touches no counter.
 """
@@ -493,6 +496,9 @@ def warp_kernel_variant(defines=()):
     lib.fused_riccati_warp_attributes.argtypes = (
         [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 6)
     lib.fused_riccati_warp_attributes.restype = ctypes.c_int
+    lib.fused_riccati_warp_polish_counts.argtypes = [
+        ctypes.POINTER(ctypes.c_ulonglong)]
+    lib.fused_riccati_warp_polish_counts.restype = ctypes.c_int
     return lib
 
 
@@ -591,6 +597,26 @@ def solve_parts_cuda(parts, scfg: SolverConfig, q_diag, r_diag
     else:
         launches += 1
     return sol
+
+
+def polish_counts(device=None) -> tuple[int, int]:
+    """(lanes polished, lanes whose polish was rejected) by
+    ``fused_riccati_warp_kernel<true>`` on ``device`` (default: the current
+    card) since the library was loaded, as the kernel counts them: every
+    launch, graph warm-ups and replays alike, so their ratio is the fallback
+    rate.  Synchronises the card: never call it on a timed path.  (0, 0)
+    while the library is not loaded."""
+    if _warp_lib is None:
+        return 0, 0
+    out = (ctypes.c_ulonglong * 2)()
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        rc = _warp_lib.fused_riccati_warp_polish_counts(out)
+    if rc != 0:
+        err = _warp_lib.fused_riccati_warp_error_string(rc).decode()
+        raise RuntimeError(f'fused_riccati: reading the polish counts '
+                           f'failed: CUDA error {rc} ({err})')
+    return out[0], out[1]
 
 
 # --------------------------------------------------------------------------

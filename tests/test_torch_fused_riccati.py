@@ -375,7 +375,8 @@ def test_kernel_source_and_flags():
     assert 'What bounds it on the card' in src
     assert 'extern "C"' in src
     for name in ('fused_riccati_warp_solve', 'fused_riccati_warp_attributes',
-                 'fused_riccati_warp_error_string'):
+                 'fused_riccati_warp_error_string',
+                 'fused_riccati_warp_polish_counts'):
         assert f'{name}(' in src
 
 
