@@ -7,9 +7,10 @@ Phases, one JSON line each:
               srb_plant.cu for sm_90a (one nvcc each, all started together)
               and report each kernel's registers, spills, shared memory and
               resident warps an SM; no instantiation of the Riccati kernel
-              and no Cholesky kernel may use local memory, the plant kernel
-              may not spill (its precise trigonometry keeps a stack frame
-              for the slow argument reduction), the Riccati kernel
+              and no Cholesky kernel may use local memory, the plant and
+              leg-data kernels may not spill (their precise trigonometry
+              keeps a stack frame for the slow argument reduction), the
+              Riccati kernel
               without polish must keep to 128 registers and 16 warps an SM,
               the cluster factor to 128 registers, and the streaming solve
               must hold 8 blocks an SM at n = 288;
@@ -20,6 +21,14 @@ Phases, one JSON line each:
               masks); the kernel alone at 1,024 and 16,384 lanes from a
               CUDA graph of 100 launches, beside the plain step and the
               bytes a lane reads and writes at 3.35 TB/s;
+  legs        the tick's leg-data kernel (tick_legs_kernel, one thread a
+              lane, kinematics.leg_data on CUDA tensors) against the three
+              lines of controller_tick it replaces, with the bars of
+              tests/test_torch_legs_kernel.py at 1,024 and 32,768 seeded
+              lanes under the default and another configuration (float64,
+              float32, non-finite masks); the kernel alone at those sizes
+              from a CUDA graph of 100 launches, beside the plain lines
+              replayed and the bytes a lane reads and writes at 3.35 TB/s;
   kernel      the Riccati kernel without polish (the fused interior point,
               one warp a scenario) against its plain PyTorch version on the
               same QPs
@@ -35,14 +44,15 @@ Phases, one JSON line each:
               'auto' is the Mehrotra stage solver) on 256 closed-loop lanes,
               and the same step on the card under
               backend='riccati_pallas_interpret' (the plain solver on CUDA
-              tensors: no kernel launch);
+              tensors: no solver kernel launched);
   riccati     plan_step_fn with backend='riccati' (the Mehrotra stage solver,
               batched PyTorch ops) at 4,096 closed-loop lanes: one eager
               step, and one with polish_rounds=8, under
               set_sync_debug_mode('error') (the solve waits on nothing); 8
               chained steps through bench.make_chain (captured, replayed)
               timed beside the eager chain and bit for bit it, with the
-              capture's seconds and nodes: no kernel of the port launched;
+              capture's seconds and nodes: no kernel of the port launched
+              but the leg data, once a step;
               the first step within 1e-2 N of the CPU's 'riccati' step,
               which the CPU's default 'auto' step equals bit for bit; every
               step within 5e-2 N of the fused kernel's;
@@ -54,7 +64,8 @@ Phases, one JSON line each:
   bench       `python -m hector_torch bench` in this process at its full
               shape (32,768 lanes, 128 chained steps, one chain not timed
               and 3 timed): exactly (1 + 3) x 128 = 512 launches of the
-              kernel without polish and nothing else; the record with
+              kernel without polish and 512 of the leg data and nothing
+              else; the record with
               bench.py's keys in its order, a finite positive value; that
               value within 0.5-2x of `main`'s solves/s, the same step timed
               by another clock, so a step that waits on the card or launches
@@ -73,7 +84,8 @@ Phases, one JSON line each:
               periods (1.5 s) at 1,024 lanes in five groups (robust_inputs):
               each group's checks from tests/test_robustness.py and
               tests/test_fsm_transitions.py, 300 launches of the kernel
-              without polish, 1,500 of the plant kernel and nothing else;
+              without polish, 1,500 of the plant kernel, 1,500 of the leg
+              data and nothing else;
               the same rollout for 10
               periods at 16 lanes on the card and on the CPU under
               'riccati_pallas': every period's wrench within 1e-2 N, the
@@ -83,8 +95,8 @@ Phases, one JSON line each:
               EST_BATCH lanes walking at 0.5 m/s, each lane's noise keyed
               fold_in(PRNGKey(7), lane): the checks of
               tests/test_estimation.py:149-178, one launch of the kernel
-              without polish a period, one of the plant kernel a tick and
-              nothing else, the tier-1 loop's
+              without polish a period, one of the plant kernel and one of
+              the leg data a tick and nothing else, the tier-1 loop's
               speed; one est_update('kf') tick timed, and run under
               torch.cuda.set_sync_debug_mode('error'); the same rollout for
               10 periods at 16 lanes on the card and on the CPU under
@@ -117,7 +129,9 @@ Phases, one JSON line each:
               for bit, the same launches replayed and eager (one of <false>
               a step, <true> with the polish; 15 factors and 29 solves a
               dense step or period, at horizon 24 all on the cluster factor
-              and the streaming solve; none under 'riccati'), one capture,
+              and the streaming solve; none under 'riccati'; the leg data
+              once a tick, the plant kernel once a tier-1 tick), one
+              capture,
               the replays run under
               set_sync_debug_mode('error'), both timed, the capture's
               seconds, its graph's nodes, the peak device memory, and
@@ -191,7 +205,8 @@ Phases, one JSON line each:
   cli         the entry-point layer (hector_torch.cli, parallel, io):
               `batch` at 1,024 lanes for 1 s in this process (the sharded
               rollout on the one-card mesh: 200 launches of the kernel
-              without polish, 1,000 of the plant kernel and nothing else,
+              without polish, 1,000 of the plant kernel, 1,000 of the leg
+              data and nothing else,
               the metrics finite, the
               mean height in the band of tests/test_parallel.py, the JSONL
               line equal to the printed record, a checkpoint), the same
@@ -213,7 +228,8 @@ Phases, one JSON line each:
               over its mesh and a 20-period sharded rollout, against the
               same run without a group: the group on NCCL and the mesh the
               current card, 20 launches of the kernel without polish, 100
-              of the plant kernel and nothing else, both tensors all_reduce
+              of the plant kernel, 100 of the leg data and nothing else,
+              both tensors all_reduce
               sees on that card (the
               rank's own, not another rank's), the metrics and the final
               plant state bit for bit (a one-rank reduction is exact);
@@ -610,6 +626,8 @@ def chain(plan, carry, plant, cmd, n, wrenches=None):
 KERNEL_NAMES = (('fused_riccati_warp_kernelILb0E', 'fused_riccati'),
                 ('srb_plant_step_kernelIfE', 'srb_plant'),
                 ('srb_plant_step_kernelIdE', 'srb_plant_f64'),
+                ('tick_legs_kernelIfE', 'tick_legs'),
+                ('tick_legs_kernelIdE', 'tick_legs_f64'),
                 ('fused_riccati_warp_kernelILb1E', 'fused_riccati_polish'),
                 ('chol_factor_kernel', 'chol_factor'),
                 ('chol_factor_smem_kernel', 'chol_factor_shared'),
@@ -903,7 +921,7 @@ def riccati_phase(card, dev):
     bench.make_chain (captured, replayed), timed beside the eager chain and
     bit for bit it; one eager step, and one with polish_rounds=8, under
     set_sync_debug_mode('error') (the solve waits on nothing); no kernel of
-    the port launched; the first step within STEP_TOL of the CPU's
+    the port launched but the tick's leg data, one a step; the first step within STEP_TOL of the CPU's
     'riccati' step, which the CPU's default 'auto' step equals bit for bit;
     every step within RICCATI_VS_FUSED_TOL of the fused kernel's."""
     from hector_torch import bench
@@ -961,9 +979,11 @@ def riccati_phase(card, dev):
               max_abs_vs_cpu=d_cpu, max_abs_vs_fused_kernel=d_fused,
               cpu_auto_equals_riccati=auto_is_riccati,
               wrench_scale=float(w_r_cpu.abs().max()), card=card))
-    if r_counts or g_counts:
+    want = {'legs_launches': RICCATI_CHAIN}
+    if r_counts != want or g_counts != want:
         raise RuntimeError(f"'riccati' launched kernels of the port: "
-                           f'{r_counts} eager, {g_counts} captured')
+                           f'{r_counts} eager, {g_counts} captured, '
+                           f'expected {want}')
     if not captured_is_eager:
         raise RuntimeError("'riccati': the captured chain is not bit for bit "
                            'the eager chain')
@@ -1043,7 +1063,7 @@ def robust_phase(card, dev):
     """make_rollout with pushes and a command/mode schedule on the card
     (robust_inputs, robust_checks), ROBUST_PERIODS at ROBUST_BATCH lanes
     under the default config: ROBUST_PERIODS launches of <false>, five of
-    the plant kernel a period and nothing else; then the same rollout,
+    the plant kernel and five of the leg data a period and nothing else; then the same rollout,
     short, on the card and on the CPU
     under 'riccati_pallas'."""
     from hector_torch import runtime as RT
@@ -1071,11 +1091,12 @@ def robust_phase(card, dev):
               capture_seconds=capture_seconds(roll.graphed),
               groups=res, failed=failed, card=card))
     if robust_launches != {'launches': ROBUST_PERIODS,
-                           'plant_launches': 5 * ROBUST_PERIODS}:
+                           'plant_launches': 5 * ROBUST_PERIODS,
+                           'legs_launches': 5 * ROBUST_PERIODS}:
         raise RuntimeError(f'robust rollout launched {robust_launches}, '
                            f'expected {ROBUST_PERIODS} <false>, '
-                           f'{5 * ROBUST_PERIODS} plant steps and nothing '
-                           f'else')
+                           f'{5 * ROBUST_PERIODS} plant steps and leg data '
+                           f'and nothing else')
     if failed:
         raise RuntimeError(f'robust rollout: groups {failed} failed their '
                            f'checks')
@@ -1309,10 +1330,84 @@ def plant_phase(card, dev, ptxas, attrs):
                 bound_ms=t['bound_ms'], bound_by='bytes', library_ms=None)
 
 
-def check_launches(phase, launches, others, periods, plant_steps=0):
+LEGS_BATCHES = (1024, 32768)  # the loop's lanes and the plan cells'
+LEGS_GRAPH_LAUNCHES = 100   # leg-data launches in the timed graph
+# bytes a float32 lane of the leg data reads and writes, each once: the
+# angles (10 numbers), J_force_moment (60), the feet (6) and q_data (10)
+LEGS_BYTES_PER_LANE = 4 * (10 + 60 + 6 + 10)
+
+
+def legs_phase(card, dev, ptxas, attrs):
+    """tick_legs_kernel (kinematics.leg_data on CUDA tensors) against the
+    three lines of controller_tick it replaces, with the seeded angles and
+    the bars of tests/test_torch_legs_kernel.py (float64 within 1e-12 of
+    each output's size; float32 at the 50th and 90th percentile and the
+    widest lane no wider than twice the plain float32 path's gap to the
+    plain float64 one; the non-finite masks exact), under the default and
+    another configuration, at 1,024 and 32,768 lanes; then the kernel
+    alone at those sizes from a CUDA graph, beside the plain lines replayed
+    from a graph and the bytes a lane reads and writes at the HBM rate.
+    Emits the record; returns the kernels line's entry."""
+    from hector_torch import kinematics as K
+    from hector_torch.config import DEFAULT_CONFIG as CFG
+    L = importlib.import_module('tests.test_torch_legs_kernel')
+    checks = {}
+    for name, cfg in (('default', CFG), ('other', L.OTHER_CFG)):
+        for n in LEGS_BATCHES:
+            q64 = torch.tensor(L.angles(n, seed=n + 505), dtype=torch.float64,
+                               device=dev)
+            got, ref = K.leg_data(q64, cfg), L.plain(q64, cfg)
+            q32 = q64.float()
+            kern, plain = K.leg_data(q32, cfg), L.plain(q32, cfg)
+            try:
+                for pair in ((got, ref), (kern, plain), (kern, ref)):
+                    L.nonfinite_masks_agree(*pair)
+                masks = True
+            except AssertionError:
+                masks = False
+            checks[f'{name}@{n}'] = dict(
+                f64_excess=L.f64_excess(got, ref),
+                f32_ratio_to_plain=L.f32_ratios(kern, plain, ref, q32),
+                f32_kernel_gap=L.quantiles(L.lane_gaps(kern, ref)),
+                nonfinite_masks_agree=masks)
+    times = {}
+    for n in LEGS_BATCHES:
+        q = torch.tensor(L.angles(n, seed=5, nonfinite=False),
+                         dtype=torch.float32, device=dev)
+        turns = [graph_ms(lambda: K.leg_data_cuda(q, CFG),
+                          LEGS_GRAPH_LAUNCHES) for _ in range(2)]
+        ms = sum(turns) / 2
+        bound = bound_ms(n * LEGS_BYTES_PER_LANE, 0)[0]
+        times[n] = dict(ms=ms, ms_turns=turns,
+                        plain_graph_ms=graph_ms(lambda: L.plain(q, CFG), 5,
+                                                2),
+                        bound_ms=bound, share_of_bound=bound / ms)
+    emit(dict(phase='legs', checks=checks, times=times,
+              bytes_per_lane=LEGS_BYTES_PER_LANE,
+              ptxas={k: ptxas.get(k, {}) for k in attrs}, attributes=attrs,
+              card=card))
+    for name, c in checks.items():
+        if not (c['nonfinite_masks_agree'] and c['f64_excess'] <= 1.0
+                and all(r <= L.F32_FACTOR for r in c['f32_ratio_to_plain'])):
+            raise RuntimeError(f'leg-data kernel ({name}) against its plain '
+                               f'version: {c}')
+    t = times[LEGS_BATCHES[0]]
+    return dict(name='tick_legs', route='cuda',
+                source='hector_torch/csrc/srb_plant.cu', replaces=None,
+                launches=None,      # the loop phase's, set there
+                max_abs_err=max(c['f32_kernel_gap'][-1]
+                                for c in checks.values()),
+                ms=t['ms'], plain_ms=t['plain_graph_ms'],
+                bound_ms=t['bound_ms'], bound_by='bytes', library_ms=None)
+
+
+def check_launches(phase, launches, others, periods, plant_steps=0,
+                   ticks=0):
     """<false> launched once a period, the plant kernel once a tier-1 plant
-    step (``plant_steps``), and nothing else."""
-    want = {'plant_launches': plant_steps} if plant_steps else {}
+    step (``plant_steps``), the leg data once a controller tick
+    (``ticks``), and nothing else."""
+    want = {name: n for name, n in (('plant_launches', plant_steps),
+                                    ('legs_launches', ticks)) if n}
     if (launches, others) != (periods, want):
         raise RuntimeError(f'{phase}: <false> launched {launches} times and '
                            f'the other kernels {others}, expected {periods} '
@@ -1380,6 +1475,7 @@ def estimators_phase(card, dev):
             rec['kf_tick_synchronises'] = False
         emit(rec)
         check_launches(f'estimators ({kind})', launches, others, EST_PERIODS,
+                       EST_PERIODS * CFG.mpc.mpc_cadence,
                        EST_PERIODS * CFG.mpc.mpc_cadence)
         if failed:
             raise RuntimeError(f'estimators ({kind}): {failed} failed')
@@ -1482,7 +1578,8 @@ def whole_body_phase(card, dev):
               step_synchronises=False,
               capture_seconds=capture_seconds(roll.graphed), checks=res,
               failed=failed, card=card))
-    check_launches('whole_body (cheater)', launches, others, WB_PERIODS)
+    check_launches('whole_body (cheater)', launches, others, WB_PERIODS,
+                   ticks=WB_PERIODS * CFG.mpc.mpc_cadence)
     if failed:
         raise RuntimeError(f'whole_body (cheater): {failed} failed')
 
@@ -1500,7 +1597,8 @@ def whole_body_phase(card, dev):
               seconds=sec, sim_s_per_wall_s=rate,
               capture_seconds=capture_seconds(roll.graphed), checks=res,
               failed=failed, card=card))
-    check_launches('whole_body (kf)', launches, others, WB_PERIODS)
+    check_launches('whole_body (kf)', launches, others, WB_PERIODS,
+                   ticks=WB_PERIODS * CFG.mpc.mpc_cadence)
     if failed:
         raise RuntimeError(f'whole_body (kf): {failed} failed')
 
@@ -1611,6 +1709,7 @@ def cli_phase(card, dev, work):
               seconds=sec, sim_s_per_wall_s=CLI_SECONDS / sec,
               record=rec, card=card))
     check_launches('cli batch', launches, others, periods,
+                   periods * CFG.mpc.mpc_cadence,
                    periods * CFG.mpc.mpc_cadence)
     if not all(math.isfinite(v) for v in metrics.values()):
         raise RuntimeError(f'cli batch: metrics not finite: {metrics}')
@@ -1631,9 +1730,9 @@ def cli_phase(card, dev, work):
     emit(dict(phase='cli_card_vs_cpu', batch=CLI_SHORT_BATCH,
               periods=int(CLI_SHORT_SECONDS / period), card_record=rec_k,
               cpu_record=rec_c, abs_mean_height=d_h, rel_qp_mu_max=d_mu))
-    check_launches('cli batch (short)', launches, others,
-                   int(CLI_SHORT_SECONDS / period),
-                   int(CLI_SHORT_SECONDS / period) * CFG.mpc.mpc_cadence)
+    short = int(CLI_SHORT_SECONDS / period)
+    check_launches('cli batch (short)', launches, others, short,
+                   short * CFG.mpc.mpc_cadence, short * CFG.mpc.mpc_cadence)
     if not (d_h <= CLI_HEIGHT_TOL and d_mu <= CLI_MU_RTOL
             and rec_k['fallen_count'] == rec_c['fallen_count']):
         raise RuntimeError(f'cli card vs cpu: mean height {d_h} m (bar '
@@ -1768,7 +1867,8 @@ def bench_phase(card, main_solves_per_s):
               other_launches=others, main_solves_per_s=main_solves_per_s,
               bench_over_main=ratio, card=card))
     check_launches('bench', launches, others,
-                   (1 + bench.REPS) * bench.CHAIN_LEN)
+                   (1 + bench.REPS) * bench.CHAIN_LEN,
+                   ticks=(1 + bench.REPS) * bench.CHAIN_LEN)
     if list(rec) != BENCH_KEYS or [json.loads(line) for line in
                                    out.splitlines()] != [rec]:
         raise RuntimeError(f'bench printed {out!r}, not one record with the '
@@ -1834,6 +1934,7 @@ def multihost_phase(card, work):
               metrics={k: float(v) for k, v in metrics_g.items()},
               card=card))
     check_launches('multihost', launches, others, MULTIHOST_PERIODS,
+                   MULTIHOST_PERIODS * CFG.mpc.mpc_cadence,
                    MULTIHOST_PERIODS * CFG.mpc.mpc_cadence)
     if backend != 'nccl' or mesh != (own,):
         raise RuntimeError(f'multihost: backend {backend}, mesh {mesh}, '
@@ -2067,9 +2168,11 @@ def graph_phase(card, dev, work):
     def rollout_case(name, roll, plant, args, key=None, periods=n,
                      launches=None, tier1=True):
         """``launches``: of the solver's kernels (default one <false> a
-        period); a tier-1 loop adds one plant kernel a tick."""
+        period); every tick adds one launch of the leg data, and a tier-1
+        loop one plant kernel a tick."""
         carry = roll.init(plant, key)
         want = {'launches': periods} if launches is None else dict(launches)
+        want['legs_launches'] = CFG.mpc.mpc_cadence * periods
         if tier1:
             want['plant_launches'] = CFG.mpc.mpc_cadence * periods
         recs.append(graph_case(
@@ -2097,14 +2200,16 @@ def graph_phase(card, dev, work):
     recs.append(graph_case(
         'plan_step', chained, lambda: chained((carry, plant), cmd),
         lambda: chain(plan, carry, plant, cmd, MAIN_CHAIN)[:2],
-        MAIN_CHAIN, None))
+        MAIN_CHAIN, None, launches={'launches': MAIN_CHAIN,
+                                    'legs_launches': MAIN_CHAIN}))
     plan_p = RT.plan_step_fn(with_solver(CFG, polish_rounds=POLISH_ROUNDS))
     chained_p = bench.make_chain(plan_p, POLISH_CHAIN).steps
     recs.append(graph_case(
         'plan_step (polish)', chained_p,
         lambda: chained_p((carry, plant), cmd),
         lambda: chain(plan_p, carry, plant, cmd, POLISH_CHAIN)[:2],
-        POLISH_CHAIN, None, launches={'polish_launches': POLISH_CHAIN}))
+        POLISH_CHAIN, None, launches={'polish_launches': POLISH_CHAIN,
+                                      'legs_launches': POLISH_CHAIN}))
 
     # the dense interior point: a period under each of its backends (the
     # kernels at 1,024 lanes, torch.linalg likewise, the plain versions at
@@ -2113,6 +2218,7 @@ def graph_phase(card, dev, work):
     # step that is itself captured
     it = CFG.solver.iterations
     dense_step = {'factor_launches': it + 1, 'solve_launches': 2 * it + 1}
+    dense_plan_step = {**dense_step, 'legs_launches': 1}
 
     def times(k, counts):
         return {name: k * v for name, v in counts.items()}
@@ -2143,7 +2249,7 @@ def graph_phase(card, dev, work):
     recs.append(graph_case(
         'plan_step (dense)', chained_d, lambda: chained_d((carry, plant), cmd),
         lambda: chain(plan_d, carry, plant, cmd, DENSE_CHAIN)[:2],
-        DENSE_CHAIN, None, launches=times(DENSE_CHAIN, dense_step)))
+        DENSE_CHAIN, None, launches=times(DENSE_CHAIN, dense_plan_step)))
     trace_replays(card, 'plan_step (dense)', DENSE_BATCH,
                   lambda: chained_d((carry, plant), cmd), DENSE_CHAIN,
                   recs[-1], work / 'trace_dense_step')
@@ -2154,7 +2260,7 @@ def graph_phase(card, dev, work):
         'plan_step (riccati)', chained_r,
         lambda: chained_r((carry, plant), cmd),
         lambda: chain(plan_r, carry, plant, cmd, RICCATI_CHAIN)[:2],
-        RICCATI_CHAIN, None, launches={}))
+        RICCATI_CHAIN, None, launches={'legs_launches': RICCATI_CHAIN}))
     trace_replays(card, 'plan_step (riccati)', RICCATI_BATCH,
                   lambda: chained_r((carry, plant), cmd), RICCATI_CHAIN,
                   recs[-1], work / 'trace_riccati_step')
@@ -2234,6 +2340,7 @@ def main():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         sys.exit(1)
     from hector_torch import bench
+    from hector_torch import kinematics as K
     from hector_torch import mpc as M
     from hector_torch import runtime as RT
     from hector_torch.plant import srb
@@ -2282,12 +2389,15 @@ def main():
                                                        'solve_stream')}
     plant_attrs = {'srb_plant': srb.kernel_attributes(torch.float32),
                    'srb_plant_f64': srb.kernel_attributes(torch.float64)}
+    legs_attrs = {
+        'tick_legs': srb.kernel_attributes(torch.float32, 'tick_legs'),
+        'tick_legs_f64': srb.kernel_attributes(torch.float64, 'tick_legs')}
     emit(dict(phase='build', seconds=build_s, card=card,
               nvcc_seconds=nvcc_seconds, ptxas=ptxas,
-              attributes={**attrs, **plant_attrs}))
-    # the plant kernel's precise sin/cos/asin/acos keep a stack frame for
-    # their slow argument reduction; nothing may spill
-    for name in plant_attrs:
+              attributes={**attrs, **plant_attrs, **legs_attrs}))
+    # the plant and leg-data kernels' precise sin/cos/asin/acos keep a
+    # stack frame for their slow argument reduction; nothing may spill
+    for name in (*plant_attrs, *legs_attrs):
         rep = ptxas.get(name, {})
         if not (rep and rep['spill_store_bytes'] == 0
                 and rep['spill_load_bytes'] == 0):
@@ -2316,6 +2426,7 @@ def main():
                            f'<= {IP_MAX_REGISTERS} and {IP_WARPS_PER_SM}')
 
     plant_entry = plant_phase(card, dev, ptxas, plant_attrs)
+    legs_entry = legs_phase(card, dev, ptxas, legs_attrs)
 
     # ---- the kernel without polish vs its plain version ----
     max_err = 0.0
@@ -2406,10 +2517,11 @@ def main():
         lambda: chained((carry, plant), cmd))
     main_launches = FR.launches
     step_ms = total_ms / MAIN_CHAIN
-    if launch_counts() != {'launches': MAIN_CHAIN}:
+    if launch_counts() != {'launches': MAIN_CHAIN,
+                           'legs_launches': MAIN_CHAIN}:
         raise RuntimeError(f'main path launched {launch_counts()}, expected '
-                           f'{MAIN_CHAIN} of the warp kernel and nothing '
-                           f'else')
+                           f'{MAIN_CHAIN} of the warp kernel and of the leg '
+                           f'data and nothing else')
     eager_ms, (c_e, p_e, wrench, motor) = cuda_timed(
         lambda: chain(plan, carry, plant, cmd, MAIN_CHAIN))
     eager_step_ms = eager_ms / MAIN_CHAIN
@@ -2443,13 +2555,14 @@ def main():
                     RT.standing_command(LOOP_BATCH - half, device=dev))
     roll = RT.make_rollout(LOOP_PERIODS, CFG)
     torch.cuda.synchronize()
-    FR.launches = srb.plant_launches = 0
+    FR.launches = srb.plant_launches = K.legs_launches = 0
     t0 = time.perf_counter()
     carry, plant, diags = roll(carry, plant, cmd)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     loop_launches = FR.launches
     loop_plant_launches = srb.plant_launches
+    loop_legs_launches = K.legs_launches
     h = diags['height'].cpu().numpy()
     vx = diags['vx'].cpu().numpy()
     fallen = int(diags['fallen'].sum())
@@ -2457,7 +2570,7 @@ def main():
     res = dict(
         phase='loop', batch=LOOP_BATCH, periods=LOOP_PERIODS,
         launches=loop_launches, plant_launches=loop_plant_launches,
-        seconds=loop_s,
+        legs_launches=loop_legs_launches, seconds=loop_s,
         sim_s_per_wall_s=LOOP_PERIODS * 5 * CFG.plant.dt / loop_s,
         capture_seconds=capture_seconds(roll.graphed),
         fallen_lane_periods=fallen, quarantined_lane_periods=quarantined,
@@ -2469,13 +2582,15 @@ def main():
         stand_vx_final=float(plant.v_world[half:, 0].abs().max()),
         card=card)
     emit(res)
-    if (loop_launches, loop_plant_launches) != (
-            LOOP_PERIODS, LOOP_PERIODS * CFG.mpc.mpc_cadence):
+    ticks = LOOP_PERIODS * CFG.mpc.mpc_cadence
+    if (loop_launches, loop_plant_launches, loop_legs_launches) != (
+            LOOP_PERIODS, ticks, ticks):
         raise RuntimeError(f'closed loop launched the kernel {loop_launches} '
-                           f'times and the plant kernel '
-                           f'{loop_plant_launches}, expected {LOOP_PERIODS} '
-                           f'and {LOOP_PERIODS * CFG.mpc.mpc_cadence}')
+                           f'times, the plant kernel {loop_plant_launches} '
+                           f'and the leg data {loop_legs_launches}, expected '
+                           f'{LOOP_PERIODS}, {ticks} and {ticks}')
     plant_entry['launches'] = loop_plant_launches
+    legs_entry['launches'] = loop_legs_launches
     if fallen or quarantined:
         raise RuntimeError('closed loop: lanes fell or were quarantined')
     # the bands of tests/test_closedloop.py
@@ -2787,7 +2902,8 @@ def main():
     dense_eager_launches = launch_counts()
     dense_eager_step_ms = eager_ms / DENSE_CHAIN
     want = {'factor_launches': DENSE_CHAIN * (scfg.iterations + 1),
-            'solve_launches': DENSE_CHAIN * (2 * scfg.iterations + 1)}
+            'solve_launches': DENSE_CHAIN * (2 * scfg.iterations + 1),
+            'legs_launches': DENSE_CHAIN}
     if dense_launches != want or dense_eager_launches != want:
         raise RuntimeError(
             f'dense path launched {dense_launches} captured and '
@@ -2805,7 +2921,8 @@ def main():
           carry, plant, cmd, DENSE_CHAIN, w_interp)
     chain(plan, carry, plant, cmd, DENSE_CHAIN, w_riccati)
     torch.cuda.synchronize()
-    if (CH.factor_launches, CH.solve_launches) != tuple(want.values()):
+    if (CH.factor_launches, CH.solve_launches) != (want['factor_launches'],
+                                                   want['solve_launches']):
         raise RuntimeError('the comparison runs launched Cholesky kernels')
     d_interp = float((torch.stack(w_dense) - torch.stack(w_interp)).abs().max())
     d_riccati = float((torch.stack(w_dense)
@@ -2869,7 +2986,8 @@ def main():
               card=card))
     want = {'factor_launches': DENSE_LOOP_PERIODS * (scfg.iterations + 1),
             'solve_launches': DENSE_LOOP_PERIODS * (2 * scfg.iterations + 1),
-            'plant_launches': DENSE_LOOP_PERIODS * CFG.mpc.mpc_cadence}
+            'plant_launches': DENSE_LOOP_PERIODS * CFG.mpc.mpc_cadence,
+            'legs_launches': DENSE_LOOP_PERIODS * CFG.mpc.mpc_cadence}
     if dense_loop_launches != want:
         raise RuntimeError(f'dense loop launched {dense_loop_launches}, '
                            f'expected {want}')
@@ -3162,6 +3280,7 @@ def main():
 
     emit({'kernels': [
         plant_entry,
+        legs_entry,
         dict(name='fused_riccati', route='cuda',
              source='hector_torch/csrc/fused_riccati_warp.cu',
              replaces='hector/qp/pallas_riccati.py:63',

@@ -1,6 +1,9 @@
 // One tier-1 plant step (hector_torch/plant/srb.py: step_plain) for every
 // lane in one launch, ONE THREAD PER LANE.  CUDA C++ for sm_90a, plain C
-// entry point (loaded with ctypes by hector_torch/plant/srb.py).
+// entry point (loaded with ctypes by hector_torch/plant/srb.py).  Beside it,
+// from the same device functions, the controller tick's leg data
+// (tick_legs_kernel, launched by hector_torch/kinematics.py: leg_data; see
+// its note below).
 //
 // Replaces no TPU kernel: the JAX package leaves hector/plant/srb.py:step to
 // XLA's fusion.  The port's eager step is some 745 small PyTorch ops, each a
@@ -68,6 +71,14 @@ struct SrbArgs {
   int batch;
 };
 
+// tick_legs_kernel's arguments: the raw motor angles (B, 2, 5) and the
+// contiguous outputs j_fm (B, 2, 6, 5), p_leg (B, 2, 3), q_data (B, 2, 5)
+struct LegsArgs {
+  SrbIn q;
+  void* out[3];
+  int batch;
+};
+
 // Mirrored by srb._PARAM_FIELDS: the plant, FK, Jacobian and IK constants.
 template <typename T>
 struct SrbParams {
@@ -125,16 +136,17 @@ __device__ __forceinline__ bool load_flag(const SrbIn& x, long long b, int i) {
   return static_cast<const unsigned char*>(x.p)[b * x.s0 + i * x.s1] != 0;
 }
 
-// kinematics._chain_terms of one leg: the chain's trigonometry on the
-// offset-corrected angles qe
+// kinematics._chain_terms of one leg: the trigonometry of the
+// offset-corrected angles qe (chain_trig), which the FK and Jacobian models
+// share (the same angles, other lengths), and the chain's reach with one
+// model's lengths (chain_reach), each filled in place
 template <typename T>
 struct Chain {
   T c0, s0, c1, s1, c2, s2, c23, s23, c234, s234, sx, kz, v_x, v_y, v_z;
 };
 
 template <typename T>
-__device__ __forceinline__ Chain<T> chain_terms(const T qe[5], T b_y, T l1, T l2, T l3) {
-  Chain<T> t;
+__device__ __forceinline__ void chain_trig(const T qe[5], Chain<T>& t) {
   const T a23 = qe[2] + qe[3];
   const T a234 = a23 + qe[4];
   m_sincos(qe[0], &t.s0, &t.c0);
@@ -142,13 +154,35 @@ __device__ __forceinline__ Chain<T> chain_terms(const T qe[5], T b_y, T l1, T l2
   m_sincos(qe[2], &t.s2, &t.c2);
   m_sincos(a23, &t.s23, &t.c23);
   m_sincos(a234, &t.s234, &t.c234);
+}
+
+template <typename T>
+__device__ __forceinline__ void chain_reach(Chain<T>& t, T b_y, T l1, T l2, T l3) {
   t.sx = l1 * t.s2 + l2 * t.s23 + l3 * t.s234;
   t.kz = l1 * t.c2 + l2 * t.c23 + l3 * t.c234;
   const T u_z = -t.kz;
   t.v_x = -t.sx;
   t.v_y = t.c1 * b_y - t.s1 * u_z;
   t.v_z = t.s1 * b_y + t.c1 * u_z;
+}
+
+template <typename T>
+__device__ __forceinline__ Chain<T> chain_terms(const T qe[5], T b_y, T l1, T l2, T l3) {
+  Chain<T> t;
+  chain_trig(qe, t);
+  chain_reach(t, b_y, l1, l2, l3);
   return t;
+}
+
+// kinematics.foot_position of leg `leg` (FK model), from the chain with the
+// FK model's lengths
+template <typename T>
+__device__ __forceinline__ void fk_foot(const SrbParams<T>& c, int leg, const Chain<T>& t,
+                                        T out[3]) {
+  const T w_x = c.fk_a_x + t.v_x, w_y = c.fk_a_y[leg] + t.v_y;
+  out[0] = t.c0 * w_x - t.s0 * w_y;
+  out[1] = t.s0 * w_x + t.c0 * w_y;
+  out[2] = c.fk_a_z + t.v_z;
 }
 
 // kinematics.foot_position of leg `leg` (FK model), from raw angles q
@@ -158,11 +192,7 @@ __device__ __forceinline__ void foot_position(const SrbParams<T>& c, int leg, co
   T qe[5];
 #pragma unroll
   for (int j = 0; j < 5; ++j) qe[j] = q[j] + c.offsets[j];
-  const Chain<T> t = chain_terms(qe, c.fk_b_y[leg], c.fk_l[0], c.fk_l[1], c.fk_l[2]);
-  const T w_x = c.fk_a_x + t.v_x, w_y = c.fk_a_y[leg] + t.v_y;
-  out[0] = t.c0 * w_x - t.s0 * w_y;
-  out[1] = t.s0 * w_x + t.c0 * w_y;
-  out[2] = c.fk_a_z + t.v_z;
+  fk_foot(c, leg, chain_terms(qe, c.fk_b_y[leg], c.fk_l[0], c.fk_l[1], c.fk_l[2]), out);
 }
 
 // terrain_height: h floor(x / max(len, 1e-3))
@@ -197,38 +227,32 @@ __device__ __forceinline__ void fk_world(const SrbParams<T>& c, int leg, const T
   for (int j = 0; j < 3; ++j) out[j] = p[j] + (hv[0] * r[j][0] + hv[1] * r[j][1] + hv[2] * r[j][2]);
 }
 
-// tau = J_fm^T f of leg `leg` (kinematics.leg_jacobians, Jacobian model,
-// rows 0-2 the force Jacobian, rows 3-5 the joint axes), as the (1, 6) x
-// (6, 5) product: six terms a column, zeros included
-template <typename T>
-__device__ __forceinline__ void wrench_torques(const SrbParams<T>& c, int leg, const T q[5],
-                                               const T f[6], T tau[5]) {
-  T qe[5];
-#pragma unroll
-  for (int j = 0; j < 5; ++j) qe[j] = q[j] + c.offsets[j];
-  const T l1 = c.jac_l[0], l2 = c.jac_l[1], l3 = c.jac_l[2], b_y = c.jac_b_y[leg];
-  const Chain<T> t = chain_terms(qe, b_y, l1, l2, l3);
+// kinematics.leg_jacobians' J_force_moment of leg `leg`, from the chain with
+// the Jacobian model's lengths b_y, l1-l3, handed to `column(j, col)` a joint
+// at a time, so that the caller takes each column as it is made (the plant
+// step sums its torque there): rows 0-2 the force Jacobian d p / d q_j
+// (_chain_jacobian's closed form), rows 3-5 the joint axis, with its zero
+// and one entries
+template <typename T, typename F>
+__device__ __forceinline__ void force_moment_jacobian(const SrbParams<T>& c, int leg,
+                                                      const Chain<T>& t, T b_y, T l1, T l2,
+                                                      T l3, F&& column) {
   const T c0 = t.c0, s0 = t.s0, c1 = t.c1, s1 = t.s1;
   const T w_x = c.jac_a_x + t.v_x, w_y = c.jac_a_y[leg] + t.v_y;
   const T zero = T(0), one = T(1);
   // the joint axes: yaw (0,0,1), roll (c0,s0,0), pitch (-c1 s0, c0 c1, s1)
   const T px = -c1 * s0, py = c0 * c1, pz = s1;
-  T col[3];
   // q0
-  col[0] = -s0 * w_x - c0 * w_y;
-  col[1] = c0 * w_x - s0 * w_y;
-  col[2] = zero;
-  tau[0] = f[0] * col[0] + f[1] * col[1] + f[2] * col[2] + f[3] * zero + f[4] * zero +
-           f[5] * one;
+  {
+    const T col[6] = {-s0 * w_x - c0 * w_y, c0 * w_x - s0 * w_y, zero, zero, zero, one};
+    column(0, col);
+  }
   // q1: only v_y, v_z move
   {
     const T dvy = -s1 * b_y + c1 * t.kz;
     const T dvz = c1 * b_y + s1 * t.kz;
-    col[0] = -s0 * dvy;
-    col[1] = c0 * dvy;
-    col[2] = dvz;
-    tau[1] = f[0] * col[0] + f[1] * col[1] + f[2] * col[2] + f[3] * c0 + f[4] * s0 +
-             f[5] * zero;
+    const T col[6] = {-s0 * dvy, c0 * dvy, dvz, c0, s0, zero};
+    column(1, col);
   }
   // q2, q3, q4: d sx and d kz of the planar reach
   const T dsx[3] = {l1 * t.c2 + l2 * t.c23 + l3 * t.c234, l2 * t.c23 + l3 * t.c234,
@@ -240,12 +264,25 @@ __device__ __forceinline__ void wrench_torques(const SrbParams<T>& c, int leg, c
     const T dvx = -dsx[j];
     const T dvy = s1 * dkz[j];
     const T dvz = -c1 * dkz[j];
-    col[0] = c0 * dvx - s0 * dvy;
-    col[1] = s0 * dvx + c0 * dvy;
-    col[2] = dvz;
-    tau[2 + j] = f[0] * col[0] + f[1] * col[1] + f[2] * col[2] + f[3] * px + f[4] * py +
-                 f[5] * pz;
+    const T col[6] = {c0 * dvx - s0 * dvy, s0 * dvx + c0 * dvy, dvz, px, py, pz};
+    column(2 + j, col);
   }
+}
+
+// tau = J_fm^T f of leg `leg`, as the (1, 6) x (6, 5) product: six terms a
+// column, zeros included
+template <typename T>
+__device__ __forceinline__ void wrench_torques(const SrbParams<T>& c, int leg, const T q[5],
+                                               const T f[6], T tau[5]) {
+  T qe[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) qe[j] = q[j] + c.offsets[j];
+  const T l1 = c.jac_l[0], l2 = c.jac_l[1], l3 = c.jac_l[2], b_y = c.jac_b_y[leg];
+  const Chain<T> t = chain_terms(qe, b_y, l1, l2, l3);
+  force_moment_jacobian(c, leg, t, b_y, l1, l2, l3, [&](int j, const T(&col)[6]) {
+    tau[j] = f[0] * col[0] + f[1] * col[1] + f[2] * col[2] + f[3] * col[3] + f[4] * col[4] +
+             f[5] * col[5];
+  });
 }
 
 // kinematics.leg_ik of one leg: raw-frame joint targets towards the body-
@@ -518,6 +555,50 @@ __global__ void __launch_bounds__(THREADS) srb_plant_step_kernel(const SrbArgs a
   }
 }
 
+// The leg data of runtime.controller_tick (span tick.legs) for every lane
+// in one launch, one thread a lane: kinematics.leg_jacobians' first output
+// J_force_moment, foot_position (the FK model) and q_data = q + offsets,
+// each leg's trigonometry taken once for both models.  Some 10 sincos and
+// 200 flops a lane over 10 numbers in and 76 out, so, as in the plant step,
+// the thread's chain of dependent operations bounds it, not memory.  Each
+// output is kinematics.leg_data's plain version's ops in their order, zero
+// and one entries written as they are, so a NaN or inf in q reaches the
+// entries it reaches there.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) tick_legs_kernel(const LegsArgs a,
+                                                            const SrbParams<T> c) {
+  const long long b = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (b >= a.batch) return;
+  T* const o_jfm = static_cast<T*>(a.out[0]);
+  T* const o_p = static_cast<T*>(a.out[1]);
+  T* const o_q = static_cast<T*>(a.out[2]);
+#pragma unroll
+  for (int leg = 0; leg < 2; ++leg) {
+    const long long bl = b * 2 + leg;
+    T qe[5];
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      qe[j] = load<T>(a.q, b, leg, j) + c.offsets[j];
+      o_q[bl * 5 + j] = qe[j];
+    }
+    // one trigonometry, the two models' reaches
+    Chain<T> fk, jac;
+    chain_trig(qe, fk);
+    jac = fk;
+    chain_reach(fk, c.fk_b_y[leg], c.fk_l[0], c.fk_l[1], c.fk_l[2]);
+    const T b_y = c.jac_b_y[leg], l1 = c.jac_l[0], l2 = c.jac_l[1], l3 = c.jac_l[2];
+    chain_reach(jac, b_y, l1, l2, l3);
+    T p[3];
+    fk_foot(c, leg, fk, p);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) o_p[bl * 3 + i] = p[i];
+    force_moment_jacobian(c, leg, jac, b_y, l1, l2, l3, [&](int j, const T(&col)[6]) {
+#pragma unroll
+      for (int r = 0; r < 6; ++r) o_jfm[(bl * 6 + r) * 5 + j] = col[r];
+    });
+  }
+}
+
 template <typename T>
 int launch(const SrbArgs& args, const void* params, cudaStream_t stream) {
   const int grid = (args.batch + THREADS - 1) / THREADS;
@@ -527,12 +608,20 @@ int launch(const SrbArgs& args, const void* params, cudaStream_t stream) {
 }
 
 template <typename T>
-int attributes(int* num_regs, int* local_bytes, int* threads, int* blocks_per_sm) {
+int launch_legs(const LegsArgs& args, const void* params, cudaStream_t stream) {
+  const int grid = (args.batch + THREADS - 1) / THREADS;
+  tick_legs_kernel<T><<<grid, THREADS, 0, stream>>>(
+      args, *static_cast<const SrbParams<T>*>(params));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K>
+int attributes(K kernel, int* num_regs, int* local_bytes, int* threads, int* blocks_per_sm) {
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, srb_plant_step_kernel<T>);
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   int nb = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, srb_plant_step_kernel<T>, THREADS, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel, THREADS, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   *num_regs = fa.numRegs;
   *local_bytes = static_cast<int>(fa.localSizeBytes);
@@ -559,12 +648,32 @@ const char* srb_plant_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Launches the leg data of args->batch lanes on `stream`:
+// tick_legs_kernel<double> if `is_double`, else <float>; `params` as for
+// srb_plant_step.  Returns cudaGetLastError() as an int (0 = launched).
+int tick_legs(int is_double, const LegsArgs* args, const void* params, void* stream) {
+  if (args->batch <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_double ? launch_legs<double>(*args, params, st)
+                   : launch_legs<float>(*args, params, st);
+}
+
 // What the compiled kernel of the dtype takes: registers and local bytes a
 // thread, threads a block, and the blocks an SM holds at once.
 int srb_plant_attributes(int is_double, int* num_regs, int* local_bytes, int* threads,
                          int* blocks_per_sm) {
-  return is_double ? attributes<double>(num_regs, local_bytes, threads, blocks_per_sm)
-                   : attributes<float>(num_regs, local_bytes, threads, blocks_per_sm);
+  return is_double ? attributes(srb_plant_step_kernel<double>, num_regs, local_bytes, threads,
+                                blocks_per_sm)
+                   : attributes(srb_plant_step_kernel<float>, num_regs, local_bytes, threads,
+                                blocks_per_sm);
+}
+
+int tick_legs_attributes(int is_double, int* num_regs, int* local_bytes, int* threads,
+                         int* blocks_per_sm) {
+  return is_double ? attributes(tick_legs_kernel<double>, num_regs, local_bytes, threads,
+                                blocks_per_sm)
+                   : attributes(tick_legs_kernel<float>, num_regs, local_bytes, threads,
+                                blocks_per_sm);
 }
 
 }  // extern "C"

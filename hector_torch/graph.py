@@ -106,13 +106,14 @@ def phase_table(capture_id):
 def kernel_counters():
     """The launch counters of the port's kernel wrappers, as (module,
     attribute name) pairs."""
+    from . import kinematics
     from .plant import srb
     from .qp import chol, fused_riccati
     return ((fused_riccati, 'launches'), (fused_riccati, 'polish_launches'),
             (chol, 'factor_launches'), (chol, 'factor_shared_launches'),
             (chol, 'factor_cluster_launches'), (chol, 'solve_launches'),
             (chol, 'solve_shared_launches'), (chol, 'solve_stream_launches'),
-            (srb, 'plant_launches'))
+            (srb, 'plant_launches'), (kinematics, 'legs_launches'))
 
 
 def leaves(tree):

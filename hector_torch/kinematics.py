@@ -11,10 +11,18 @@ chain; here it is the same derivative written in closed form.
 
 All functions take the two legs stacked on axis -2: q has shape (..., 2, 5);
 leg 0 is left.
+
+:func:`leg_data` is what the controller tick reads of the legs: on CUDA
+tensors one launch of ``tick_legs_kernel`` (``hector_torch/csrc/
+srb_plant.cu``, beside the plant step, whose device functions it shares),
+counted in ``legs_launches``; on CPU tensors the batched ops of
+:func:`leg_jacobians`, :func:`foot_position` and the offsets.  The JAX
+package leaves these to XLA's fusion, so the kernel replaces no TPU kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -145,6 +153,86 @@ def leg_jacobians(q_raw, cfg: HectorConfig = DEFAULT_CONFIG):
         jms.append(torch.cat([jf, jang], dim=-2))
         jfs.append(jf)
     return torch.stack(jms, dim=-3), torch.stack(jfs, dim=-3)
+
+
+legs_launches = 0       # launches of tick_legs_kernel since import (or the
+                        # caller's reset)
+
+
+def leg_data(q_raw, cfg: HectorConfig = DEFAULT_CONFIG):
+    """What the controller tick reads of the legs (LegController::updateData
+    with the data.q quirk): (J_force_moment (B, 2, 6, 5), the first output
+    of :func:`leg_jacobians`; p_leg (B, 2, 3), :func:`foot_position`;
+    q_data (B, 2, 5), the offset-corrected angles) of raw motor angles
+    q_raw (B, 2, 5).
+
+    A CUDA tensor goes to :func:`leg_data_cuda`, a CPU tensor to the batched
+    ops; nothing falls back from one to the other.
+    """
+    if q_raw.device.type == 'cuda':
+        return leg_data_cuda(q_raw, cfg)
+    j_fm, _ = leg_jacobians(q_raw, cfg)
+    return j_fm, foot_position(q_raw, cfg), q_raw + _offsets(q_raw)
+
+
+class _LegsArgs(ctypes.Structure):
+    """Mirror of ``LegsArgs``: q's data and its strides in elements (the
+    fields of its ``SrbIn``), the three outputs, the batch."""
+
+    _fields_ = [('q', ctypes.c_void_p), ('s0', ctypes.c_longlong),
+                ('s1', ctypes.c_longlong), ('s2', ctypes.c_longlong),
+                ('out', ctypes.c_void_p * 3), ('batch', ctypes.c_int)]
+
+
+def legs_launch_args(q_raw, cfg: HectorConfig = DEFAULT_CONFIG):
+    """The kernel's arguments: (``LegsArgs``, the ``SrbParams`` of ``cfg``,
+    the outputs (j_fm, p_leg, q_data) as new tensors on q_raw's device).
+    Takes a float32 or float64 (B, 2, 5) tensor of any strides (read
+    through them, nothing copied); raises on anything else."""
+    # the library and its constants live with the plant kernel, whose
+    # source holds this kernel too (plant.srb imports this module)
+    from .plant import srb
+    if not isinstance(q_raw, torch.Tensor):
+        raise TypeError(f'leg_data: q must be a tensor, got {type(q_raw)}')
+    dtype, dev = q_raw.dtype, q_raw.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f'leg_data: the kernel takes float32 or float64, '
+                        f'got {dtype}')
+    if q_raw.dim() != 3 or tuple(q_raw.shape[1:]) != (2, 5):
+        raise ValueError(f'leg_data: q must have shape (B, 2, 5), got '
+                         f'{tuple(q_raw.shape)}')
+    bsz = q_raw.shape[0]
+    out = (torch.empty((bsz, 2, 6, 5), dtype=dtype, device=dev),
+           torch.empty((bsz, 2, 3), dtype=dtype, device=dev),
+           torch.empty((bsz, 2, 5), dtype=dtype, device=dev))
+    args = _LegsArgs(q_raw.data_ptr(), *q_raw.stride(),
+                     (ctypes.c_void_p * 3)(*[t.data_ptr() for t in out]), bsz)
+    return args, srb._params(cfg, dtype), out
+
+
+def leg_data_cuda(q_raw, cfg: HectorConfig = DEFAULT_CONFIG):
+    """:func:`leg_data` as one launch of ``tick_legs_kernel`` on the current
+    stream, no synchronisation, counted in ``legs_launches``; raises on
+    what :func:`legs_launch_args` refuses, on a tensor off the card and on
+    a launch error."""
+    global legs_launches
+    from .plant import srb
+    dev = q_raw.device
+    if dev.type != 'cuda':
+        raise ValueError(f'kinematics.leg_data_cuda: q is on {dev}, the '
+                         f'kernel runs on a CUDA device')
+    args, prm, out = legs_launch_args(q_raw, cfg)
+    lib = srb._kernel_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.tick_legs(int(q_raw.dtype == torch.float64),
+                           ctypes.byref(args), ctypes.byref(prm), stream)
+    if rc != 0:
+        err = lib.srb_plant_error_string(rc).decode()
+        raise RuntimeError(f'tick_legs launch failed: CUDA error {rc} '
+                           f'({err})')
+    legs_launches += 1
+    return out
 
 
 def foot_rotation(q_eff):

@@ -332,9 +332,12 @@ def _kernel_lib():
         lib.srb_plant_step.restype = ctypes.c_int
         lib.srb_plant_error_string.argtypes = [ctypes.c_int]
         lib.srb_plant_error_string.restype = ctypes.c_char_p
-        lib.srb_plant_attributes.argtypes = (
-            [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4)
-        lib.srb_plant_attributes.restype = ctypes.c_int
+        lib.tick_legs.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_void_p]
+        lib.tick_legs.restype = ctypes.c_int
+        for fn in (lib.srb_plant_attributes, lib.tick_legs_attributes):
+            fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -344,14 +347,18 @@ def build():
     return _kernel_lib()
 
 
-def kernel_attributes(dtype=torch.float32):
+def kernel_attributes(dtype=torch.float32, kernel='srb_plant'):
     """What cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor report for the kernel of
-    ``dtype``."""
+    ``dtype``: the plant step (``'srb_plant'``) or the tick's leg data
+    (``'tick_legs'``, kinematics.leg_data)."""
+    if kernel not in ('srb_plant', 'tick_legs'):
+        raise ValueError(f"kernel must be 'srb_plant' or 'tick_legs', got "
+                         f'{kernel!r}')
     lib = _kernel_lib()
     vals = [ctypes.c_int() for _ in range(4)]
-    rc = lib.srb_plant_attributes(int(dtype == torch.float64),
-                                  *[ctypes.byref(v) for v in vals])
+    rc = getattr(lib, f'{kernel}_attributes')(
+        int(dtype == torch.float64), *[ctypes.byref(v) for v in vals])
     if rc != 0:
         raise RuntimeError('cudaFuncGetAttributes failed: '
                            + lib.srb_plant_error_string(rc).decode())

@@ -17,9 +17,9 @@ from typing import NamedTuple
 
 import torch
 
-from . import constant, resolve_device
+from . import resolve_device
 from . import graph, prng
-from .config import HectorConfig, DEFAULT_CONFIG, JOINT_OFFSETS
+from .config import HectorConfig, DEFAULT_CONFIG
 from . import gait as G
 from . import control as C
 from . import estimation as EST
@@ -27,7 +27,7 @@ from . import mpc as M
 from . import swing as SW
 from .plant import srb
 from .io.profiling import span
-from .kinematics import foot_position, leg_jacobians
+from .kinematics import foot_position, leg_data
 
 N_SEGMENTS = 10  # gait table length == MPC horizon (GaitGenerator ctor args)
 
@@ -204,7 +204,6 @@ def controller_tick(carry: ControllerCarry, plant: srb.PlantState,
     dict).
     """
     dtype = plant.position.dtype
-    offsets = constant('JOINT_OFFSETS', JOINT_OFFSETS, plant.q)
 
     # --- state estimation; the KF's foot-height rows read the commanded
     # terrain map at its own foot-x estimates, never the plant's ground ---
@@ -217,9 +216,7 @@ def controller_tick(carry: ControllerCarry, plant: srb.PlantState,
 
     # --- LegController::updateData (+ the data.q mutation quirk) ---
     with span('tick.legs'):
-        j_fm, _ = leg_jacobians(plant.q, cfg)
-        p_leg = foot_position(plant.q, cfg)
-        q_data = plant.q + offsets
+        j_fm, p_leg, q_data = leg_data(plant.q, cfg)
 
     with span('tick.command'):
         # --- DesiredStateCommand ---

@@ -302,12 +302,13 @@ def test_plant_launches_is_a_graph_counter():
 
 
 def _host_source():
-    """srb_plant.cu with the kernel launch rewritten for the stand-in."""
+    """srb_plant.cu with the kernel launches (the plant step's and the
+    tick's leg data's) rewritten for the stand-in."""
     src = srb.SOURCE.read_text()
     src, n = re.subn(r'(\w+<\w+>)<<<(.+?)>>>\(',
                      lambda m: f'host_launch({m.group(1)}, {m.group(2)}, ',
                      src, flags=re.S)
-    assert n == 1 and '<<<' not in src and 'asm' not in src
+    assert n == 2 and '<<<' not in src and 'asm' not in src
     return src
 
 
