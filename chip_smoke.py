@@ -593,16 +593,14 @@ def factor_vs_plain(l_k, m):
 
 def launch_counts():
     """Every kernel wrapper's launch count that is not 0, by counter name
-    (graph.kernel_counters)."""
-    from hector_torch import graph
-    return {name: getattr(obj, name) for obj, name in graph.kernel_counters()
-            if getattr(obj, name)}
+    (the registry cuda.counts)."""
+    from hector_torch import cuda
+    return {name: n for name, n in cuda.counts.read().items() if n}
 
 
 def reset_launch_counts():
-    from hector_torch import graph
-    for obj, name in graph.kernel_counters():
-        setattr(obj, name, 0)
+    from hector_torch import cuda
+    cuda.counts.reset()
 
 
 def to_cpu(tree):
@@ -1008,6 +1006,7 @@ def stage_entry_phase(main_state, card):
     largest |du| against the plain version."""
     from hector_torch import mpc as M
     from hector_torch.config import DEFAULT_CONFIG as CFG
+    from hector_torch.cuda import counts as LC      # the launch counts
     from hector_torch.qp import fused_riccati as FR
 
     scfg = CFG.solver
@@ -1019,13 +1018,13 @@ def stage_entry_phase(main_state, card):
     # the weights as solve_batched reads them from the float32 tensors
     q_t = tuple(sqp.q_diag[-1].tolist())
     r_t = tuple(sqp.r_diag[-1].tolist())
-    FR.launches = FR.polish_launches = 0
+    LC.launches = LC.polish_launches = 0
     sol_e = FR.solve_batched(sqp, scfg)
     torch.cuda.synchronize()
-    entry_launches = (FR.launches, FR.polish_launches)
+    entry_launches = (LC.launches, LC.polish_launches)
     sol_ep = FR.solve_batched(sqp, pcfg)
     torch.cuda.synchronize()
-    entry_polish_launches = (FR.launches, FR.polish_launches)
+    entry_polish_launches = (LC.launches, LC.polish_launches)
     all_finite(entry_u=sol_e.u, entry_polish_u=sol_ep.u)
     stage_slices = FR.stage_parts(sqp)
     # the entry is the kernel on the stage form's slices, which the
@@ -2339,12 +2338,12 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         sys.exit(1)
-    from hector_torch import bench
-    from hector_torch import kinematics as K
+    from hector_torch import bench, cuda
     from hector_torch import mpc as M
     from hector_torch import runtime as RT
     from hector_torch.plant import srb
     from hector_torch.config import DEFAULT_CONFIG as CFG
+    from hector_torch.cuda import counts as LC      # the launch counts
     from hector_torch.qp import chol as CH
     from hector_torch.qp import fused_riccati as FR
     from hector_torch.qp import pdip as PD
@@ -2360,18 +2359,16 @@ def main():
     # ---- build: one nvcc per source, all started together ----
     t0 = time.perf_counter()
     with ThreadPoolExecutor(3) as pool:
-        for fut in [pool.submit(FR.build), pool.submit(CH.build),
-                    pool.submit(srb.build)]:
+        for fut in [pool.submit(lib.load)
+                    for lib in (cuda.FUSED, cuda.CHOL, cuda.SRB)]:
             fut.result()
     build_s = time.perf_counter() - t0
     ptxas = {}
     nvcc_seconds = {}
-    for info in (*FR.build_info.values(), CH.build_info,
-                 *srb.build_info.values()):
-        ptxas.update(parse_ptxas(info.get('ptxas', '')))
-    for name, info in (*FR.build_info.items(), ('chol.cu', CH.build_info),
-                       *srb.build_info.items()):
-        nvcc_seconds[name] = info.get('seconds')
+    for lib in (cuda.FUSED, cuda.CHOL, cuda.SRB):
+        for name, info in lib.build_info.items():
+            ptxas.update(parse_ptxas(info.get('ptxas', '')))
+            nvcc_seconds[name] = info.get('seconds')
     n = 12 * CFG.mpc.horizon            # the dense path's KKT matrices
     n_long = 12 * LONG_HORIZON
     # each Cholesky kernel at the n of the path it serves
@@ -2480,12 +2477,12 @@ def main():
     if not (math.isfinite(step_err) and step_err <= STEP_TOL):
         raise RuntimeError(f'card vs CPU planning step differs by {step_err}')
     # the reference's interpreted-kernel name: the plain solver on the card
-    fr_before = FR.launches + FR.polish_launches
+    fr_before = LC.launches + LC.polish_launches
     plan_int = RT.plan_step_fn(
         with_solver(CFG, backend='riccati_pallas_interpret'))
     _, w_int, m_int = plan_int(carry, plant, cmd)
     torch.cuda.synchronize()
-    int_launches = FR.launches + FR.polish_launches - fr_before
+    int_launches = LC.launches + LC.polish_launches - fr_before
     int_err = max(float((w_int.cpu() - w_cpu).abs().max()),
                   float((m_int.tau.cpu() - m_cpu.tau).abs().max()))
     emit(dict(phase='check', batch=256, backend='riccati_pallas_interpret',
@@ -2515,7 +2512,7 @@ def main():
     reset_launch_counts()
     total_ms, ((c, p), _) = cuda_timed(
         lambda: chained((carry, plant), cmd))
-    main_launches = FR.launches
+    main_launches = LC.launches
     step_ms = total_ms / MAIN_CHAIN
     if launch_counts() != {'launches': MAIN_CHAIN,
                            'legs_launches': MAIN_CHAIN}:
@@ -2555,14 +2552,14 @@ def main():
                     RT.standing_command(LOOP_BATCH - half, device=dev))
     roll = RT.make_rollout(LOOP_PERIODS, CFG)
     torch.cuda.synchronize()
-    FR.launches = srb.plant_launches = K.legs_launches = 0
+    LC.launches = LC.plant_launches = LC.legs_launches = 0
     t0 = time.perf_counter()
     carry, plant, diags = roll(carry, plant, cmd)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
-    loop_launches = FR.launches
-    loop_plant_launches = srb.plant_launches
-    loop_legs_launches = K.legs_launches
+    loop_launches = LC.launches
+    loop_plant_launches = LC.plant_launches
+    loop_legs_launches = LC.legs_launches
     h = diags['height'].cpu().numpy()
     vx = diags['vx'].cpu().numpy()
     fallen = int(diags['fallen'].sum())
@@ -2892,8 +2889,8 @@ def main():
     total_ms, ((c, p), _) = cuda_timed(
         lambda: chained_dense((carry, plant), cmd))
     dense_launches = launch_counts()
-    dense_factor_launches = CH.factor_launches
-    dense_solve_launches = CH.solve_launches
+    dense_factor_launches = LC.factor_launches
+    dense_solve_launches = LC.solve_launches
     dense_step_ms = total_ms / DENSE_CHAIN
     reset_launch_counts()
     w_dense = []
@@ -2921,7 +2918,7 @@ def main():
           carry, plant, cmd, DENSE_CHAIN, w_interp)
     chain(plan, carry, plant, cmd, DENSE_CHAIN, w_riccati)
     torch.cuda.synchronize()
-    if (CH.factor_launches, CH.solve_launches) != (want['factor_launches'],
+    if (LC.factor_launches, LC.solve_launches) != (want['factor_launches'],
                                                    want['solve_launches']):
         raise RuntimeError('the comparison runs launched Cholesky kernels')
     d_interp = float((torch.stack(w_dense) - torch.stack(w_interp)).abs().max())
@@ -3252,18 +3249,18 @@ def main():
     plan_polish = RT.plan_step_fn(with_solver(CFG,
                                               polish_rounds=POLISH_ROUNDS))
     chain(plan_polish, carry, plant, cmd, 1)        # warm-up, not counted
-    FR.launches = FR.polish_launches = 0
-    CH.factor_launches = CH.solve_launches = 0
+    LC.launches = LC.polish_launches = 0
+    LC.factor_launches = LC.solve_launches = 0
     total_ms, (c, p, wrench, motor) = cuda_timed(
         lambda: chain(plan_polish, carry, plant, cmd, POLISH_CHAIN))
-    polish_path_launches = FR.polish_launches
+    polish_path_launches = LC.polish_launches
     polish_step_ms = total_ms / POLISH_CHAIN
-    if (polish_path_launches != POLISH_CHAIN or FR.launches
-            or CH.factor_launches or CH.solve_launches):
+    if (polish_path_launches != POLISH_CHAIN or LC.launches
+            or LC.factor_launches or LC.solve_launches):
         raise RuntimeError(
             f'polish path launched the kernel with polish '
-            f'{polish_path_launches} times, without {FR.launches} times and '
-            f'the Cholesky kernels {CH.factor_launches}/{CH.solve_launches} '
+            f'{polish_path_launches} times, without {LC.launches} times and '
+            f'the Cholesky kernels {LC.factor_launches}/{LC.solve_launches} '
             f'times, expected {POLISH_CHAIN}, 0 and 0/0')
     all_finite(polish_wrench=wrench, polish_tau=motor.tau,
                polish_f_ff=c.planner.f_ff)

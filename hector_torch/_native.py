@@ -1,7 +1,7 @@
 """Build native sources into a shared library, once per content.
 
 Every library of this package is built here at first use, never at
-import: the CUDA kernels with nvcc (``qp/_nvcc.py`` gives the compiler and
+import: the CUDA kernels with nvcc (``cuda.py`` declares each source with
 its flags), and the host libraries (the float64 QP oracle, the qpOASES
 bridge and the scenario generator) with g++ from the sources under the
 repository's ``native/`` (and, for qpOASES, from sources outside it), with

@@ -44,12 +44,12 @@ own step.  :func:`stats` reads the process's cumulative counters: replays,
 host nanoseconds inside ``graph.launch``, captures, their seconds and their
 nodes by type.
 
-Launch counters: a kernel wrapper counts its launches in a Python counter
-(``fused_riccati.launches`` and the like), which moves once while the step
-is recorded and never when the graph replays.  The launches of the warm-up
-and of the capture are set-up, as JAX's compile is, and are taken back out
-of the counters; each replay adds what the capture moved them by.  So a
-counter reads after a run what the same run made eagerly reads.
+Launch counters: a kernel wrapper counts its launches in the registry
+``cuda.counts``, which moves once while the step is recorded and never when
+the graph replays.  The launches of the warm-up and of the capture are
+set-up, as JAX's compile is, and are taken back out of the registry; each
+replay adds what the capture moved it by.  So a counter reads after a run
+what the same run made eagerly reads.
 """
 
 from __future__ import annotations
@@ -63,6 +63,7 @@ import weakref
 
 import torch
 
+from . import cuda
 from .io import profiling
 
 WARMUP = 2          # eager runs of the step on a side stream before capture
@@ -104,16 +105,9 @@ def phase_table(capture_id):
 
 
 def kernel_counters():
-    """The launch counters of the port's kernel wrappers, as (module,
-    attribute name) pairs."""
-    from . import kinematics
-    from .plant import srb
-    from .qp import chol, fused_riccati
-    return ((fused_riccati, 'launches'), (fused_riccati, 'polish_launches'),
-            (chol, 'factor_launches'), (chol, 'factor_shared_launches'),
-            (chol, 'factor_cluster_launches'), (chol, 'solve_launches'),
-            (chol, 'solve_shared_launches'), (chol, 'solve_stream_launches'),
-            (srb, 'plant_launches'), (kinematics, 'legs_launches'))
+    """The launch counters of the port's kernel wrappers, as (registry,
+    name) pairs (``cuda.COUNTERS``)."""
+    return tuple((cuda.counts, name) for name in cuda.COUNTERS)
 
 
 def leaves(tree):
@@ -145,33 +139,21 @@ class StepGraph:
 
     The captures are kept per shapes, dtypes and devices of the arguments
     (``captures``), so a batch size, a dtype or a card of its own gets a
-    capture of its own.  ``counters``: the launch counters to carry over
-    replays, default :func:`kernel_counters`."""
+    capture of its own."""
 
-    def __init__(self, step, n_steps: int, counters=None):
+    def __init__(self, step, n_steps: int):
         if n_steps < 1:
             raise ValueError(f'n_steps must be at least 1, got {n_steps}')
         self.step, self.n_steps = step, n_steps
-        self.counters = (kernel_counters() if counters is None
-                         else tuple(counters))
         self.captures = {}
 
     def __call__(self, state, inputs):
         key = _signature((state, inputs))
         cap = self.captures.get(key)
         if cap is None:
-            cap = self.captures[key] = Capture(
-                self.step, self.n_steps, self.counters, state, inputs)
+            cap = self.captures[key] = Capture(self.step, self.n_steps,
+                                               state, inputs)
         return cap.run(state, inputs)
-
-
-def _read(counters):
-    return [getattr(obj, name) for obj, name in counters]
-
-
-def _write(counters, values):
-    for (obj, name), v in zip(counters, values):
-        setattr(obj, name, v)
 
 
 class Capture:
@@ -183,8 +165,8 @@ class Capture:
     to its StepGraph, so that no cycle keeps a graph alive until a
     collection, which could then come in the middle of another capture."""
 
-    def __init__(self, step, n_steps, counters, state, inputs):
-        self.step, self.n_steps, self.counters = step, n_steps, counters
+    def __init__(self, step, n_steps, state, inputs):
+        self.step, self.n_steps = step, n_steps
         self.device = leaves((state, inputs))[0].device
         self.state = tree_map(torch.clone, state)
         self.inputs = tree_map(torch.clone, inputs)
@@ -242,8 +224,7 @@ class Capture:
     def _record(self):
         """Warm-up, record, instantiate; the phase table read at the
         end."""
-        counters = self.counters
-        saved = _read(counters)
+        saved = cuda.counts.read()
         with _LOCK, self._context():
             main = torch.cuda.current_stream()
             side = torch.cuda.Stream()
@@ -257,7 +238,7 @@ class Capture:
             # kept after instantiation, so that its nodes can be read
             # (raw_cuda_graph)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            before = _read(counters)
+            before = cuda.counts.read()
             # a graph freed while this one records (its destructor calls into
             # CUDA) spoils the capture: collect what is garbage now,
             # and let no collection run until the capture ends
@@ -280,8 +261,9 @@ class Capture:
                 if collecting:
                     gc.enable()
             graph.instantiate()
-            self.delta = [a - b for a, b in zip(_read(counters), before)]
-            _write(counters, saved)
+            self.delta = {k: v - before[k]
+                          for k, v in cuda.counts.read().items()}
+            cuda.counts.write(saved)
             self.nodes = profiling.graph_nodes(graph.raw_cuda_graph())
             self.phases = rec.table()
             torch.cuda.synchronize()
@@ -301,8 +283,8 @@ class Capture:
             _STATS['replays'] += 1
             _STATS['launch_ns'] += launch_ns
             if self.graph is not None:
-                _write(self.counters, [v + d for v, d in
-                                       zip(_read(self.counters), self.delta)])
+                cuda.counts.write({k: v + self.delta[k]
+                                   for k, v in cuda.counts.read().items()})
 
     def load(self, state, inputs):
         """The caller's arguments into the static buffers, the step count

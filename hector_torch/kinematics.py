@@ -14,8 +14,9 @@ leg 0 is left.
 
 :func:`leg_data` is what the controller tick reads of the legs: on CUDA
 tensors one launch of ``tick_legs_kernel`` (``hector_torch/csrc/
-srb_plant.cu``, beside the plant step, whose device functions it shares),
-counted in ``legs_launches``; on CPU tensors the batched ops of
+srb_plant.cu``, beside the plant step, whose device functions and
+constants, :func:`srb_params`, it shares), counted in ``legs_launches`` of
+the registry ``cuda.counts``; on CPU tensors the batched ops of
 :func:`leg_jacobians`, :func:`foot_position` and the offsets.  The JAX
 package leaves these to XLA's fusion, so the kernel replaces no TPU kernel.
 """
@@ -23,12 +24,14 @@ package leaves these to XLA's fusion, so the kernel replaces no TPU kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from . import constant
 from .config import HectorConfig, DEFAULT_CONFIG, JOINT_OFFSETS
+from .cuda import SRB, LegsArgs, make_srb_params
 
 # side sign per leg for the FK / Jacobian models (LegController.cpp:122-126)
 FK_SIDE = (1.0, -1.0)
@@ -155,10 +158,6 @@ def leg_jacobians(q_raw, cfg: HectorConfig = DEFAULT_CONFIG):
     return torch.stack(jms, dim=-3), torch.stack(jfs, dim=-3)
 
 
-legs_launches = 0       # launches of tick_legs_kernel since import (or the
-                        # caller's reset)
-
-
 def leg_data(q_raw, cfg: HectorConfig = DEFAULT_CONFIG):
     """What the controller tick reads of the legs (LegController::updateData
     with the data.q quirk): (J_force_moment (B, 2, 6, 5), the first output
@@ -175,13 +174,35 @@ def leg_data(q_raw, cfg: HectorConfig = DEFAULT_CONFIG):
     return j_fm, foot_position(q_raw, cfg), q_raw + _offsets(q_raw)
 
 
-class _LegsArgs(ctypes.Structure):
-    """Mirror of ``LegsArgs``: q's data and its strides in elements (the
-    fields of its ``SrbIn``), the three outputs, the batch."""
-
-    _fields_ = [('q', ctypes.c_void_p), ('s0', ctypes.c_longlong),
-                ('s1', ctypes.c_longlong), ('s2', ctypes.c_longlong),
-                ('out', ctypes.c_void_p * 3), ('batch', ctypes.c_int)]
+@functools.cache
+def srb_params(cfg: HectorConfig, dtype):
+    """The ``SrbParams`` of ``cfg`` for a state of ``dtype`` (float32 or
+    float64), made once per pair: the constants of both kernels of
+    csrc/srb_plant.cu, in double precision, each the Python number (or the
+    values of the constant tensor) that the plain versions round to the
+    state's dtype."""
+    pc, fk, jm, ik, sw = cfg.plant, cfg.fk, cfg.jac, cfg.ik, cfg.swing
+    hip = [cfg.robot.hip_yaw_location(0), cfg.robot.hip_yaw_location(1)]
+    x, y = sw.hip_width_offset_x, sw.hip_width_offset_y
+    return make_srb_params(dtype, dict(
+        dt=pc.dt, mass=pc.mass, gravity=pc.gravity,
+        torque_limit=pc.torque_limit, contact_kp=pc.contact_kp,
+        contact_kd=pc.contact_kd, trunk_radius=pc.trunk_radius,
+        ground_mu=pc.ground_mu, joint_vel_limit=pc.joint_vel_limit,
+        joint_tracking_tau=pc.joint_tracking_tau,
+        swing_joint_inertia=pc.swing_joint_inertia,
+        inertia=list(pc.inertia_body), offsets=list(JOINT_OFFSETS),
+        hip_yaw=[v for leg in hip for v in leg],
+        hip_width=[x, -y, 0.0, x, y, 0.0],
+        fk_a_x=fk.a_x, fk_a_y=[fk.a_y_side * s for s in FK_SIDE],
+        fk_a_z=fk.a_z, fk_b_y=[fk.b_y_side * s for s in FK_SIDE],
+        fk_l=[fk.l_thigh, fk.l_calf, fk.l_toe],
+        jac_a_x=jm.a_x, jac_a_y=[jm.a_y_side * s for s in FK_SIDE],
+        jac_b_y=[jm.b_y_side * s + jm.b_y_const for s in FK_SIDE],
+        jac_l=[jm.l_thigh, jm.l_calf, jm.l_toe],
+        ik_hip_x=ik.hip_x, ik_hip_z=ik.hip_z, ik_dh=ik.distance_horizontal,
+        ik_dh2=ik.distance_horizontal ** 2, ik_eps=ik.eps_vertical,
+        ik_two_l=2.0 * ik.l_link, ik_side=list(IK_SIDE), pi=math.pi))
 
 
 def legs_launch_args(q_raw, cfg: HectorConfig = DEFAULT_CONFIG):
@@ -189,9 +210,6 @@ def legs_launch_args(q_raw, cfg: HectorConfig = DEFAULT_CONFIG):
     the outputs (j_fm, p_leg, q_data) as new tensors on q_raw's device).
     Takes a float32 or float64 (B, 2, 5) tensor of any strides (read
     through them, nothing copied); raises on anything else."""
-    # the library and its constants live with the plant kernel, whose
-    # source holds this kernel too (plant.srb imports this module)
-    from .plant import srb
     if not isinstance(q_raw, torch.Tensor):
         raise TypeError(f'leg_data: q must be a tensor, got {type(q_raw)}')
     dtype, dev = q_raw.dtype, q_raw.device
@@ -205,9 +223,9 @@ def legs_launch_args(q_raw, cfg: HectorConfig = DEFAULT_CONFIG):
     out = (torch.empty((bsz, 2, 6, 5), dtype=dtype, device=dev),
            torch.empty((bsz, 2, 3), dtype=dtype, device=dev),
            torch.empty((bsz, 2, 5), dtype=dtype, device=dev))
-    args = _LegsArgs(q_raw.data_ptr(), *q_raw.stride(),
-                     (ctypes.c_void_p * 3)(*[t.data_ptr() for t in out]), bsz)
-    return args, srb._params(cfg, dtype), out
+    args = LegsArgs(q_raw.data_ptr(), *q_raw.stride(),
+                    (ctypes.c_void_p * 3)(*[t.data_ptr() for t in out]), bsz)
+    return args, srb_params(cfg, dtype), out
 
 
 def leg_data_cuda(q_raw, cfg: HectorConfig = DEFAULT_CONFIG):
@@ -215,23 +233,14 @@ def leg_data_cuda(q_raw, cfg: HectorConfig = DEFAULT_CONFIG):
     stream, no synchronisation, counted in ``legs_launches``; raises on
     what :func:`legs_launch_args` refuses, on a tensor off the card and on
     a launch error."""
-    global legs_launches
-    from .plant import srb
     dev = q_raw.device
     if dev.type != 'cuda':
         raise ValueError(f'kinematics.leg_data_cuda: q is on {dev}, the '
                          f'kernel runs on a CUDA device')
     args, prm, out = legs_launch_args(q_raw, cfg)
-    lib = srb._kernel_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tick_legs(int(q_raw.dtype == torch.float64),
-                           ctypes.byref(args), ctypes.byref(prm), stream)
-    if rc != 0:
-        err = lib.srb_plant_error_string(rc).decode()
-        raise RuntimeError(f'tick_legs launch failed: CUDA error {rc} '
-                           f'({err})')
-    legs_launches += 1
+    SRB.launch('tick_legs', dev, int(q_raw.dtype == torch.float64),
+               ctypes.byref(args), ctypes.byref(prm),
+               counted=('legs_launches',))
     return out
 
 

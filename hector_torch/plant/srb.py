@@ -11,8 +11,9 @@ See the JAX module's docstring for the modeling rationale.
 :func:`step` is the entry point.  A CUDA tensor goes to one launch of
 ``srb_plant_step_kernel`` (``hector_torch/csrc/srb_plant.cu``, one thread a
 lane, built with nvcc at first use into ``hector_torch/_build/``), counted in
-``plant_launches``; a CPU tensor to :func:`step_plain`, the same tick in
-batched PyTorch ops.  Nothing falls back from one to the other.  The JAX
+``plant_launches`` of the registry ``cuda.counts``; a CPU tensor to
+:func:`step_plain`, the same tick in batched PyTorch ops.  Nothing falls
+back from one to the other.  The JAX
 package leaves the step to XLA's fusion, so the kernel replaces no TPU
 kernel.
 """
@@ -20,18 +21,16 @@ kernel.
 from __future__ import annotations
 
 import ctypes
-import math
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from .. import constant, resolve_device
-from ..config import HectorConfig, DEFAULT_CONFIG, JOINT_OFFSETS
+from ..config import HectorConfig, DEFAULT_CONFIG
+from ..cuda import SRB, SrbArgs, SrbIn
 from .. import math as hm
-from ..kinematics import (FK_SIDE, IK_SIDE, foot_position, leg_jacobians,
-                          leg_ik, apply_joint_offsets, hip_yaw_locations)
-from ..qp import _nvcc
+from ..kinematics import (foot_position, leg_jacobians, leg_ik,
+                          apply_joint_offsets, hip_yaw_locations, srb_params)
 from ..swing import hip_width_offset
 
 
@@ -227,125 +226,6 @@ def step_plain(state: PlantState, cmd, wrench_world, contact_sched,
 # --------------------------------------------------------------------------
 # the CUDA kernel: csrc/srb_plant.cu, one thread a lane
 
-SOURCE = Path(__file__).resolve().parent.parent / 'csrc' / 'srb_plant.cu'
-BUILD_ROOT = Path(__file__).resolve().parent.parent / '_build'
-# -fmad=false: a product and a sum round apart, as step_plain's ops do
-NVCC_FLAGS = _nvcc.NVCC_FLAGS + ('-fmad=false',)
-
-plant_launches = 0      # launches of srb_plant_step_kernel since import (or
-                        # the caller's reset)
-build_info = {}         # ptxas report; nvcc command and seconds if built here
-_lib = None
-
-
-class _In(ctypes.Structure):
-    """Mirror of ``SrbIn``: a tensor's data and its strides in elements."""
-
-    _fields_ = [('p', ctypes.c_void_p), ('s0', ctypes.c_longlong),
-                ('s1', ctypes.c_longlong), ('s2', ctypes.c_longlong)]
-
-
-_INPUTS = ('position', 'quat', 'v_world', 'omega_world', 'q', 'qd',
-           'foot_anchor', 'contact', 'kp', 'kd', 'q_des', 'wrench', 'sched',
-           'disturbance', 'terrain_h', 'terrain_len')
-
-
-class _Args(ctypes.Structure):
-    """Mirror of ``SrbArgs``."""
-
-    _fields_ = ([(name, _In) for name in _INPUTS]
-                + [('out', ctypes.c_void_p * 8), ('batch', ctypes.c_int)])
-
-
-# Mirror of ``SrbParams<T>``: (name, length) in the struct's order
-_PARAM_FIELDS = (
-    ('dt', 1), ('mass', 1), ('gravity', 1), ('torque_limit', 1),
-    ('contact_kp', 1), ('contact_kd', 1), ('trunk_radius', 1),
-    ('ground_mu', 1), ('joint_vel_limit', 1), ('joint_tracking_tau', 1),
-    ('swing_joint_inertia', 1), ('inertia', 3), ('offsets', 5),
-    ('hip_yaw', 6), ('hip_width', 6), ('fk_a_x', 1), ('fk_a_y', 2),
-    ('fk_a_z', 1), ('fk_b_y', 2), ('fk_l', 3), ('jac_a_x', 1),
-    ('jac_a_y', 2), ('jac_b_y', 2), ('jac_l', 3), ('ik_hip_x', 1),
-    ('ik_hip_z', 1), ('ik_dh', 1), ('ik_dh2', 1), ('ik_eps', 1),
-    ('ik_two_l', 1), ('ik_side', 2), ('pi', 1))
-_PARAM_TYPES = {}
-_PARAMS = {}
-
-
-def _param_values(cfg: HectorConfig):
-    """The kernel's constants from ``cfg``, in double precision: each is
-    the Python number (or the values of the constant tensor) that
-    step_plain rounds to the state's dtype."""
-    pc, fk, jm, ik, sw = cfg.plant, cfg.fk, cfg.jac, cfg.ik, cfg.swing
-    hip = [cfg.robot.hip_yaw_location(0), cfg.robot.hip_yaw_location(1)]
-    x, y = sw.hip_width_offset_x, sw.hip_width_offset_y
-    return dict(
-        dt=pc.dt, mass=pc.mass, gravity=pc.gravity,
-        torque_limit=pc.torque_limit, contact_kp=pc.contact_kp,
-        contact_kd=pc.contact_kd, trunk_radius=pc.trunk_radius,
-        ground_mu=pc.ground_mu, joint_vel_limit=pc.joint_vel_limit,
-        joint_tracking_tau=pc.joint_tracking_tau,
-        swing_joint_inertia=pc.swing_joint_inertia,
-        inertia=list(pc.inertia_body), offsets=list(JOINT_OFFSETS),
-        hip_yaw=[v for leg in hip for v in leg],
-        hip_width=[x, -y, 0.0, x, y, 0.0],
-        fk_a_x=fk.a_x, fk_a_y=[fk.a_y_side * s for s in FK_SIDE],
-        fk_a_z=fk.a_z, fk_b_y=[fk.b_y_side * s for s in FK_SIDE],
-        fk_l=[fk.l_thigh, fk.l_calf, fk.l_toe],
-        jac_a_x=jm.a_x, jac_a_y=[jm.a_y_side * s for s in FK_SIDE],
-        jac_b_y=[jm.b_y_side * s + jm.b_y_const for s in FK_SIDE],
-        jac_l=[jm.l_thigh, jm.l_calf, jm.l_toe],
-        ik_hip_x=ik.hip_x, ik_hip_z=ik.hip_z, ik_dh=ik.distance_horizontal,
-        ik_dh2=ik.distance_horizontal ** 2, ik_eps=ik.eps_vertical,
-        ik_two_l=2.0 * ik.l_link, ik_side=list(IK_SIDE), pi=math.pi)
-
-
-def _params(cfg: HectorConfig, dtype):
-    """The ``SrbParams`` of ``cfg`` for a state of ``dtype`` (float32 or
-    float64), made once per pair."""
-    key = (cfg, dtype)
-    prm = _PARAMS.get(key)
-    if prm is None:
-        ctype = ctypes.c_double if dtype == torch.float64 else ctypes.c_float
-        struct = _PARAM_TYPES.get(ctype)
-        if struct is None:
-            struct = _PARAM_TYPES[ctype] = type(
-                f'SrbParams_{ctype.__name__}', (ctypes.Structure,),
-                {'_fields_': [(n, ctype * k if k > 1 else ctype)
-                              for n, k in _PARAM_FIELDS]})
-        vals = _param_values(cfg)
-        prm = _PARAMS[key] = struct(**{
-            n: (ctype * k)(*vals[n]) if k > 1 else vals[n]
-            for n, k in _PARAM_FIELDS})
-    return prm
-
-
-def _kernel_lib():
-    """csrc/srb_plant.cu, compiled for sm_90a once and loaded."""
-    global _lib
-    if _lib is None:
-        so, info = _nvcc.compile_shared(SOURCE, BUILD_ROOT, NVCC_FLAGS)
-        build_info[SOURCE.name] = info
-        lib = ctypes.CDLL(str(so))
-        lib.srb_plant_step.argtypes = [ctypes.c_int, ctypes.POINTER(_Args),
-                                       ctypes.c_void_p, ctypes.c_void_p]
-        lib.srb_plant_step.restype = ctypes.c_int
-        lib.srb_plant_error_string.argtypes = [ctypes.c_int]
-        lib.srb_plant_error_string.restype = ctypes.c_char_p
-        lib.tick_legs.argtypes = [ctypes.c_int, ctypes.c_void_p,
-                                  ctypes.c_void_p, ctypes.c_void_p]
-        lib.tick_legs.restype = ctypes.c_int
-        for fn in (lib.srb_plant_attributes, lib.tick_legs_attributes):
-            fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def build():
-    """Compile the source for sm_90a (once) and load it."""
-    return _kernel_lib()
-
 
 def kernel_attributes(dtype=torch.float32, kernel='srb_plant'):
     """What cudaFuncGetAttributes and
@@ -355,13 +235,9 @@ def kernel_attributes(dtype=torch.float32, kernel='srb_plant'):
     if kernel not in ('srb_plant', 'tick_legs'):
         raise ValueError(f"kernel must be 'srb_plant' or 'tick_legs', got "
                          f'{kernel!r}')
-    lib = _kernel_lib()
     vals = [ctypes.c_int() for _ in range(4)]
-    rc = getattr(lib, f'{kernel}_attributes')(
-        int(dtype == torch.float64), *[ctypes.byref(v) for v in vals])
-    if rc != 0:
-        raise RuntimeError('cudaFuncGetAttributes failed: '
-                           + lib.srb_plant_error_string(rc).decode())
+    SRB.call(f'{kernel}_attributes', int(dtype == torch.float64),
+             *[ctypes.byref(v) for v in vals])
     regs, local, threads, blocks = [v.value for v in vals]
     return dict(registers=regs, local_bytes=local, threads_per_block=threads,
                 blocks_per_sm=blocks)
@@ -369,7 +245,7 @@ def kernel_attributes(dtype=torch.float32, kernel='srb_plant'):
 
 def _view(name, t, shape, dtype, dev):
     """``t`` broadcast to ``shape`` (a view: strides 0 where it broadcasts,
-    nothing copied) as the kernel's ``In``; raises on a dtype, a device or
+    nothing copied) as the kernel's ``SrbIn``; raises on a dtype, a device or
     a shape the kernel does not take."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f'srb.step: {name} must be a tensor, got {type(t)}')
@@ -384,7 +260,7 @@ def _view(name, t, shape, dtype, dev):
         raise ValueError(f'srb.step: {name} has shape {tuple(t.shape)}, the '
                          f'kernel takes {shape}') from None
     strides = list(v.stride()) + [0] * (3 - v.dim())
-    return _In(v.data_ptr(), *strides)
+    return SrbIn(v.data_ptr(), *strides)
 
 
 def launch_args(state: PlantState, cmd, wrench_world, contact_sched,
@@ -421,10 +297,10 @@ def launch_args(state: PlantState, cmd, wrench_world, contact_sched,
         _view('q_des', cmd.q_des, (bsz, 2, 5), dtype, dev),
         _view('wrench_world', wrench_world, (bsz, 2, 6), dtype, dev),
         _view('contact_sched', contact_sched, (bsz, 2), torch.bool, dev)]
-    v.append(_In() if disturbance is None else
+    v.append(SrbIn() if disturbance is None else
              _view('disturbance', disturbance, (bsz, 6), dtype, dev))
     if terrain is None:
-        v += [_In(), _In()]
+        v += [SrbIn(), SrbIn()]
     else:
         v += [_view('terrain step height', terrain[0], (bsz,), dtype, dev),
               _view('terrain step length', terrain[1], (bsz,), dtype, dev)]
@@ -437,9 +313,9 @@ def launch_args(state: PlantState, cmd, wrench_world, contact_sched,
         qd=torch.empty((bsz, 2, 5), dtype=dtype, device=dev),
         foot_anchor=torch.empty((bsz, 2, 3), dtype=dtype, device=dev),
         contact=torch.empty((bsz, 2), dtype=torch.bool, device=dev))
-    args = _Args(*v, (ctypes.c_void_p * 8)(*[t.data_ptr() for t in out]),
-                 bsz)
-    return args, _params(cfg, dtype), out, contact_sched
+    args = SrbArgs(*v, (ctypes.c_void_p * 8)(*[t.data_ptr() for t in out]),
+                   bsz)
+    return args, srb_params(cfg, dtype), out, contact_sched
 
 
 def step_cuda(state: PlantState, cmd, wrench_world, contact_sched,
@@ -449,7 +325,6 @@ def step_cuda(state: PlantState, cmd, wrench_world, contact_sched,
     current stream, no synchronisation, counted in ``plant_launches``;
     raises on what :func:`launch_args` refuses, on a state off the card
     and on a launch error."""
-    global plant_launches
     dev = state.position.device
     if dev.type != 'cuda':
         raise ValueError(f'srb.step_cuda: the state is on {dev}, the kernel '
@@ -458,16 +333,9 @@ def step_cuda(state: PlantState, cmd, wrench_world, contact_sched,
     args, prm, out, keep = launch_args(state, cmd, wrench_world,
                                        contact_sched, disturbance, terrain,
                                        cfg)
-    lib = _kernel_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.srb_plant_step(int(out.position.dtype == torch.float64),
-                                ctypes.byref(args), ctypes.byref(prm), stream)
-    if rc != 0:
-        err = lib.srb_plant_error_string(rc).decode()
-        raise RuntimeError(f'srb_plant_step launch failed: CUDA error {rc} '
-                           f'({err})')
-    plant_launches += 1
+    SRB.launch('srb_plant_step', dev, int(out.position.dtype == torch.float64),
+               ctypes.byref(args), ctypes.byref(prm),
+               counted=('plant_launches',))
     return out
 
 

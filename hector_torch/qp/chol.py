@@ -30,42 +30,33 @@ per iteration.
 - :func:`cholesky_nnb_plain` and :func:`cholesky_solve_nnb_plain` are the
   textbook loops of the TPU kernels over the batch, in any float type.
 
-``factor_launches`` and ``solve_launches`` count kernel launches (the plain
-versions never touch them); ``factor_shared_launches``,
-``factor_cluster_launches``, ``solve_shared_launches`` and
-``solve_stream_launches`` count those of them that went to the
-shared-triangle factor, the cluster factor, the shared-memory solve and the
-streaming solve.
+Each launch moves ``factor_launches`` or ``solve_launches`` in the
+registry ``cuda.counts`` (the plain versions never touch it), and a launch
+of the shared-triangle factor, the cluster factor, the shared-memory solve
+or the streaming solve moves ``factor_shared_launches``,
+``factor_cluster_launches``, ``solve_shared_launches`` or
+``solve_stream_launches`` too.
 """
 
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
+import functools
 
 import torch
 
-from . import _nvcc
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / 'csrc' / 'chol.cu'
-BUILD_ROOT = _PKG / '_build'
-NVCC_FLAGS = _nvcc.NVCC_FLAGS
+from ..cuda import CHOL
 
 # the kernels of csrc/chol.cu, numbered as its KernelId
 KERNELS = ('factor_tile', 'factor_shared', 'solve_tile', 'solve_shared',
            'factor_cluster', 'solve_stream')
-
-factor_launches = 0     # launches of a factor kernel since import or reset
-factor_shared_launches = 0  # of which the shared-triangle factor kernel's
-factor_cluster_launches = 0  # of which the cluster factor kernel's
-solve_launches = 0      # launches of a solve kernel since import or reset
-solve_shared_launches = 0   # of which the shared-memory solve kernel's
-solve_stream_launches = 0   # of which the streaming solve kernel's
-build_info = {}         # ptxas report; nvcc command and seconds if built here
-_lib = None
-_max_n = None
-_tile_max_n = None
+# the registry names a launch of each kernel moves
+_COUNTED = {'factor_tile': ('factor_launches',),
+            'factor_shared': ('factor_launches', 'factor_shared_launches'),
+            'factor_cluster': ('factor_launches', 'factor_cluster_launches'),
+            'solve_tile': ('solve_launches',),
+            'solve_shared': ('solve_launches', 'solve_shared_launches'),
+            'solve_stream': ('solve_launches', 'solve_stream_launches')}
 
 
 # --------------------------------------------------------------------------
@@ -111,52 +102,6 @@ def cholesky_solve_nnb_plain(l, rhs):
 # the CUDA kernels
 
 
-def build():
-    """Compile csrc/chol.cu for sm_90a (once) and load it."""
-    global _lib, _max_n, _tile_max_n
-    if _lib is not None:
-        return _lib
-    so, info = _nvcc.compile_shared(SOURCE, BUILD_ROOT, NVCC_FLAGS)
-    build_info.update(info)
-    _lib = _load(so)
-    _max_n = _lib.chol_max_n()
-    _tile_max_n = _lib.chol_factor_tile_max_n()
-    return _lib
-
-
-def kernel_variant(defines=()):
-    """csrc/chol.cu built with extra ``-D`` flags (the profiling switches
-    CHOL_PHASE_CLOCKS, CHOL_STEP_CLOCKS and CHOL_EXTRA_SMEM) and loaded: (library, build
-    record).  Install the library as ``_lib`` (after :func:`build`) to
-    launch it through the wrappers."""
-    so, info = _nvcc.compile_shared(SOURCE, BUILD_ROOT,
-                                    NVCC_FLAGS + tuple(defines))
-    return _load(so), info
-
-
-def _load(so):
-    lib = ctypes.CDLL(str(so))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.chol_factor, lib.chol_factor_shared,
-               lib.chol_factor_cluster):
-        fn.argtypes = [ptr, ptr, i32, i32] + [i64] * 6 + [ptr]
-        fn.restype = i32
-    for fn in (lib.chol_solve, lib.chol_solve_shared, lib.chol_solve_stream):
-        fn.argtypes = [ptr, ptr, ptr, i32, i32] + [i64] * 7 + [ptr]
-        fn.restype = i32
-    lib.chol_error_string.argtypes = [i32]
-    lib.chol_error_string.restype = ctypes.c_char_p
-    for fn in (lib.chol_max_n, lib.chol_factor_tile_max_n):
-        fn.argtypes = []
-        fn.restype = i32
-    for fn in (lib.chol_factor_route, lib.chol_solve_route):
-        fn.argtypes = [i32]
-        fn.restype = i32
-    lib.chol_kernel_attributes.argtypes = [i32, i32, ctypes.POINTER(i32)]
-    lib.chol_kernel_attributes.restype = i32
-    return lib
-
-
 def _check(dev, *args):
     """Raise on what the kernels do not take: float32, the expected shape,
     dense storage (any permutation of a contiguous tensor: the kernels take
@@ -189,28 +134,28 @@ def _dims(t_bnn):
     return t_bnn.shape[0], t_bnn.shape[1]
 
 
-def _library(n):
-    """The kernels' library, built at first use; raises if an n x n matrix
-    does not fit a block's shared memory."""
-    lib = build()
-    if n > _max_n:
-        raise ValueError(f'chol: n = {n} exceeds {_max_n}, the largest '
+@functools.cache
+def _limits():
+    """(the largest n the kernels take, the largest n of the register-tile
+    kernels), asked once the library is loaded."""
+    lib = CHOL.load()
+    return lib.chol_max_n(), lib.chol_factor_tile_max_n()
+
+
+def _check_n(n):
+    """Raise if an n x n matrix does not fit a block's shared memory (the
+    library is built at first use)."""
+    max_n = _limits()[0]
+    if n > max_n:
+        raise ValueError(f'chol: n = {n} exceeds {max_n}, the largest '
                          f'matrix that fits a block\'s shared memory and '
                          f'the cluster factor\'s tiles')
-    return lib
-
-
-def _raise_on(rc, what):
-    if rc != 0:
-        raise RuntimeError(f'chol {what} launch failed: CUDA error {rc} '
-                           f'({_lib.chol_error_string(rc).decode()})')
 
 
 def tile_max_n():
     """The largest n the factor and the solve give their register-tile
     kernels (the library is built at first use)."""
-    build()
-    return _tile_max_n
+    return _limits()[1]
 
 
 def route(n: int, op: str = 'factor'):
@@ -218,56 +163,41 @@ def route(n: int, op: str = 'factor'):
     ``op`` ('factor' or 'solve') launches at n: the one it decides by."""
     if op not in ('factor', 'solve'):
         raise ValueError(f"op is 'factor' or 'solve', not {op!r}")
-    lib = build()
+    lib = CHOL.load()
     fn = lib.chol_factor_route if op == 'factor' else lib.chol_solve_route
     return KERNELS[fn(n)]
 
 
-def _factor_launch(entry, m_bnn, l_bnn):
+def _factor(entry, m_bnn, l_bnn, kernel=None):
+    """Launch ``entry`` on the current stream and count ``kernel``'s
+    launch; None: ``route(n)``'s, which ``chol_factor`` launches."""
     bsz, n = _dims(m_bnn)
     dev = m_bnn.device
     _check(dev, ('m', m_bnn, (bsz, n, n)), ('l', l_bnn, (bsz, n, n)))
-    lib = _library(n)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, entry)(
-            m_bnn.data_ptr(), l_bnn.data_ptr(), n, bsz,
-            m_bnn.stride(1), m_bnn.stride(2), m_bnn.stride(0),
-            l_bnn.stride(1), l_bnn.stride(2), l_bnn.stride(0), stream)
-    _raise_on(rc, 'factor')
-    return n
+    _check_n(n)
+    CHOL.launch(entry, dev, m_bnn.data_ptr(), l_bnn.data_ptr(), n, bsz,
+                m_bnn.stride(1), m_bnn.stride(2), m_bnn.stride(0),
+                l_bnn.stride(1), l_bnn.stride(2), l_bnn.stride(0),
+                counted=_COUNTED[kernel or route(n)])
+    return l_bnn
 
 
 def factor_cuda(m_bnn, l_bnn):
     """Launch the factor on (B, n, n) views of any dense strides: the kernel
     of ``route(n)`` (the C entry point chooses by n)."""
-    global factor_launches, factor_shared_launches, factor_cluster_launches
-    n = _factor_launch('chol_factor', m_bnn, l_bnn)
-    kernel = KERNELS[_lib.chol_factor_route(n)]
-    factor_launches += 1
-    factor_shared_launches += kernel == 'factor_shared'
-    factor_cluster_launches += kernel == 'factor_cluster'
-    return l_bnn
+    return _factor('chol_factor', m_bnn, l_bnn)
 
 
 def factor_shared_cuda(m_bnn, l_bnn):
     """Launch the shared-triangle factor kernel at any n (it computes what
     :func:`factor_cuda` computes, bit for bit)."""
-    global factor_launches, factor_shared_launches
-    _factor_launch('chol_factor_shared', m_bnn, l_bnn)
-    factor_launches += 1
-    factor_shared_launches += 1
-    return l_bnn
+    return _factor('chol_factor_shared', m_bnn, l_bnn, 'factor_shared')
 
 
 def factor_cluster_cuda(m_bnn, l_bnn):
     """Launch the cluster factor kernel at any n (at n <= ``tile_max_n()``
     it computes what the tile kernel computes, bit for bit)."""
-    global factor_launches, factor_cluster_launches
-    _factor_launch('chol_factor_cluster', m_bnn, l_bnn)
-    factor_launches += 1
-    factor_cluster_launches += 1
-    return l_bnn
+    return _factor('chol_factor_cluster', m_bnn, l_bnn, 'factor_cluster')
 
 
 def kernel_attributes(n: int = 120, kernel: str = 'factor_tile'):
@@ -280,12 +210,9 @@ def kernel_attributes(n: int = 120, kernel: str = 'factor_tile'):
     (cudaOccupancyMaxActiveClusters)."""
     if kernel not in KERNELS:
         raise ValueError(f'kernel is one of {KERNELS}, not {kernel!r}')
-    lib = _library(n)
+    _check_n(n)
     vals = (ctypes.c_int * 8)()
-    rc = lib.chol_kernel_attributes(KERNELS.index(kernel), n, vals)
-    if rc != 0:
-        raise RuntimeError(f'chol_kernel_attributes failed: CUDA error {rc} '
-                           f'({lib.chol_error_string(rc).decode()})')
+    CHOL.call('chol_kernel_attributes', KERNELS.index(kernel), n, vals)
     regs, local, static, dynamic, threads, blocks, csize, clusters = list(vals)
     out = dict(kernel=kernel, n=n, registers=regs, local_bytes=local,
                static_smem_bytes=static, dynamic_smem_bytes=dynamic,
@@ -296,52 +223,40 @@ def kernel_attributes(n: int = 120, kernel: str = 'factor_tile'):
     return out
 
 
-def _solve_launch(entry, l_bnn, rhs_bn, x_bn):
+def _solve(entry, l_bnn, rhs_bn, x_bn, kernel=None):
+    """Launch ``entry`` on the current stream and count ``kernel``'s
+    launch; None: ``route(n, 'solve')``'s, which ``chol_solve``
+    launches."""
     bsz, n = _dims(l_bnn)
     dev = l_bnn.device
     _check(dev, ('l', l_bnn, (bsz, n, n)), ('rhs', rhs_bn, (bsz, n)),
            ('x', x_bn, (bsz, n)))
-    lib = _library(n)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, entry)(
-            l_bnn.data_ptr(), rhs_bn.data_ptr(), x_bn.data_ptr(), n, bsz,
-            l_bnn.stride(1), l_bnn.stride(2), l_bnn.stride(0),
-            rhs_bn.stride(1), rhs_bn.stride(0),
-            x_bn.stride(1), x_bn.stride(0), stream)
-    _raise_on(rc, 'solve')
-    return n
+    _check_n(n)
+    CHOL.launch(entry, dev, l_bnn.data_ptr(), rhs_bn.data_ptr(),
+                x_bn.data_ptr(), n, bsz,
+                l_bnn.stride(1), l_bnn.stride(2), l_bnn.stride(0),
+                rhs_bn.stride(1), rhs_bn.stride(0),
+                x_bn.stride(1), x_bn.stride(0),
+                counted=_COUNTED[kernel or route(n, 'solve')])
+    return x_bn
 
 
 def solve_cuda(l_bnn, rhs_bn, x_bn):
     """Launch the solve on (B, n, n) / (B, n) views: the kernel of
     ``route(n, 'solve')``."""
-    global solve_launches, solve_stream_launches
-    n = _solve_launch('chol_solve', l_bnn, rhs_bn, x_bn)
-    solve_launches += 1
-    solve_stream_launches += (KERNELS[_lib.chol_solve_route(n)]
-                              == 'solve_stream')
-    return x_bn
+    return _solve('chol_solve', l_bnn, rhs_bn, x_bn)
 
 
 def solve_stream_cuda(l_bnn, rhs_bn, x_bn):
     """Launch the streaming solve kernel at any n (at n <= ``tile_max_n()``
     it computes what the tile kernel computes, bit for bit)."""
-    global solve_launches, solve_stream_launches
-    _solve_launch('chol_solve_stream', l_bnn, rhs_bn, x_bn)
-    solve_launches += 1
-    solve_stream_launches += 1
-    return x_bn
+    return _solve('chol_solve_stream', l_bnn, rhs_bn, x_bn, 'solve_stream')
 
 
 def solve_shared_cuda(l_bnn, rhs_bn, x_bn):
     """Launch the shared-memory solve kernel at any n (it computes what
     :func:`solve_cuda` computes, bit for bit)."""
-    global solve_launches, solve_shared_launches
-    _solve_launch('chol_solve_shared', l_bnn, rhs_bn, x_bn)
-    solve_launches += 1
-    solve_shared_launches += 1
-    return x_bn
+    return _solve('chol_solve_shared', l_bnn, rhs_bn, x_bn, 'solve_shared')
 
 
 def _route(t, name):

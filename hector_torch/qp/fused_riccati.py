@@ -24,9 +24,10 @@ active-set polish (``:542-610``):
 One source holds the kernel, ``hector_torch/csrc/fused_riccati_warp.cu``:
 one warp per scenario, a template compiled twice.
 ``fused_riccati_warp_kernel<false>`` is the interior point alone, which the
-default configuration (``polish_rounds = 0``) launches; ``launches`` counts
-it.  ``fused_riccati_warp_kernel<true>`` adds the polish and serves
-``polish_rounds > 0``; ``polish_launches`` counts it, and
+default configuration (``polish_rounds = 0``) launches; ``launches`` in the
+registry ``cuda.counts`` counts it.  ``fused_riccati_warp_kernel<true>``
+adds the polish and serves ``polish_rounds > 0``; ``polish_launches``
+counts it, and
 :func:`polish_counts` reads the kernel's own counts of the lanes it polished
 and of those whose polish it rejected (they keep the interior point's
 iterate).  Their ratio is the fallback rate.
@@ -37,14 +38,13 @@ The plain version touches no counter.
 from __future__ import annotations
 
 import ctypes
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from .. import constant
 from ..config import SolverConfig
-from . import _nvcc
+from ..cuda import FUSED, FusedRiccatiParams
 
 H = 10      # horizon / gait segments
 NX = 13     # state dim  [rpy, p, omega, v, g]
@@ -55,18 +55,6 @@ NC = 16     # constraint rows per stage
 # (hector/constraints.py; pallas_riccati.py:102-114)
 LR = (0, 1, 2, 3, 4, 7, 8, 9, 10, 11, 12, 15)
 UR = (4, 5, 6, 7, 12, 13, 14, 15)
-
-_PKG = Path(__file__).resolve().parent.parent
-WARP_SOURCE = _PKG / 'csrc' / 'fused_riccati_warp.cu'
-BUILD_ROOT = _PKG / '_build'
-NVCC_FLAGS = _nvcc.NVCC_FLAGS
-
-launches = 0            # launches of the kernel without polish since import
-                        # (or the caller's reset)
-polish_launches = 0     # launches of the kernel with polish, likewise
-build_info = {}         # per source file name (and -D flags): ptxas report;
-                        # nvcc command and seconds if built here
-_warp_lib = None        # csrc/fused_riccati_warp.cu
 
 
 class QPSolution(NamedTuple):
@@ -458,55 +446,6 @@ def solve_parts_plain(parts, scfg: SolverConfig, q_diag, r_diag
 # the CUDA kernels
 
 
-class _Params(ctypes.Structure):
-    """Mirror of ``FusedRiccatiParams`` in csrc/fused_riccati_warp.cu."""
-
-    _fields_ = [('q2', ctypes.c_float * NX), ('r2', ctypes.c_float * NU),
-                ('r2reg', ctypes.c_float * NU), ('sigma', ctypes.c_float),
-                ('frac', ctypes.c_float), ('big', ctypes.c_float),
-                ('init_slack', ctypes.c_float), ('init_dual', ctypes.c_float),
-                ('iters', ctypes.c_int), ('polish_rounds', ctypes.c_int),
-                ('polish_iters', ctypes.c_int), ('polish_rho', ctypes.c_float),
-                ('polish_tol', ctypes.c_float)]
-
-
-def _warp_kernel_lib():
-    """csrc/fused_riccati_warp.cu, compiled for sm_90a once and loaded."""
-    global _warp_lib
-    if _warp_lib is None:
-        _warp_lib = warp_kernel_variant()
-    return _warp_lib
-
-
-def warp_kernel_variant(defines=()):
-    """csrc/fused_riccati_warp.cu built with extra ``-D`` flags (the
-    profiling switches FR_PHASE_CLOCKS and FR_EXTRA_SMEM), loaded; with
-    none, the production build.  Install one as ``_warp_lib`` to launch
-    it through :func:`solve_parts_cuda`."""
-    so, info = _nvcc.compile_shared(WARP_SOURCE, BUILD_ROOT,
-                                    NVCC_FLAGS + tuple(defines))
-    build_info[' '.join((WARP_SOURCE.name,) + tuple(defines))] = info
-    lib = ctypes.CDLL(str(so))
-    fn = lib.fused_riccati_warp_solve
-    fn.argtypes = ([ctypes.c_void_p] * 11
-                   + [ctypes.c_int, ctypes.POINTER(_Params), ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.fused_riccati_warp_error_string.argtypes = [ctypes.c_int]
-    lib.fused_riccati_warp_error_string.restype = ctypes.c_char_p
-    lib.fused_riccati_warp_attributes.argtypes = (
-        [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 6)
-    lib.fused_riccati_warp_attributes.restype = ctypes.c_int
-    lib.fused_riccati_warp_polish_counts.argtypes = [
-        ctypes.POINTER(ctypes.c_ulonglong)]
-    lib.fused_riccati_warp_polish_counts.restype = ctypes.c_int
-    return lib
-
-
-def build():
-    """Compile the source for sm_90a (once) and load it."""
-    return _warp_kernel_lib()
-
-
 def kernel_attributes(kernel: str = 'warp'):
     """What cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor report for a compiled
@@ -514,13 +453,9 @@ def kernel_attributes(kernel: str = 'warp'):
     polish)."""
     if kernel not in ('warp', 'polish'):
         raise ValueError(f"kernel is 'warp' or 'polish', not {kernel!r}")
-    lib = _warp_kernel_lib()
     vals = [ctypes.c_int() for _ in range(6)]
-    rc = lib.fused_riccati_warp_attributes(int(kernel == 'polish'),
-                                           *[ctypes.byref(v) for v in vals])
-    if rc != 0:
-        raise RuntimeError('cudaFuncGetAttributes failed: '
-                           + lib.fused_riccati_warp_error_string(rc).decode())
+    FUSED.call('fused_riccati_warp_attributes', int(kernel == 'polish'),
+               *[ctypes.byref(v) for v in vals])
     regs, local, static, dynamic, threads, blocks = [v.value for v in vals]
     return dict(registers=regs, local_bytes=local, static_smem_bytes=static,
                 dynamic_smem_bytes=dynamic, threads_per_block=threads,
@@ -553,50 +488,34 @@ def check_parts(parts):
                              f'parts must be on one CUDA device')
 
 
-def _launch(parts, scfg, q_diag, r_diag):
-    """Check, copy to batch-minor, launch on the current stream (no
-    synchronisation) and raise on a launch error."""
+def solve_parts_cuda(parts, scfg: SolverConfig, q_diag, r_diag
+                     ) -> QPSolution:
+    """Check, copy to batch-minor and launch on the current stream, no
+    synchronisation: ``fused_riccati_warp_kernel<true>`` when
+    ``polish_rounds > 0`` (counted in ``polish_launches``), else
+    ``<false>`` (``launches``)."""
     check_parts(parts)
     q2, r2, r2reg = _weights(scfg, q_diag, r_diag)
-    prm = _Params((ctypes.c_float * NX)(*q2), (ctypes.c_float * NU)(*r2),
-                  (ctypes.c_float * NU)(*r2reg), scfg.sigma_fixed,
-                  scfg.frac_to_boundary, scfg.big_threshold,
-                  scfg.init_slack, scfg.init_dual, int(scfg.iterations),
-                  int(scfg.polish_rounds), int(scfg.polish_iters),
-                  scfg.polish_rho, scfg.polish_tol)
+    prm = FusedRiccatiParams(
+        (ctypes.c_float * NX)(*q2), (ctypes.c_float * NU)(*r2),
+        (ctypes.c_float * NU)(*r2reg), scfg.sigma_fixed,
+        scfg.frac_to_boundary, scfg.big_threshold, scfg.init_slack,
+        scfg.init_dual, int(scfg.iterations), int(scfg.polish_rounds),
+        int(scfg.polish_iters), scfg.polish_rho, scfg.polish_tol)
     bsz = parts.x0.shape[0]
     dev = parts.x0.device
     # batch-minor copies: element-major, scenario-minor
     ins = [t.reshape(bsz, -1).t().contiguous() for t in parts]
     u_t = torch.empty((H * NU, bsz), dtype=torch.float32, device=dev)
     stats_t = torch.empty((3, bsz), dtype=torch.float32, device=dev)
-    lib = _warp_kernel_lib()
     ptrs = [t.data_ptr() for t in ins] + [u_t.data_ptr(), stats_t.data_ptr()]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fused_riccati_warp_solve(*ptrs, bsz, ctypes.byref(prm),
-                                          stream)
-    if rc != 0:
-        err = lib.fused_riccati_warp_error_string(rc).decode()
-        raise RuntimeError(f'fused_riccati launch failed: CUDA error {rc} '
-                           f'({err})')
+    FUSED.launch('fused_riccati_warp_solve', dev, *ptrs, bsz,
+                 ctypes.byref(prm),
+                 counted=('polish_launches' if scfg.polish_rounds > 0
+                          else 'launches',))
     stats = stats_t.t()
     return QPSolution(u=u_t.t().contiguous(), mu=stats[:, 0],
                       r_dual=stats[:, 1], r_prim=stats[:, 2])
-
-
-def solve_parts_cuda(parts, scfg: SolverConfig, q_diag, r_diag
-                     ) -> QPSolution:
-    """Launch on the current stream, no synchronisation:
-    ``fused_riccati_warp_kernel<true>`` when ``polish_rounds > 0``
-    (counted in ``polish_launches``), else ``<false>`` (``launches``)."""
-    global launches, polish_launches
-    sol = _launch(parts, scfg, q_diag, r_diag)
-    if scfg.polish_rounds > 0:
-        polish_launches += 1
-    else:
-        launches += 1
-    return sol
 
 
 def polish_counts(device=None) -> tuple[int, int]:
@@ -606,16 +525,12 @@ def polish_counts(device=None) -> tuple[int, int]:
     launch, graph warm-ups and replays alike, so their ratio is the fallback
     rate.  Synchronises the card: never call it on a timed path.  (0, 0)
     while the library is not loaded."""
-    if _warp_lib is None:
+    if FUSED.handle is None:
         return 0, 0
     out = (ctypes.c_ulonglong * 2)()
     with torch.cuda.device(device):
         torch.cuda.synchronize()
-        rc = _warp_lib.fused_riccati_warp_polish_counts(out)
-    if rc != 0:
-        err = _warp_lib.fused_riccati_warp_error_string(rc).decode()
-        raise RuntimeError(f'fused_riccati: reading the polish counts '
-                           f'failed: CUDA error {rc} ({err})')
+        FUSED.call('fused_riccati_warp_polish_counts', out)
     return out[0], out[1]
 
 

@@ -100,6 +100,7 @@ def main():
         sys.exit(1)
     from hector_torch import mpc as M
     from hector_torch.config import DEFAULT_CONFIG as CFG
+    from hector_torch.cuda import CHOL
     from hector_torch.qp import chol as CH
 
     card = CS.card_line()
@@ -110,12 +111,10 @@ def main():
     for name, extra in {**EXTRA_SMEM, **STREAM_EXTRA_SMEM}.items():
         defines[name] = (f'-DCHOL_EXTRA_SMEM={extra}',)
     with ThreadPoolExecutor(len(defines) + 1) as pool:
-        built = pool.submit(CH.build)
-        variants = {k: pool.submit(CH.kernel_variant, v)
-                    for k, v in defines.items()}
-        production = built.result()
-        builds = {'production': (production, CH.build_info)}
-        builds.update({k: f.result() for k, f in variants.items()})
+        variants = {k: pool.submit(CHOL.variant, v)
+                    for k, v in {'production': (), **defines}.items()}
+        builds = {k: f.result() for k, f in variants.items()}
+        production = CHOL.handle = builds['production'][0]
     qp = CS.scenario_problem(BATCH, 5, dev, M.build_dense)
     seen_m, seen_rhs = CS.kkt_matrices(qp, dataclasses.replace(
         CFG.solver, backend='auto', iterations=6))
@@ -125,11 +124,11 @@ def main():
     x_ref = CH.solve_shared_cuda(ref, rhs, torch.empty_like(rhs))
 
     def with_lib(lib, fn):
-        CH._lib = lib
+        CHOL.handle = lib
         try:
             return fn()
         finally:
-            CH._lib = production
+            CHOL.handle = production
 
     def factor(lib, b=BATCH):
         return with_lib(lib, lambda: CH.cholesky_bnn(m[:b]))
@@ -242,6 +241,7 @@ def cluster_profile(production, clocks, m):
     """The cluster factor at n = 288 on dense_long's iteration-5 KKT
     matrices: bit for bit, timed by batch in both builds, and its panels'
     chain by phase."""
+    from hector_torch.cuda import CHOL
     from hector_torch.qp import chol as CH
 
     dev = m.device
@@ -249,11 +249,11 @@ def cluster_profile(production, clocks, m):
     ref = CH.factor_shared_cuda(m, torch.empty_like(m))
 
     def factor(lib, b):
-        CH._lib = lib
+        CHOL.handle = lib
         try:
             return CH.factor_cluster_cuda(m[:b], torch.empty_like(m[:b]))
         finally:
-            CH._lib = production
+            CHOL.handle = production
 
     libs = {'production': production, 'phase clocks': clocks}
     for name, lib in libs.items():
@@ -351,6 +351,7 @@ def stream_profile(builds, m, rhs, small):
     batches, and at n = 120 beside the tile solve (``small``: chol's
     iteration-5 matrices, their shared-kernel factors and right-hand
     sides)."""
+    from hector_torch.cuda import CHOL
     from hector_torch.qp import chol as CH
 
     production, clocks = builds['production'][0], builds['phase clocks'][0]
@@ -358,11 +359,11 @@ def stream_profile(builds, m, rhs, small):
     ell = CH.factor_shared_cuda(m, torch.empty_like(m))
 
     def solve(lib, entry, ll=ell, r=rhs):
-        CH._lib = lib
+        CHOL.handle = lib
         try:
             return getattr(CH, entry)(ll, r, torch.empty_like(r))
         finally:
-            CH._lib = production
+            CHOL.handle = production
 
     # the shared-memory solve's phases, taken before the streaming solve runs
     CS.emit(dict(kernel='chol_solve_smem_kernel', n=n, batch=batch,
@@ -391,12 +392,12 @@ def stream_profile(builds, m, rhs, small):
             lambda: solve(builds[name][0], 'solve_cuda'), REPS))
     blocks = {}
     for name in STREAM_EXTRA_SMEM:
-        CH._lib = builds[name][0]
+        CHOL.handle = builds[name][0]
         try:
             blocks[name] = CH.kernel_attributes(n, 'solve_stream')[
                 'blocks_per_sm']
         finally:
-            CH._lib = production
+            CHOL.handle = production
     by_batch = {str(b): CS.cuda_ms(lambda: solve(
         production, 'solve_cuda', ell[:b], rhs[:b]), REPS)
         for b in STREAM_BATCHES}

@@ -53,9 +53,8 @@ def main():
     from hector_torch import prng
     from hector_torch import runtime as RT
     from hector_torch.config import DEFAULT_CONFIG as CFG
+    from hector_torch.cuda import counts as LC      # the launch counts
     from hector_torch.io import scenarios as SC
-    from hector_torch.qp import fused_riccati as FR
-    from hector_torch.qp import chol as CH
 
     card = CS.card_line() if cuda else 'cpu'
     one = PAR.data_mesh(1, device=args.device)
@@ -97,14 +96,13 @@ def main():
         carry, plant, _ = PAR.make_batch(batch, cfg=CFG, mesh=mesh)
         cmd = PAR.shard_batch(SC.random_commands(key, batch), mesh)
         sync(mesh)
-        FR.launches = FR.polish_launches = 0
-        CH.factor_launches = CH.solve_launches = 0
+        LC.reset()
         t0 = time.perf_counter()
         carry, plant, metrics = fn(carry, plant, cmd)
         sync(mesh)
         sec = time.perf_counter() - t0
-        launches = FR.launches
-        others = FR.polish_launches + CH.factor_launches + CH.solve_launches
+        launches = LC.launches
+        others = LC.polish_launches + LC.factor_launches + LC.solve_launches
         metrics = {k: float(v) for k, v in metrics.items()}
         CS.emit(dict(way=name, batch=batch, devices=len(mesh),
                      periods=n_periods, seconds=sec,

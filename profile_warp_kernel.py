@@ -43,6 +43,7 @@ def main():
         print('profile_warp_kernel: no CUDA device', file=sys.stderr)
         sys.exit(1)
     from hector_torch.config import DEFAULT_CONFIG as CFG
+    from hector_torch.cuda import FUSED
     from hector_torch.qp import fused_riccati as FR
 
     card = CS.card_line()
@@ -54,35 +55,32 @@ def main():
     builds['phase clocks'] = ('-DFR_PHASE_CLOCKS',)
     for warps, extra in EXTRA_SMEM.items():
         builds[f'{warps} warps an SM'] = (f'-DFR_EXTRA_SMEM={extra}',)
-    libs = {name: FR.warp_kernel_variant(d) for name, d in builds.items()}
+    libs = {name: FUSED.variant(d) for name, d in builds.items()}
     parts = CS.scenario_parts(BATCH, 3, dev)
 
     def run():
         return FR.solve_parts_cuda(parts, scfg, q_diag, r_diag)
 
     recs = {}
-    for name, lib in libs.items():
-        FR._warp_lib = lib
+    for name, (lib, info) in libs.items():
+        FUSED.handle = lib
         CS.hold_to_plain(FR, parts, scfg, q_diag, r_diag)
         run()
         torch.cuda.synchronize()
-        info = FR.build_info[' '.join(('fused_riccati_warp.cu',)
-                                      + builds[name])]
         recs[name] = dict(
             build=name, defines=builds[name],
             ptxas=CS.parse_ptxas(info['ptxas']).get('fused_riccati'),
             attributes=FR.kernel_attributes('warp'), ms_turns=[])
     order = list(libs) + list(libs)[::-1]
     for name in order:
-        FR._warp_lib = libs[name]
+        FUSED.handle = libs[name][0]
         recs[name]['ms_turns'].append(CS.cuda_ms(run, REPS))
     for rec in recs.values():
         rec['ms'] = sum(rec['ms_turns']) / len(rec['ms_turns'])
         rec['card'] = card
         CS.emit(rec)
 
-    lib = libs['phase clocks']
-    FR._warp_lib = lib
+    lib = FUSED.handle = libs['phase clocks'][0]
     cycles = (ctypes.c_ulonglong * len(PHASES))()
     read = lib.fused_riccati_warp_phase_cycles
     read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]

@@ -17,6 +17,7 @@ import torch
 from hector import runtime as JRT
 from hector.config import DEFAULT_CONFIG as JCFG
 
+from hector_torch import cuda
 from hector_torch import mpc as TM
 from hector_torch import runtime as TRT
 from hector_torch.config import DEFAULT_CONFIG as TCFG
@@ -50,9 +51,9 @@ def test_riccati_pallas_interpret_is_the_plain_fused_solver(polish_rounds):
     for backend in ('riccati_pallas', 'riccati_pallas_interpret'):
         cfg = _with_solver(TCFG, backend=backend, polish_rounds=polish_rounds)
         _, parts = TM.build_parts(*args, cfg)
-        before = (FR.launches, FR.polish_launches)
+        before = cuda.counts.read()
         sols.append(TM.solve(parts, cfg))
-        assert (FR.launches, FR.polish_launches) == before
+        assert cuda.counts.read() == before
     assert float(sols[0].u.abs().max()) > 10.0
     for name in sols[0]._fields:
         assert torch.equal(getattr(sols[0], name), getattr(sols[1], name)), name

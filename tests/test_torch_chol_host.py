@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from hector_torch import cuda
 from hector_torch.qp import chol
 
 torch.set_num_threads(1)
@@ -87,7 +88,7 @@ def _host_source():
     dynamic shared memory, the kernel launch, the counting barrier, the
     cluster barrier, the map into the partner block's shared memory and the
     asynchronous copies (16 and 4 bytes, commit, wait)."""
-    src = chol.SOURCE.read_text()
+    src = cuda.CHOL.source.read_text()
     src = re.sub(r'extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];',
                  r'float* \1 = host_smem();', src)
     src = re.sub(r'(\w+)<<<(.+?)>>>\(',

@@ -24,7 +24,7 @@ from hector.qp import pallas_chol as PC
 from hector.qp import pdip as jpdip
 from hector.qp.builder import build_qp as jbuild_qp
 
-from hector_torch import convert, graph
+from hector_torch import _native, convert, cuda, graph
 from hector_torch import runtime as TRT
 from hector_torch import srbd as tsrbd
 from hector_torch.qp import builder as tbuild
@@ -216,12 +216,12 @@ def test_plain_cholesky_bad_pivot_stays_in_its_lane():
 def test_wrappers_route_cpu_to_plain_without_launch():
     m, rhs = _spd(24, 5, seed=1)
     m_t, rhs_t = tt(m, torch.float32), tt(rhs, torch.float32)
-    before = (chol.factor_launches, chol.solve_launches)
+    before = cuda.counts.read()
     l_nnb = chol.cholesky_nnb(m_t)
     x_nnb = chol.cholesky_solve_nnb(l_nnb, rhs_t)
     l_bnn = chol.cholesky_bnn(m_t.permute(2, 0, 1).contiguous())
     x_bnn = chol.cholesky_solve_bnn(l_bnn, rhs_t.t().contiguous())
-    assert (chol.factor_launches, chol.solve_launches) == before
+    assert cuda.counts.read() == before
     assert torch.equal(l_nnb, chol.cholesky_nnb_plain(m_t))
     assert torch.equal(x_nnb, chol.cholesky_solve_nnb_plain(l_nnb, rhs_t))
     # the two layouts are views of one function
@@ -271,14 +271,14 @@ def test_kernel_input_checks(fault):
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
-    monkeypatch.setattr(chol, '_lib', None)
-    monkeypatch.setattr(chol, 'BUILD_ROOT', tmp_path / 'build')
+    monkeypatch.setattr(cuda.CHOL, 'handle', None)
+    monkeypatch.setattr(_native, 'BUILD_ROOT', tmp_path / 'build')
     monkeypatch.setenv('PATH', str(tmp_path))
     monkeypatch.setenv('CUDA_HOME', str(tmp_path))
     if os.path.exists('/usr/local/cuda/bin/nvcc'):
         pytest.skip('a CUDA toolkit is installed at /usr/local/cuda')
     with pytest.raises(RuntimeError, match='nvcc not found'):
-        chol.build()
+        cuda.CHOL.load()
     with pytest.raises(RuntimeError, match='nvcc not found'):
         chol.kernel_attributes(120, 'factor_tile')
     with pytest.raises(RuntimeError, match='nvcc not found'):
@@ -292,9 +292,9 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 def test_kernel_source_and_flags():
     """sm_90a, IEEE division and sqrt (no fast math), the kernels written
     out, and the source note naming the TPU kernels they replace."""
-    assert 'arch=compute_90a,code=sm_90a' in chol.NVCC_FLAGS
-    assert not any('fast' in f or 'ftz' in f for f in chol.NVCC_FLAGS)
-    src = chol.SOURCE.read_text()
+    assert 'arch=compute_90a,code=sm_90a' in cuda.CHOL.flags
+    assert not any('fast' in f or 'ftz' in f for f in cuda.CHOL.flags)
+    src = cuda.CHOL.source.read_text()
     assert 'hector/qp/pallas_chol.py' in src
     assert '_chol_kernel' in src and '_solve_kernel' in src
     assert 'What bounds them on the card' in src
@@ -359,11 +359,11 @@ def test_pdip_matches_jax_f64(backend):
     (torch.float64, 1e-8, 1e-3), (torch.float32, 1e-7, 0.05)],
     ids=['f64', 'f32'])
 def test_pdip_meets_certified_optima(dtype, reg, bar, backend):
-    before = (chol.factor_launches, chol.solve_launches)
+    before = cuda.counts.read()
     sol = tpdip.solve_batched(
         _port_qp(_golden_inputs(), dtype),
         _tcfg(iterations=25, kkt_reg=reg, backend=backend))
-    assert (chol.factor_launches, chol.solve_launches) == before
+    assert cuda.counts.read() == before
     assert sol.u.dtype == dtype
     for k in range(3):
         err = np.abs(sol.u[k].double().numpy() - GOLD[f's{k}_q_soln']).max()

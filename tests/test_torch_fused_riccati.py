@@ -27,6 +27,7 @@ from hector.config import MPCConfig, SolverConfig, JOINT_OFFSETS
 from hector.qp.builder import build_stage_qp
 from hector.qp import riccati
 
+from hector_torch import _native, cuda
 from hector_torch.config import SolverConfig as TSolverConfig
 from hector_torch.qp import builder as tbuild
 from hector_torch.qp import fused_riccati as FR
@@ -305,10 +306,10 @@ def test_plain_nan_lane_is_skipped_and_isolated():
 
 def test_wrapper_routes_cpu_to_plain_without_launch():
     parts = _port_parts(_golden_inputs(), torch.float32)
-    before = FR.launches
+    before = cuda.counts.launches
     sol = FR.solve_parts(parts, _tcfg(), Q_DIAG, R_DIAG)
     plain = FR.solve_parts_plain(parts, _tcfg(), Q_DIAG, R_DIAG)
-    assert FR.launches == before
+    assert cuda.counts.launches == before
     assert torch.equal(sol.u, plain.u)
 
 
@@ -318,9 +319,9 @@ def test_wrapper_rejects_polish_and_foreign_devices():
     without inner iterations; tensors on a device that is neither the card
     nor the CPU are still refused."""
     parts = _port_parts(_golden_inputs(), torch.float32)
-    before = (FR.launches, FR.polish_launches)
+    before = cuda.counts.read()
     sol = FR.solve_parts(parts, _tcfg(polish_rounds=2), Q_DIAG, R_DIAG)
-    assert (FR.launches, FR.polish_launches) == before
+    assert cuda.counts.read() == before
     assert torch.isfinite(sol.u).all() and float(sol.r_prim.max()) < 1e-6
     with pytest.raises(ValueError, match='polish_iters'):
         FR.solve_parts(parts, _tcfg(polish_rounds=2, polish_iters=0),
@@ -353,13 +354,13 @@ def test_kernel_input_checks(fault):
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     """The library is built from source at first use: without nvcc the
     build raises (no fallback), and so does a launch's lazy build."""
-    monkeypatch.setattr(FR, '_warp_lib', None)
-    monkeypatch.setattr(FR, 'BUILD_ROOT', tmp_path / 'build')
+    monkeypatch.setattr(cuda.FUSED, 'handle', None)
+    monkeypatch.setattr(_native, 'BUILD_ROOT', tmp_path / 'build')
     monkeypatch.setenv('PATH', str(tmp_path))
     monkeypatch.setenv('CUDA_HOME', str(tmp_path))
     if os.path.exists('/usr/local/cuda/bin/nvcc'):
         pytest.skip('a CUDA toolkit is installed at /usr/local/cuda')
-    for build in (FR.build, FR._warp_kernel_lib):
+    for build in (cuda.FUSED.load, FR.kernel_attributes):
         with pytest.raises(RuntimeError, match='nvcc not found'):
             build()
 
@@ -368,9 +369,9 @@ def test_kernel_source_and_flags():
     """sm_90a, IEEE division and sqrt (no fast math), the source note naming
     the TPU kernel it replaces, and the plain C entry points the wrapper
     loads."""
-    assert 'arch=compute_90a,code=sm_90a' in FR.NVCC_FLAGS
-    assert not any('fast' in f or 'ftz' in f for f in FR.NVCC_FLAGS)
-    src = FR.WARP_SOURCE.read_text()
+    assert 'arch=compute_90a,code=sm_90a' in cuda.FUSED.flags
+    assert not any('fast' in f or 'ftz' in f for f in cuda.FUSED.flags)
+    src = cuda.FUSED.source.read_text()
     assert 'hector/qp/pallas_riccati.py:_kernel' in src
     assert 'What bounds it on the card' in src
     assert 'extern "C"' in src
@@ -381,10 +382,11 @@ def test_kernel_source_and_flags():
 
 
 def test_params_mirror_the_kernel_struct():
-    """_Params must list the fields of FusedRiccatiParams in order, with the
-    same types and array lengths."""
-    mine = [n.replace('polish_', 'pol_') for n, _ in FR._Params._fields_]
-    body = FR.WARP_SOURCE.read_text().split('struct FusedRiccatiParams {')[1]
+    """cuda.FusedRiccatiParams must list the fields of the C struct in
+    order, with the same types and array lengths."""
+    fields_ = cuda.FusedRiccatiParams._fields_
+    mine = [n.replace('polish_', 'pol_') for n, _ in fields_]
+    body = cuda.FUSED.source.read_text().split('struct FusedRiccatiParams {')[1]
     body = body.split('};')[0]
     fields = [line.split(';')[0].split() for line in body.splitlines()
               if ';' in line]
@@ -392,7 +394,7 @@ def test_params_mirror_the_kernel_struct():
     assert [f[0] for f in fields] == [
         'int' if t is ctypes.c_int else 'float'
         for t in (ty._type_ if issubclass(ty, ctypes.Array) else ty
-                  for _, ty in FR._Params._fields_)]
+                  for _, ty in fields_)]
 
 
 def test_warp_kernel_source():
@@ -400,14 +402,14 @@ def test_warp_kernel_source():
     <true> of the same body, and both instantiations share one newton_dir
     call site (a second would inline the sweep twice).  The one-thread
     kernel is gone, and so is every path of the wrapper that reached it."""
-    src = FR.WARP_SOURCE.read_text()
+    src = cuda.FUSED.source.read_text()
     assert 'template <bool POLISH>' in src
     assert 'fused_riccati_warp_kernel<POLISH>' in src
     assert 'launch<true>(' in src and 'launch<false>(' in src
     assert 'attributes<true>(' in src and 'attributes<false>(' in src
     assert src.count('newton_dir(s, cst, lane);') == 1
-    assert not (FR.WARP_SOURCE.parent / 'fused_riccati.cu').exists()
-    assert sorted(p.name for p in FR.WARP_SOURCE.parent.glob('*.cu')) == [
+    assert not (cuda.CSRC / 'fused_riccati.cu').exists()
+    assert sorted(p.name for p in cuda.CSRC.glob('*.cu')) == [
         'chol.cu', 'fused_riccati_warp.cu', 'srb_plant.cu']
     assert not [n for n in vars(FR) if 'thread' in n.lower()]
     for gone in ('SOURCE', 'SCRATCH_PER_SCENARIO', '_lib'):
@@ -415,7 +417,9 @@ def test_warp_kernel_source():
     # the wrapper launches the one library for every polish_rounds and
     # counts the two instantiations apart
     wrapper = inspect.getsource(FR.solve_parts_cuda)
-    assert 'polish_launches += 1' in wrapper and 'launches += 1' in wrapper
+    assert wrapper.count("FUSED.launch('fused_riccati_warp_solve'") == 1
+    assert ("'polish_launches' if scfg.polish_rounds > 0" in wrapper
+            and "else 'launches'" in wrapper)
     assert 'warp=' not in inspect.getsource(FR)
     with pytest.raises(ValueError, match="'warp' or 'polish'"):
         FR.kernel_attributes('thread')

@@ -17,14 +17,17 @@ under the dense backends (test_torch_dense.py) and the bench chain
 
 import collections
 import dataclasses
-import types
+import json
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from hector_torch import bench, graph, prng
+from hector_torch import bench, cuda, graph, prng
 from hector_torch import runtime as TRT
 from hector_torch.config import DEFAULT_CONFIG as TCFG
 from hector_torch.plant import srb as TSRB
@@ -280,11 +283,12 @@ def test_c_outputs_do_not_alias_the_buffers():
     _assert_bit_equal((carry, plant, cmd), args)
 
 
-def _counting_step(ns):
-    """A step that bumps ``ns.count`` once a call, as a kernel wrapper
-    counts its launches: state' = state + inputs[i], out = state'."""
+def _counting_step():
+    """A step that adds a launch to the registry's ``legs_launches`` once a
+    call, as a kernel wrapper counts its launches: state' = state +
+    inputs[i], out = state'."""
     def step(state, inputs, i):
-        ns.count += 1
+        cuda.counts.add('legs_launches')
         new = state + inputs.index_select(1, i).squeeze(1)
         return new, new
     return step
@@ -293,8 +297,7 @@ def _counting_step(ns):
 def test_d_captures_are_kept_apart():
     """One capture per batch size, per dtype and per device: the key is
     every argument's shape, dtype and device."""
-    ns = types.SimpleNamespace(count=0)
-    steps = graph.StepGraph(_counting_step(ns), 3, counters=[(ns, 'count')])
+    steps = graph.StepGraph(_counting_step(), 3)
     for batch, dtype, device in ((2, torch.float32, 'cpu'),
                                  (5, torch.float32, 'cpu'),
                                  (2, torch.float64, 'cpu'),
@@ -318,18 +321,74 @@ def test_d_captures_are_kept_apart():
 
 
 def test_e_launches_are_counted_per_replay():
-    """A counter bumped inside the captured step reads n after a run of n
-    steps and 2n after two, and the stacked outputs hold every step."""
-    ns = types.SimpleNamespace(count=0)
-    steps = graph.StepGraph(_counting_step(ns), 4, counters=[(ns, 'count')])
+    """A registry counter moved inside the captured step moves by n over a
+    run of n steps and by 2n over two, and the stacked outputs hold every
+    step."""
+    steps = graph.StepGraph(_counting_step(), 4)
     x = torch.zeros((2, 3))
     inputs = torch.arange(24.0).reshape(2, 4, 3)
+    before = cuda.counts.legs_launches
     final, outs = steps(x, inputs)
-    assert ns.count == 4
+    assert cuda.counts.legs_launches - before == 4
     torch.testing.assert_close(outs, inputs.cumsum(1), rtol=0, atol=0)
     torch.testing.assert_close(final, inputs.sum(1), rtol=0, atol=0)
     steps(final, inputs)
-    assert ns.count == 8
+    assert cuda.counts.legs_launches - before == 8
+
+
+def test_kernel_counters_keep_their_names():
+    """``kernel_counters()`` is what the benchmark reads around its traced
+    units (a getattr of each pair) and what its trace keys kernels on:
+    these ten names, in this order, each an int."""
+    pairs = graph.kernel_counters()
+    assert [name for _, name in pairs] == [
+        'launches', 'polish_launches', 'factor_launches',
+        'factor_shared_launches', 'factor_cluster_launches',
+        'solve_launches', 'solve_shared_launches', 'solve_stream_launches',
+        'plant_launches', 'legs_launches']
+    for obj, name in pairs:
+        assert isinstance(getattr(obj, name), int), name
+
+
+# The package's __init__ imports ``parallel`` for its re-export, and through
+# it every module; a stand-in for that one module lets a fresh process show
+# what the module under test pulls in itself.
+_FRESH = """
+import json, sys, types
+sys.modules['hector_torch.parallel'] = types.ModuleType('hector_torch.parallel')
+import torch
+{body}
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.startswith('hector_torch'))))
+"""
+
+
+def _modules_after(body):
+    """The modules of hector_torch loaded after ``body`` runs in a fresh
+    interpreter."""
+    out = subprocess.run([sys.executable, '-c', _FRESH.format(body=body)],
+                         capture_output=True, text=True, check=True,
+                         cwd=Path(__file__).resolve().parents[1])
+    return set(json.loads(out.stdout.splitlines()[-1]))
+
+
+def test_kernel_layer_points_one_way():
+    """cuda <- kinematics <- plant.srb, cuda <- qp.*, cuda <- graph: the
+    capture layer, its launch counters read, pulls in no kernel wrapper;
+    the leg-data wrapper, its launch arguments made, nothing of the plant;
+    the plant step nothing of the solver."""
+    loaded = _modules_after('from hector_torch import graph\n'
+                            'graph.kernel_counters()')
+    assert 'hector_torch.cuda' in loaded
+    assert not loaded & {'hector_torch.kinematics', 'hector_torch.plant.srb',
+                         'hector_torch.qp.chol',
+                         'hector_torch.qp.fused_riccati'}
+    loaded = _modules_after('from hector_torch import kinematics as K\n'
+                            'K.legs_launch_args(torch.zeros((1, 2, 5)))')
+    assert not {m for m in loaded if m.startswith('hector_torch.plant')}
+    loaded = _modules_after('from hector_torch.plant import srb\n'
+                            "srb.init_plant_state(1, device='cpu')")
+    assert not {m for m in loaded if m.startswith('hector_torch.qp')}
 
 
 def test_eager_backends_keep_the_loop(monkeypatch):

@@ -40,7 +40,7 @@ import numpy as np
 import pytest
 import torch
 
-from hector_torch import constant, graph
+from hector_torch import constant, cuda, graph
 from hector_torch import kinematics as K
 from hector_torch import runtime as TRT
 from hector_torch.config import DEFAULT_CONFIG as TCFG
@@ -145,10 +145,10 @@ def f32_ratios(kern, plain32, ref64, q):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('cfg', [TCFG, OTHER_CFG], ids=['default', 'other'])
 def test_leg_data_on_cpu_is_the_tick_lines_and_launches_nothing(dtype, cfg):
-    before = K.legs_launches
+    before = cuda.counts.legs_launches
     q = torch.tensor(angles(64, seed=5), dtype=dtype)
     got = K.leg_data(q, cfg)
-    assert K.legs_launches == before
+    assert cuda.counts.legs_launches == before
     assert [tuple(x.shape) for x in got] == [(64, 2, 6, 5), (64, 2, 3),
                                              (64, 2, 5)]
     assert_same(got, plain(q, cfg))
@@ -161,7 +161,7 @@ def test_leg_data_cuda_refuses_cpu_tensors():
 
 def test_legs_launches_is_a_graph_counter():
     names = [name for _, name in graph.kernel_counters()]
-    assert (K, 'legs_launches') in graph.kernel_counters()
+    assert (cuda.counts, 'legs_launches') in graph.kernel_counters()
     assert len(set(names)) == len(names)
 
 
@@ -245,15 +245,15 @@ def test_card_leg_data_matches_plain(card, n, cfg):
     """One tick's three outputs, float64 and float32, one launch each."""
     d = angles(n, seed=101 + n)
     q64 = torch.tensor(d, dtype=torch.float64, device=card)
-    before = K.legs_launches
+    before = cuda.counts.legs_launches
     got = K.leg_data(q64, cfg)
-    assert K.legs_launches == before + 1
+    assert cuda.counts.legs_launches == before + 1
     ref = plain(q64, cfg)
     nonfinite_masks_agree(got, ref)
     assert f64_excess(got, ref) <= 1.0
     q32 = q64.float()
     kern, plain32 = K.leg_data(q32, cfg), plain(q32, cfg)
-    assert K.legs_launches == before + 2
+    assert cuda.counts.legs_launches == before + 2
     nonfinite_masks_agree(kern, plain32)
     nonfinite_masks_agree(kern, ref)
     ratios = f32_ratios(kern, plain32, ref, q32)
@@ -269,9 +269,9 @@ def test_card_captured_rollout_launches_the_kernel(card):
     cmd = TRT.walking_command(n, vx=0.4, device=card)
     plant = srb.init_plant_state(n, TCFG, device=card)
     roll = TRT.make_rollout(periods, TCFG)
-    before = K.legs_launches
+    before = cuda.counts.legs_launches
     roll(roll.init(plant), plant, cmd)
-    assert K.legs_launches - before == TCFG.mpc.mpc_cadence * periods
+    assert cuda.counts.legs_launches - before == TCFG.mpc.mpc_cadence * periods
     cap, = roll.graphed.captures.values()
     table = graph.phase_table(cap.id)
     rows = [(first, stop) for name, _, first, stop in table['phases']

@@ -58,7 +58,7 @@ import numpy as np
 import pytest
 import torch
 
-from hector_torch import graph
+from hector_torch import cuda, graph
 from hector_torch import math as hm
 from hector_torch import runtime as TRT
 from hector_torch.config import DEFAULT_CONFIG as TCFG
@@ -277,11 +277,11 @@ def finite_lanes(state):
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 @pytest.mark.parametrize('push,stairs', [(True, True), (False, False)])
 def test_step_on_cpu_is_step_plain_and_launches_nothing(dtype, push, stairs):
-    before = srb.plant_launches
+    before = cuda.counts.plant_launches
     args = inputs(batch(64, seed=5), dtype, CPU, push, stairs)
     got = srb.step(*args)
     want = srb.step_plain(*args)
-    assert srb.plant_launches == before
+    assert cuda.counts.plant_launches == before
     for x, y in zip(got, want):
         assert torch.equal(torch.isnan(x), torch.isnan(y))
         assert torch.equal(torch.nan_to_num(x), torch.nan_to_num(y))
@@ -294,7 +294,7 @@ def test_step_cuda_refuses_cpu_tensors():
 
 def test_plant_launches_is_a_graph_counter():
     names = [name for _, name in graph.kernel_counters()]
-    assert (srb, 'plant_launches') in graph.kernel_counters()
+    assert (cuda.counts, 'plant_launches') in graph.kernel_counters()
     assert len(set(names)) == len(names)
 
 
@@ -304,7 +304,7 @@ def test_plant_launches_is_a_graph_counter():
 def _host_source():
     """srb_plant.cu with the kernel launches (the plant step's and the
     tick's leg data's) rewritten for the stand-in."""
-    src = srb.SOURCE.read_text()
+    src = cuda.SRB.source.read_text()
     src, n = re.subn(r'(\w+<\w+>)<<<(.+?)>>>\(',
                      lambda m: f'host_launch({m.group(1)}, {m.group(2)}, ',
                      src, flags=re.S)
@@ -431,9 +431,9 @@ def card():
 def test_card_kernel_float64_matches_plain(card, cfg, push, stairs):
     args = inputs(batch(4096, seed=101, cfg=cfg), torch.float64, card, push,
                   stairs)
-    before = srb.plant_launches
+    before = cuda.counts.plant_launches
     got = srb.step(*args, cfg=cfg)
-    assert srb.plant_launches == before + 1
+    assert cuda.counts.plant_launches == before + 1
     want = srb.step_plain(*args, cfg=cfg)
     nonfinite_masks_agree(got, want)
     assert f64_excess(got, want, args, cfg) <= 1.0
@@ -475,10 +475,10 @@ def test_card_captured_rollout_launches_the_kernel(card, monkeypatch):
     n, periods = 1024, 100
     roll = TRT.make_rollout(periods, TCFG, with_disturbance=True)
     plant, cmd, push = _rollout_inputs(n, periods, torch.float32, card)
-    before = srb.plant_launches
+    before = cuda.counts.plant_launches
     carry0 = roll.init(plant)
     roll(carry0, plant, cmd, push)
-    assert srb.plant_launches - before == 5 * periods
+    assert cuda.counts.plant_launches - before == 5 * periods
     cap, = roll.graphed.captures.values()
     table = graph.phase_table(cap.id)
     plant_nodes = 0

@@ -24,7 +24,7 @@ import torch
 from cardbench.reference import tick as R
 from cardbench.reference.config import DEFAULT_CONFIG as REF_CONFIG
 from cardbench.yardstick import compare, scenarios as S
-from hector_torch import graph
+from hector_torch import cuda, graph
 from hector_torch import runtime as RT
 from hector_torch.config import DEFAULT_CONFIG
 from hector_torch.qp import fused_riccati as FR
@@ -123,12 +123,12 @@ def test_tick_equal(planned):
 
 
 def test_plain_version_moves_no_polish_counter():
-    before = (FR.polish_launches, FR.polish_counts())
+    before = (cuda.counts.polish_launches, FR.polish_counts())
     carry, plant, cmd = lanes(torch.float32, batch=4)
     cfg = solver_cfg()
     RT.plan_step_fn(cfg)(*compare.port_state(carry, plant, cfg),
                          compare.port_command(cmd))
-    assert (FR.polish_launches, FR.polish_counts()) == before
+    assert (cuda.counts.polish_launches, FR.polish_counts()) == before
 
 
 def test_only_the_kernel_with_polish_counts_lanes():
@@ -187,10 +187,10 @@ def test_card_forced_rejection_counts_every_lane(card):
     the interior point's iterate, and the kernel counts each of them."""
     parts, scfg, q_diag, r_diag = caught_qps(card, 4096)
     scfg = dataclasses.replace(scfg, polish_tol=-1.0)
-    before = (*FR.polish_counts(card), FR.polish_launches)
+    before = (*FR.polish_counts(card), cuda.counts.polish_launches)
     for _ in range(2):
         FR.solve_parts(parts, scfg, q_diag, r_diag)
-    after = (*FR.polish_counts(card), FR.polish_launches)
+    after = (*FR.polish_counts(card), cuda.counts.polish_launches)
     assert [a - b for a, b in zip(after, before)] == [2 * 4096, 2 * 4096, 2]
 
 
@@ -245,10 +245,10 @@ def test_card_replayed_step_carries_the_polish_counters(card):
     state = compare.port_state(carry, plant, cfg)
     steps(state, cmd)   # captures; its warm-up launches the kernel
     assert len(steps.captures) == 1
-    before = (*FR.polish_counts(card), FR.polish_launches)
+    before = (*FR.polish_counts(card), cuda.counts.polish_launches)
     for _ in range(calls):
         steps(state, cmd)
-    after = (*FR.polish_counts(card), FR.polish_launches)
+    after = (*FR.polish_counts(card), cuda.counts.polish_launches)
     replays = n_steps * calls
     assert [a - b for a, b in zip(after, before)] == [
         replays * batch, replays * batch, replays]

@@ -23,7 +23,7 @@ from hector.config import (DEFAULT_CONFIG as JCFG, MPCConfig,
 from hector.qp.builder import build_stage_qp
 from hector.qp import riccati
 
-from hector_torch import convert, graph
+from hector_torch import convert, cuda, graph
 from hector_torch import runtime as TRT
 from hector_torch.config import (DEFAULT_CONFIG as TCFG,
                                  MPCConfig as TMPCConfig,
@@ -282,9 +282,9 @@ def test_fused_solver_on_stage_data():
     inputs = _both_cases()
     sqp = _port_sqp(inputs, torch.float64)
     scfg = _tcfg()
-    before = (FR.launches, FR.polish_launches)
+    before = cuda.counts.read()
     sol = FR.solve_batched(sqp, scfg)
-    assert (FR.launches, FR.polish_launches) == before
+    assert cuda.counts.read() == before
     sol_j = _jax_solve(_jax_sqp(inputs, jnp.float64),
                        SolverConfig(mehrotra=False))
     _assert_solution_close(sol, sol_j, TOL_F64)
