@@ -199,7 +199,9 @@ Phases, one JSON line each:
               version at 4,096 and 4,099 lanes and on the main path's
               32,768 QPs, and with the polish forced to reject (the
               interior point without freeze) at 2e-4 N on every lane; timed
-              at 32,768 lanes beside the kernel without polish, and
+              at 32,768 lanes beside the kernel without polish, its counts
+              of polish steps over those solves every lane's and at least
+              polish_iters - 1 of each round's re-solved, and
               plan_step_fn with the polish on at 32,768 lanes, 4 chained
               steps (the kernel with polish only);
   cli         the entry-point layer (hector_torch.cli, parallel, io):
@@ -3215,23 +3217,38 @@ def main():
             (FR.solve_parts_cuda, parts, q_diag, r_diag),
             (FR.solve_parts_plain, parts, q_diag, r_diag), pcfg, 'polish'))
 
+    polish_solves = [0]
+
     def polish_run():
+        polish_solves[0] += 1
         return FR.solve_parts_cuda(main_parts, pcfg, q_diag, r_diag)
 
     # in turns, on the same QPs: with polish, without, without, with
     turns = {'polish': [], 'ip': []}
+    steps0 = FR.polish_step_counts()
     for name, fn, reps in (('polish', polish_run, 3), ('ip', ip_run, 10),
                            ('ip', ip_run, 10), ('polish', polish_run, 3)):
         turns[name].append(cuda_ms(fn, reps))
+    steps1 = FR.polish_step_counts()
+    pol_steps = pcfg.polish_rounds * pcfg.polish_iters
+    # the kernel's counts over the turns' solves: every lane's polish steps,
+    # and at least polish_iters - 1 of each round's re-solved
+    steps, resolved = steps1[0] - steps0[0], steps1[1] - steps0[1]
+    lanes = polish_solves[0] * MAIN_BATCH
+    if not (lanes and steps == lanes * pol_steps and resolved
+            >= lanes * pcfg.polish_rounds * (pcfg.polish_iters - 1)):
+        raise RuntimeError(f'polish: {steps} polish steps counted, '
+                           f'{resolved} re-solved, over {polish_solves[0]} '
+                           f'solves of {MAIN_BATCH} lanes x {pol_steps} steps')
     polish_ms = sum(turns['polish']) / 2
     kernel_ms_again = sum(turns['ip']) / 2
     polish_plain_ms = cuda_ms(
         lambda: FR.solve_parts_plain(main_parts, pcfg, q_diag, r_diag), 1)
-    pol_steps = pcfg.polish_rounds * pcfg.polish_iters
     pops = FR.op_count(scfg.iterations, pol_steps)
     pol_bound = bound_ms(MAIN_BATCH * FR.bytes_per_scenario(),
                          MAIN_BATCH * sum(pops.values()))
     emit(dict(phase='polish_time', batch=MAIN_BATCH, polish_steps=pol_steps,
+              resolved_share=resolved / steps,
               ms=polish_ms, ms_turns=turns['polish'],
               ms_without_polish=kernel_ms_again,
               ms_without_polish_turns=turns['ip'],

@@ -98,12 +98,37 @@
 //     kept (lam_ip), and it reads the bounds again from the cache and
 //     recomputes the primal residuals after each newton_dir instead of
 //     carrying them across it.  No local memory, 16 warps an SM.
+//   - Factors kept across polish steps (<true>).  A polish step's matrix
+//     d_row = rho act changes only with the active-set word act, which
+//     changes only at a round's end; the rest of the sweep's matrix half
+//     (P A, bp, Re and its Cholesky, W and the P update) reads only inputs
+//     fixed for the launch.  So a polish step's full sweep saves, per stage,
+//     L_k as s.L holds it and W_k = L_k^-1 G_k into the scenario's slice of
+//     a global scratch (FACTOR_FLOATS floats; 16 warps an SM leave no room
+//     for them in shared memory), and every later step whose act is the
+//     same in every lane of the warp (warp-uniform: one scenario a warp)
+//     re-solves: it copies L_k back, and runs only the linear half, lane
+//     13's beta, z = L^-1 beta, p <- A^T p - W^T z + q_lin and the back
+//     substitution (which rebuilds K_k too, from the saved W_k), then the
+//     same forward rollout.  The same instructions on the same bits: du is
+//     the full sweep's bit for bit.  Bit A_SAME of act says the scratch
+//     holds act's factors: set by a polish step whose du was finite (so
+//     was every input of its factors), cleared at a round end that changed
+//     any lane's sets.  Bits A_COUNT.. count the warp's re-solves.  The
+//     kind of sweep is a shared word a warp (warp_sweep, <true> only), read
+//     at each use, and the slice's address is formed from the kernel's
+//     argument and b where it is used: held in registers across the sweep,
+//     either spilled <true>.  <false> compiles to the same instructions as
+//     before the re-solve existed: every new statement of newton_dir is
+//     under `if constexpr (POLISH)` or a test its front end folds to true.
 //   - The fallback count.  A lane whose polish is rejected keeps the
 //     interior point's iterate.  Lane 0 of each warp adds one to the
 //     device's g_polish_counts[0] (lanes polished) and, where the polish was
 //     rejected, one to g_polish_counts[1], under the same `if constexpr`,
 //     so <false> neither carries nor touches them;
-//     fused_riccati_warp_polish_counts reads both back.
+//     fused_riccati_warp_polish_counts reads both back.  Beside them, in
+//     g_polish_steps, lane 0 adds the warp's polish steps and re-solves
+//     (fused_riccati_warp_polish_steps).
 //
 // Floating point: no fast math and no flush-to-zero.  The isfinite guards,
 // the inf ratios of the dual step and the skip logic need IEEE division,
@@ -146,6 +171,12 @@ constexpr int MIN_BLOCKS = 8;         // blocks an SM: 16 warps, 128 registers
 constexpr int UREGS = (H * NU + 31) / 32;  // entries of u a lane holds
 constexpr unsigned FULL = 0xffffffffu;
 
+// A scenario's slice of the polish's scratch: per stage k, L_k (NU x NU,
+// rows as s.L holds them) and then the NX columns of W_k as s.Wt holds them.
+constexpr int FACTOR_STAGE = NU * NU + NX * NU;
+constexpr int FACTOR_FLOATS = H * FACTOR_STAGE;
+static_assert(FACTOR_STAGE % 4 == 0, "the slices are read as float4");
+
 static_assert(H * NC == 32 * SLOTS, "rows must fill whole warps");
 static_assert(UREGS <= SLOTS, "u_b lives in a row array");
 
@@ -158,26 +189,40 @@ static_assert(UREGS <= SLOTS, "u_b lives in a row array");
 // Lanes <true> polished, and lanes whose polish it rejected, since the
 // library was loaded, on this device (see the fallback count above).
 __device__ unsigned long long g_polish_counts[2];
+// Polish steps <true> ran, and those of them it re-solved on saved factors,
+// since the library was loaded, on this device.
+__device__ unsigned long long g_polish_steps[2];
 
 // Phase clocks, for profile_warp_kernel.py (built with -DFR_PHASE_CLOCKS;
-// in the default build PHASE() is nothing): at each mark lane 0 adds the
-// SM cycles since the warp's last mark to that phase, per scenario slot.
+// in the default build PHASE() and PHASE_MODE() are nothing): at each mark
+// lane 0 adds the SM cycles since the warp's last mark to that phase of the
+// warp's mode (0: the interior point, its start and the final residuals;
+// 1: a polish step's full sweep; 2: a re-solve), per scenario slot.
 #ifdef FR_PHASE_CLOCKS
-constexpr int PHASES = 11, CLOCK_SLOTS = 32768;
-__device__ unsigned long long g_phase_cycles[CLOCK_SLOTS][PHASES];
+constexpr int PHASES = 11, MODES = 3, CLOCK_SLOTS = 32768;
+__device__ unsigned long long g_phase_cycles[CLOCK_SLOTS][MODES * PHASES];
 __device__ long long g_phase_last[CLOCK_SLOTS];
+__device__ int g_phase_mode[CLOCK_SLOTS];
+__device__ __forceinline__ int clock_slot() {
+  return (blockIdx.x * WARPS + (threadIdx.x >> 5)) % CLOCK_SLOTS;
+}
 __device__ __forceinline__ void phase_mark(int i) {
   __syncwarp();
   if ((threadIdx.x & 31) == 0) {
-    const int slot = (blockIdx.x * WARPS + (threadIdx.x >> 5)) % CLOCK_SLOTS;
+    const int slot = clock_slot();
     const long long t = clock64();
-    if (i >= 0) g_phase_cycles[slot][i] += t - g_phase_last[slot];
+    if (i >= 0) g_phase_cycles[slot][g_phase_mode[slot] * PHASES + i] += t - g_phase_last[slot];
     g_phase_last[slot] = t;
   }
 }
+__device__ __forceinline__ void phase_mode(int m) {
+  if ((threadIdx.x & 31) == 0) g_phase_mode[clock_slot()] = m;
+}
 #define PHASE(i) phase_mark(i)
+#define PHASE_MODE(m) phase_mode(m)
 #else
 #define PHASE(i)
+#define PHASE_MODE(m)
 #endif
 
 // One scenario's working set in shared memory.  The arrays read as float4
@@ -344,8 +389,14 @@ __device__ __forceinline__ PolRow pol_row(float lbv, float ubv, float big) {
 }
 
 // The active sets of a lane's rows in one word: bit t says slot t is
-// lower-active (a_l), bit t + 8 upper-active (a_u).
+// lower-active (a_l), bit t + 8 upper-active (a_u).  The spare bits: A_SAME
+// says the scratch holds the factors of these sets, the bits from A_COUNT
+// count the warp's re-solves (saturating).
 constexpr int A_U = 8;
+constexpr unsigned A_SETS = ((1u << SLOTS) - 1u) * ((1u << A_U) + 1u);
+constexpr unsigned A_SAME = 1u << 15;
+constexpr int A_COUNT = 16;
+static_assert(SLOTS <= 7 && (A_SETS & A_SAME) == 0, "A_SAME is a spare bit");
 
 // Bit i of the active-set word as 0 or 1.
 __device__ __forceinline__ float bitf(unsigned m, int i) {
@@ -410,15 +461,33 @@ __device__ void rollout_qlin(Scen& s, const Consts& cst, int lane, float x0,
   PHASE(0);
 }
 
+// What a sweep does with the polish's scratch (<true> only): the interior
+// point's neither reads nor writes it; a polish step's full sweep saves its
+// factors there; a re-solve reads them and runs the linear half alone.
+enum Sweep { SWEEP_IP, SWEEP_SAVE, SWEEP_RESOLVE };
+// Each warp's Sweep, set by the kernel before newton_dir (<true> only).  In
+// shared memory and read at each use: in a register, live across the
+// sweep, it would spill <true>.
+__shared__ int warp_sweep[WARPS];
+
 // One LQR solve: backward Riccati sweep (storing only K, kff) and forward
 // rollout.  Reads s.d_row, s.q_lin, s.r_lin; writes s.du.  Computes what
 // newton_dir of pallas_riccati.py:235-398 computes, with G = bp A formed as
 // diag(mk) B^T (P A) and the back substitution in its row (axpy) order.
-__device__ void newton_dir(Scen& s, const Consts& cst, int lane) {
+// <true> also reads warp_sweep and scenario b's slice of the scratch.
+template <bool POLISH>
+__device__ void newton_dir(Scen& s, const Consts& cst, int lane, float* factors, int b) {
   const float dtl = s.scal[0], a1112 = s.scal[1], em = s.scal[2];
-  for (int n = lane; n < NX * NX; n += 32) {
-    const int i = n / NX;
-    s.P[n] = (n == i * (NX + 1)) ? cst.q2[i] : 0.f;
+  // The matrix half runs in all but a re-solve.  Spelled so that <false>'s
+  // front end folds it: a runtime bool that folds only later changes how
+  // <false>'s rolled loops compile.
+#define MATRIX_HALF (!POLISH || warp_sweep[threadIdx.x >> 5] != SWEEP_RESOLVE)
+#define SAVING (warp_sweep[threadIdx.x >> 5] == SWEEP_SAVE)
+  if (MATRIX_HALF) {
+    for (int n = lane; n < NX * NX; n += 32) {
+      const int i = n / NX;
+      s.P[n] = (n == i * (NX + 1)) ? cst.q2[i] : 0.f;
+    }
   }
   if (lane < NX) s.p[lane] = s.q_lin[(H - 1) * NX + lane];
   __syncwarp();
@@ -426,77 +495,97 @@ __device__ void newton_dir(Scen& s, const Consts& cst, int lane) {
 #pragma unroll 1
   for (int k = H - 1; k >= 0; --k) {
     const float* mk = s.umask + k * NU;
+    // stage k's factors (<true>)
+    float* fk = factors + (static_cast<size_t>(b) * FACTOR_FLOATS + k * FACTOR_STAGE);
 
     PHASE(6);
-    // (1) Q = P A
-    for (int n = lane; n < NX * NX; n += 32) {
-      const int i = n / NX, j = n - NX * i;
-      s.Q[n] = times_a(s, s.P + i * NX, j, 1);
-    }
-    // (2) bp = diag(mk) B^T P, columns 6..11 (what Re needs)
-    for (int n = lane; n < NU * 6; n += 32) {
-      const int i = n / 6;
-      const float* x = s.P + 6 + (n - 6 * i);
-      float acc = s.b69[i] * x[6 * NX] + s.b69[NU + i] * x[7 * NX] +
-                  s.b69[2 * NU + i] * x[8 * NX];
-      acc += (i < 6 ? em : 0.f) * x[(9 + i % 3) * NX];
-      s.bp[n] = acc * mk[i];
-    }
-    __syncwarp();
-
-    PHASE(1);
-    // (3) Re = C^T D C (two-leg blocks) + diag(r2 + reg) + bp B diag(mk),
-    // lower triangle, one entry a lane
-    for (int n = lane; n < NU * (NU + 1) / 2; n += 32) {
-      int i, j;
-      tri_pair(n, i, j);
-      const int leg = leg_of(i);
-      float dl[8];
-      ld4(dl, s.d_row + k * NC + 8 * leg);
-      ld4(dl + 4, s.d_row + k * NC + 8 * leg + 4);
-      float cdc = 0.f;
-#pragma unroll
-      for (int rr = 0; rr < 8; ++rr) {
-        const int row = 8 * leg + rr;
-        cdc += (dl[rr] * s.cm[row * NU + i]) * s.cm[row * NU + j];
+    if (MATRIX_HALF) {
+      // (1) Q = P A
+      for (int n = lane; n < NX * NX; n += 32) {
+        const int i = n / NX, j = n - NX * i;
+        s.Q[n] = times_a(s, s.P + i * NX, j, 1);
       }
-      float v = leg == leg_of(j) ? cdc : 0.f;
-      v += i == j ? cst.r2reg[i] : 0.f;
-      const float* bi = s.bp + 6 * i;
-      float acc = bi[0] * s.b69[j] + bi[1] * s.b69[NU + j] + bi[2] * s.b69[2 * NU + j];
-      acc += (j < 6 ? em : 0.f) * bi[3 + j % 3];
-      v += acc * mk[j];
-      s.L[i * NU + j] = v;
-    }
-    __syncwarp();
+      // (2) bp = diag(mk) B^T P, columns 6..11 (what Re needs)
+      for (int n = lane; n < NU * 6; n += 32) {
+        const int i = n / 6;
+        const float* x = s.P + 6 + (n - 6 * i);
+        float acc = s.b69[i] * x[6 * NX] + s.b69[NU + i] * x[7 * NX] +
+                    s.b69[2 * NU + i] * x[8 * NX];
+        acc += (i < 6 ? em : 0.f) * x[(9 + i % 3) * NX];
+        s.bp[n] = acc * mk[i];
+      }
+      __syncwarp();
 
-    PHASE(2);
-    // (4) Cholesky, lower, pivot floor 1e-30, one reciprocal a pivot: lane
-    // i < 12 holds row i and stores each entry when it is final, so step j
-    // reads row j's finished entries as float4 broadcasts; the diagonal
-    // keeps 1 / L[i][i], which is all the substitutions use of it
-    {
-      float row[NU];
-      const int li = lane < NU ? lane : 0;
+      PHASE(1);
+      // (3) Re = C^T D C (two-leg blocks) + diag(r2 + reg) + bp B diag(mk),
+      // lower triangle, one entry a lane
+      for (int n = lane; n < NU * (NU + 1) / 2; n += 32) {
+        int i, j;
+        tri_pair(n, i, j);
+        const int leg = leg_of(i);
+        float dl[8];
+        ld4(dl, s.d_row + k * NC + 8 * leg);
+        ld4(dl + 4, s.d_row + k * NC + 8 * leg + 4);
+        float cdc = 0.f;
 #pragma unroll
-      for (int c = 0; c < NU; c += 4) ld4(row + c, s.L + li * NU + c);
+        for (int rr = 0; rr < 8; ++rr) {
+          const int row = 8 * leg + rr;
+          cdc += (dl[rr] * s.cm[row * NU + i]) * s.cm[row * NU + j];
+        }
+        float v = leg == leg_of(j) ? cdc : 0.f;
+        v += i == j ? cst.r2reg[i] : 0.f;
+        const float* bi = s.bp + 6 * i;
+        float acc = bi[0] * s.b69[j] + bi[1] * s.b69[NU + j] + bi[2] * s.b69[2 * NU + j];
+        acc += (j < 6 ? em : 0.f) * bi[3 + j % 3];
+        v += acc * mk[j];
+        s.L[i * NU + j] = v;
+      }
+      __syncwarp();
+
+      PHASE(2);
+      // (4) Cholesky, lower, pivot floor 1e-30, one reciprocal a pivot: lane
+      // i < 12 holds row i and stores each entry when it is final, so step j
+      // reads row j's finished entries as float4 broadcasts; the diagonal
+      // keeps 1 / L[i][i], which is all the substitutions use of it
+      {
+        float row[NU];
+        const int li = lane < NU ? lane : 0;
 #pragma unroll
-      for (int t = 0; t < NU; ++t) row[t] = t <= lane ? row[t] : 0.f;
+        for (int c = 0; c < NU; c += 4) ld4(row + c, s.L + li * NU + c);
 #pragma unroll
-      for (int j = 0; j < NU; ++j) {
-        float v = row[j];
-        float lj[NU];
+        for (int t = 0; t < NU; ++t) row[t] = t <= lane ? row[t] : 0.f;
 #pragma unroll
-        for (int c = 0; c < j; c += 4) ld4(lj + c, s.L + j * NU + c);
+        for (int j = 0; j < NU; ++j) {
+          float v = row[j];
+          float lj[NU];
 #pragma unroll
-        for (int t = 0; t < j; ++t) v -= row[t] * lj[t];
-        const float piv = __shfl_sync(FULL, v, j);
-        const float ljj = sqrtf(jmax(piv, 1e-30f));
-        const float rj = 1.0f / ljj;
-        if (lane == j) row[j] = rj;
-        else if (lane > j) row[j] = v * rj;
-        if (lane >= j && lane < NU) s.L[lane * NU + j] = row[j];
-        __syncwarp();
+          for (int c = 0; c < j; c += 4) ld4(lj + c, s.L + j * NU + c);
+#pragma unroll
+          for (int t = 0; t < j; ++t) v -= row[t] * lj[t];
+          const float piv = __shfl_sync(FULL, v, j);
+          const float ljj = sqrtf(jmax(piv, 1e-30f));
+          const float rj = 1.0f / ljj;
+          if (lane == j) row[j] = rj;
+          else if (lane > j) row[j] = v * rj;
+          if (lane >= j && lane < NU) s.L[lane * NU + j] = row[j];
+          __syncwarp();
+        }
+      }
+      if constexpr (POLISH) {
+        if (SAVING) {
+          for (int n = 4 * lane; n < NU * NU; n += 128) {
+            float v[4];
+            ld4(v, s.L + n);
+            st4(fk + n, v);
+          }
+        }
+      }
+    } else if constexpr (POLISH) {
+      // a re-solve: L_k as the full sweep left it
+      for (int n = 4 * lane; n < NU * NU; n += 128) {
+        float v[4];
+        ld4(v, fk + n);
+        st4(s.L + n, v);
       }
     }
 
@@ -529,45 +618,64 @@ __device__ void newton_dir(Scen& s, const Consts& cst, int lane) {
         }
       }
     }
+    if constexpr (POLISH) {
+      // a re-solve: lane m < 13 takes column m of W_k as the full sweep
+      // left it, where the forward substitution would have put it
+      if (!MATRIX_HALF && lane < NX) {
+#pragma unroll
+        for (int c = 0; c < NU; c += 4) ld4(w + c, fk + NU * NU + lane * NU + c);
+      }
+    }
     __syncwarp();  // L written
 
     PHASE(4);
     // (6) forward substitution, a column a lane: [W | z] = L^-1 [G | beta]
+    // (a re-solve: z alone)
     if (lane < WS) {
+      if (MATRIX_HALF || lane == NX) {
 #pragma unroll
-      for (int i = 0; i < NU; ++i) {
-        float lr[NU];
+        for (int i = 0; i < NU; ++i) {
+          float lr[NU];
 #pragma unroll
-        for (int c = 0; c <= i; c += 4) ld4(lr + c, s.L + i * NU + c);
+          for (int c = 0; c <= i; c += 4) ld4(lr + c, s.L + i * NU + c);
 #pragma unroll
-        for (int t = 0; t < i; ++t) w[i] -= lr[t] * w[t];
-        w[i] *= lr[i];
+          for (int t = 0; t < i; ++t) w[i] -= lr[t] * w[t];
+          w[i] *= lr[i];
+        }
       }
 #pragma unroll
       for (int c = 0; c < NU; c += 4) st4(s.Wt + lane * NU + c, w + c);
+      if constexpr (POLISH) {
+        if (SAVING && lane < NX) {
+#pragma unroll
+          for (int c = 0; c < NU; c += 4) st4(fk + NU * NU + lane * NU + c, w + c);
+        }
+      }
     }
     __syncwarp();
 
     PHASE(5);
-    // (7) P <- A^T Q - W^T W + diag(q2) (lower triangle, mirrored), the new
-    // p (lanes < 13), K = L^-T [W | z] (lanes < 14)
-    for (int n = lane; n < NX * (NX + 1) / 2; n += 32) {
-      int a, bb;
-      tri_pair(n, a, bb);
-      float v = times_a(s, s.Q + bb, a, NX);
-      float wa[NU], wb[NU];
+    // (7) P <- A^T Q - W^T W + diag(q2) (lower triangle, mirrored; not in a
+    // re-solve), the new p (lanes < 13), K = L^-T [W | z] (lanes < 14)
+    if (MATRIX_HALF) {
+      for (int n = lane; n < NX * (NX + 1) / 2; n += 32) {
+        int a, bb;
+        tri_pair(n, a, bb);
+        float v = times_a(s, s.Q + bb, a, NX);
+        float wa[NU], wb[NU];
 #pragma unroll
-      for (int c = 0; c < NU; c += 4) {
-        ld4(wa + c, s.Wt + a * NU + c);
-        ld4(wb + c, s.Wt + bb * NU + c);
+        for (int c = 0; c < NU; c += 4) {
+          ld4(wa + c, s.Wt + a * NU + c);
+          ld4(wb + c, s.Wt + bb * NU + c);
+        }
+        float ww = 0.f;
+#pragma unroll
+        for (int i = 0; i < NU; ++i) ww += wa[i] * wb[i];
+        v = v - ww;
+        v += a == bb ? cst.q2[a] : 0.f;
+        s.P[a * NX + bb] = v;
+        s.P[bb * NX + a] = v;
       }
-      float ww = 0.f;
-#pragma unroll
-      for (int i = 0; i < NU; ++i) ww += wa[i] * wb[i];
-      v = v - ww;
-      v += a == bb ? cst.q2[a] : 0.f;
-      s.P[a * NX + bb] = v;
-      s.P[bb * NX + a] = v;
     }
     float pn = 0.f;
     if (lane < NX) {
@@ -648,6 +756,8 @@ __device__ void newton_dir(Scen& s, const Consts& cst, int lane) {
     for (int a = 0; a < 3; ++a) dx[9 + a] += em * (dum[a] + dum[3 + a]);
   }
   PHASE(7);
+#undef MATRIX_HALF
+#undef SAVING
 }
 
 // Copies n elements of a batch-minor input into field `off` of each of the
@@ -673,7 +783,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
     const float* __restrict__ x0_in, const float* __restrict__ xd_in,
     const float* __restrict__ cm_in, const float* __restrict__ lb_in,
     const float* __restrict__ ub_in, float* __restrict__ u_out,
-    float* __restrict__ stats_out, int batch, Params prm) {
+    float* __restrict__ stats_out, int batch, Params prm,
+    float* __restrict__ factors) {
   __shared__ Scen scen[WARPS];
   __shared__ Consts cst;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -764,6 +875,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
 #pragma unroll 1
   for (int it = -1; it < prm.iters + n_pol; ++it) {
     const bool pol = POLISH && it >= prm.iters;
+    PHASE_MODE(pol ? ((act & A_SAME) ? SWEEP_RESOLVE : SWEEP_SAVE) : SWEEP_IP);
     if constexpr (POLISH) {
       if (it == prm.iters) {
         // start of the polish (pallas_riccati.py:549-565): the interior
@@ -871,7 +983,12 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
     __syncwarp();
 
     PHASE(8);
-    newton_dir(s, cst, lane);
+    // a polish step re-solves on the saved factors while act is theirs
+    if constexpr (POLISH) {
+      if (lane == 0) warp_sweep[wid] = pol ? ((act & A_SAME) ? SWEEP_RESOLVE : SWEEP_SAVE) : SWEEP_IP;
+      __syncwarp();
+    }
+    newton_dir<POLISH>(s, cst, lane, factors, b);
     if constexpr (POLISH) {
       // the bounds again, from the cache: carried across newton_dir they
       // would cost <true> registers
@@ -916,13 +1033,20 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
         // full Newton step unless the direction is not finite
         bool fin = true;
         for (int n = lane; n < H * NU; n += 32) fin = fin && isfinite(s.du[n]);
-        if (__all_sync(FULL, fin))
+        fin = __all_sync(FULL, fin);
+        if (fin)
           for (int n = lane; n < H * NU; n += 32) s.u[n] += s.du[n];
         __syncwarp();
+        // count a re-solve; the scratch holds act's factors after a finite
+        // step (a finite du needs finite factors, and every r_lin finite,
+        // on which the columns of G depend through 0 * r_lin)
+        if ((act & A_SAME) && (act >> A_COUNT) < 0xffffu) act += 1u << A_COUNT;
+        act = fin ? (act | A_SAME) : (act & ~A_SAME);
         // multiplier update; at a round's end the KKT merit (primal
         // violation, wrong-sign multiplier / 10), the best of rounds and
         // the next active set (pallas_riccati.py:580-600)
         const bool round_end = (it - prm.iters + 1) % prm.pol_iters == 0;
+        const unsigned sets = act & A_SETS;
         float bad_p = -kInf, wrong = -kInf;
 #pragma unroll
         for (int t = 0; t < SLOTS; ++t) {
@@ -941,6 +1065,8 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
           }
         }
         if (round_end) {
+          // new sets in any lane: the saved factors are not theirs
+          if (__any_sync(FULL, (act & A_SETS) != sets)) act &= ~A_SAME;
           bool ufin = true;
           for (int n = lane; n < H * NU; n += 32) ufin = ufin && isfinite(s.u[n]);
           bad_p = warp_max(bad_p);
@@ -957,6 +1083,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
           }
           bad_b = jmin(bad_r, bad_b);
         }
+        PHASE(9);
         continue;
       }
     }
@@ -1035,6 +1162,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
     PHASE(9);
   }
 
+  PHASE_MODE(SWEEP_IP);
   // accept the polished iterate only at a small KKT merit, else keep the
   // interior point's (pallas_riccati.py:603-610)
   bool pol_ok = false;
@@ -1114,6 +1242,10 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) fused_riccati_warp_kernel
       atomicAdd(&g_polish_counts[0], 1ull);
       if (!pol_ok) atomicAdd(&g_polish_counts[1], 1ull);
     }
+    if constexpr (POLISH) {  // every warp runs all n_pol polish steps
+      atomicAdd(&g_polish_steps[0], static_cast<unsigned long long>(n_pol));
+      atomicAdd(&g_polish_steps[1], static_cast<unsigned long long>(act >> A_COUNT));
+    }
     stats_out[B + b] = r_d_max;
     stats_out[2 * B + b] = r_prim;
   }
@@ -1123,7 +1255,7 @@ template <bool POLISH>
 int launch(const float* s69, const float* scal, const float* b69, const float* umask,
            const float* x0, const float* xd, const float* cm, const float* lb,
            const float* ub, float* u_out, float* stats_out, int batch,
-           const Params& prm, cudaStream_t stream) {
+           const Params& prm, float* factors, cudaStream_t stream) {
   const int grid = (batch + WARPS - 1) / WARPS;
 #if FR_EXTRA_SMEM > 0
   const cudaError_t err = cudaFuncSetAttribute(
@@ -1132,7 +1264,7 @@ int launch(const float* s69, const float* scal, const float* b69, const float* u
   if (err != cudaSuccess) return static_cast<int>(err);
 #endif
   fused_riccati_warp_kernel<POLISH><<<grid, THREADS, FR_EXTRA_SMEM, stream>>>(
-      s69, scal, b69, umask, x0, xd, cm, lb, ub, u_out, stats_out, batch, prm);
+      s69, scal, b69, umask, x0, xd, cm, lb, ub, u_out, stats_out, batch, prm, factors);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1162,22 +1294,27 @@ extern "C" {
 // Launches one solve of `batch` scenarios on `stream` (a cudaStream_t), the
 // kernel with the polish if params->pol_rounds > 0, and returns
 // cudaGetLastError() as an int (0 = launched).  Every array is batch-minor
-// float32: element e of scenario b at [e * batch + b].
+// float32: element e of scenario b at [e * batch + b].  `factors` is the
+// polish's scratch, batch * FACTOR_FLOATS floats, 16-byte aligned (null
+// without the polish).
 int fused_riccati_warp_solve(const float* s69, const float* scal, const float* b69,
                              const float* umask, const float* x0, const float* xd,
                              const float* cm, const float* lb, const float* ub,
                              float* u_out, float* stats_out, int batch,
-                             const FusedRiccatiParams* params, void* stream) {
+                             const FusedRiccatiParams* params, float* factors,
+                             void* stream) {
   if (batch <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (params->pol_rounds > 0) {
-    if (params->pol_iters < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (params->pol_iters < 1 || factors == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
     return launch<true>(s69, scal, b69, umask, x0, xd, cm, lb, ub, u_out, stats_out,
-                        batch, *params, st);
+                        batch, *params, factors, st);
   }
   return launch<false>(s69, scal, b69, umask, x0, xd, cm, lb, ub, u_out, stats_out,
-                       batch, *params, st);
+                       batch, *params, nullptr, st);
 }
+
 
 const char* fused_riccati_warp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -1205,16 +1342,23 @@ int fused_riccati_warp_polish_counts(unsigned long long* out) {
       cudaMemcpyFromSymbol(out, g_polish_counts, 2 * sizeof(*out)));
 }
 
+// The polish steps the kernel with polish ran, and those of them it
+// re-solved on saved factors, since the library was loaded, on the current
+// device, into out[2] (as fused_riccati_warp_polish_counts).
+int fused_riccati_warp_polish_steps(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_polish_steps, 2 * sizeof(*out)));
+}
+
 #ifdef FR_PHASE_CLOCKS
-// The SM cycles of each phase since the last call, summed over the warps
-// (out[PHASES]); zeroes them.
+// The SM cycles of each phase of each mode since the last call, summed over
+// the warps (out[MODES * PHASES], mode-major); zeroes them.
 int fused_riccati_warp_phase_cycles(unsigned long long* out) {
-  static unsigned long long host[CLOCK_SLOTS][PHASES];
+  static unsigned long long host[CLOCK_SLOTS][MODES * PHASES];
   cudaError_t err = cudaMemcpyFromSymbol(host, g_phase_cycles, sizeof(host));
   if (err != cudaSuccess) return static_cast<int>(err);
-  for (int i = 0; i < PHASES; ++i) out[i] = 0;
+  for (int i = 0; i < MODES * PHASES; ++i) out[i] = 0;
   for (int n = 0; n < CLOCK_SLOTS; ++n)
-    for (int i = 0; i < PHASES; ++i) out[i] += host[n][i];
+    for (int i = 0; i < MODES * PHASES; ++i) out[i] += host[n][i];
   for (auto& row : host)
     for (auto& v : row) v = 0;
   return static_cast<int>(cudaMemcpyToSymbol(g_phase_cycles, host, sizeof(host)));

@@ -187,9 +187,11 @@ class FusedRiccatiParams(ctypes.Structure):
 FUSED = Library('fused_riccati_warp.cu', NVCC_FLAGS,
                 'fused_riccati_warp_error_string', {
     'fused_riccati_warp_solve': (
-        [_P] * 11 + [_I, ctypes.POINTER(FusedRiccatiParams), _P], _I),
+        [_P] * 11 + [_I, ctypes.POINTER(FusedRiccatiParams), _P, _P], _I),
     'fused_riccati_warp_attributes': ([_I] + [_IP] * 6, _I),
     'fused_riccati_warp_polish_counts': (
+        [ctypes.POINTER(ctypes.c_ulonglong)], _I),
+    'fused_riccati_warp_polish_steps': (
         [ctypes.POINTER(ctypes.c_ulonglong)], _I)})
 
 # --------------------------------------------------------------------------

@@ -30,7 +30,11 @@ adds the polish and serves ``polish_rounds > 0``; ``polish_launches``
 counts it, and
 :func:`polish_counts` reads the kernel's own counts of the lanes it polished
 and of those whose polish it rejected (they keep the interior point's
-iterate).  Their ratio is the fallback rate.
+iterate).  Their ratio is the fallback rate.  A polish step whose active
+sets are those of the warp's last factored step re-solves on the saved
+factors (``FACTOR_FLOATS`` floats of scratch a scenario, allocated here for
+``<true>`` only); :func:`polish_step_counts` reads the kernel's counts of
+its polish steps and of the re-solves among them.
 
 The plain version touches no counter.
 """
@@ -55,6 +59,9 @@ NC = 16     # constraint rows per stage
 # (hector/constraints.py; pallas_riccati.py:102-114)
 LR = (0, 1, 2, 3, 4, 7, 8, 9, 10, 11, 12, 15)
 UR = (4, 5, 6, 7, 12, 13, 14, 15)
+# the polish's scratch a scenario: per stage L_k (NU x NU) and W_k's NX
+# columns (csrc/fused_riccati_warp.cu FACTOR_FLOATS)
+FACTOR_FLOATS = H * (NU * NU + NX * NU)
 
 
 class QPSolution(NamedTuple):
@@ -492,8 +499,8 @@ def solve_parts_cuda(parts, scfg: SolverConfig, q_diag, r_diag
                      ) -> QPSolution:
     """Check, copy to batch-minor and launch on the current stream, no
     synchronisation: ``fused_riccati_warp_kernel<true>`` when
-    ``polish_rounds > 0`` (counted in ``polish_launches``), else
-    ``<false>`` (``launches``)."""
+    ``polish_rounds > 0`` (counted in ``polish_launches``), with its
+    scratch of saved factors, else ``<false>`` (``launches``), without."""
     check_parts(parts)
     q2, r2, r2reg = _weights(scfg, q_diag, r_diag)
     prm = FusedRiccatiParams(
@@ -509,8 +516,13 @@ def solve_parts_cuda(parts, scfg: SolverConfig, q_diag, r_diag
     u_t = torch.empty((H * NU, bsz), dtype=torch.float32, device=dev)
     stats_t = torch.empty((3, bsz), dtype=torch.float32, device=dev)
     ptrs = [t.data_ptr() for t in ins] + [u_t.data_ptr(), stats_t.data_ptr()]
+    factors = None
+    if scfg.polish_rounds > 0:
+        factors = torch.empty((bsz, FACTOR_FLOATS), dtype=torch.float32,
+                              device=dev)
     FUSED.launch('fused_riccati_warp_solve', dev, *ptrs, bsz,
                  ctypes.byref(prm),
+                 None if factors is None else factors.data_ptr(),
                  counted=('polish_launches' if scfg.polish_rounds > 0
                           else 'launches',))
     stats = stats_t.t()
@@ -527,10 +539,27 @@ def polish_counts(device=None) -> tuple[int, int]:
     while the library is not loaded."""
     if FUSED.handle is None:
         return 0, 0
+    return _device_counts('fused_riccati_warp_polish_counts', device)
+
+
+def polish_step_counts(device=None) -> tuple[int, int]:
+    """(polish steps, re-solved steps) of
+    ``fused_riccati_warp_kernel<true>`` on ``device`` since the library was
+    loaded, counted by the kernel as :func:`polish_counts` counts lanes: a
+    lane's polish_rounds * polish_iters steps, and those of them that ran
+    only the linear half of the sweep on the factors saved by an earlier
+    step with the same active sets.  Synchronises the card.  (0, 0) while
+    the library is not loaded."""
+    if FUSED.handle is None:
+        return 0, 0
+    return _device_counts('fused_riccati_warp_polish_steps', device)
+
+
+def _device_counts(entry, device):
     out = (ctypes.c_ulonglong * 2)()
     with torch.cuda.device(device):
         torch.cuda.synchronize()
-        FUSED.call('fused_riccati_warp_polish_counts', out)
+        FUSED.call(entry, out)
     return out[0], out[1]
 
 

@@ -1,6 +1,6 @@
-// A host stand-in for the parts of the CUDA runtime that
-// hector_torch/csrc/chol.cu uses, so that tests/test_torch_chol_host.py can
-// compile that source with g++ and run its kernels on the CPU: each thread
+// A host stand-in for the parts of the CUDA runtime that the sources of
+// hector_torch/csrc/ use, so that the tests can compile them with g++ and
+// run their kernels on the CPU: each thread
 // of a block is a std::thread, the blocks of a grid run one cluster after
 // another (a cluster's blocks together, one block where the launch names no
 // cluster), __syncthreads is a std::barrier of the block, "bar.sync 1,
@@ -10,11 +10,15 @@
 // the same offset in the partner block's dynamic shared memory, and
 // cp.async a copy made when the issuing thread waits for its group, its
 // destination NaN from the issue until then (so a read before the wait, or
-// a copy into a buffer that is still being read, shows).  It checks
-// indexing and ordering, not speed.
+// a copy into a buffer that is still being read, shows).  A warp's
+// __syncwarp is a std::barrier of its threads, and its shuffles and votes
+// pass through a 32-entry buffer between two of them (every lane of the
+// warp takes part, as the full masks say); atomics are the compiler's.  It
+// checks indexing and ordering, not speed.
 #pragma once
 #include <algorithm>
 #include <barrier>
+#include <cfloat>
 #include <cmath>
 #include <condition_variable>
 #include <cstddef>
@@ -25,6 +29,8 @@
 #include <thread>
 #include <vector>
 
+using std::isfinite;
+using std::isnan;
 using std::max;
 using std::min;
 using std::signbit;
@@ -104,6 +110,11 @@ cudaError_t cudaOccupancyMaxActiveClusters(int* nc, K, const cudaLaunchConfig_t*
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class T>
+cudaError_t cudaMemcpyFromSymbol(void* dst, const T& symbol, size_t bytes) {
+  std::memcpy(dst, &symbol, bytes);
+  return cudaSuccess;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "host stand-in"; }
 
 struct HostCountBarrier {
@@ -113,9 +124,17 @@ struct HostCountBarrier {
   long generation = 0;
 };
 
+// a warp: its barrier and the buffer its shuffles and votes pass through
+struct HostWarp {
+  std::unique_ptr<std::barrier<>> bar;
+  float val[32];
+  int pred[32];
+};
+
 // what the running thread's block and cluster share: the block's barrier,
 // counting barrier and dynamic shared memory, the cluster's barrier and
-// its blocks' dynamic shared memory
+// its blocks' dynamic shared memory; and its warp
+inline thread_local HostWarp* host_warp = nullptr;
 inline thread_local std::barrier<>* host_block_barrier = nullptr;
 inline thread_local HostCountBarrier* host_count_barrier = nullptr;
 inline thread_local float* host_block_smem = nullptr;
@@ -127,6 +146,49 @@ inline size_t __cvta_generic_to_shared(const void* p) {
   return reinterpret_cast<size_t>(p);
 }
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
+
+inline void __syncwarp(unsigned = 0xffffffffu) { host_warp->bar->arrive_and_wait(); }
+inline int host_lane() { return static_cast<int>(threadIdx.x & 31u); }
+inline float __shfl_sync(unsigned, float v, int src) {
+  host_warp->val[host_lane()] = v;
+  __syncwarp();
+  const float r = host_warp->val[src & 31];
+  __syncwarp();
+  return r;
+}
+inline float __shfl_xor_sync(unsigned mask, float v, int offset) {
+  return __shfl_sync(mask, v, host_lane() ^ offset);
+}
+// every lane's predicate, after one barrier (and a second before the buffer
+// is written again)
+template <class F>
+int host_vote(int pred, F combine) {
+  host_warp->pred[host_lane()] = pred != 0;
+  __syncwarp();
+  int r = host_warp->pred[0];
+  for (int i = 1; i < 32; ++i) r = combine(r, host_warp->pred[i]);
+  __syncwarp();
+  return r;
+}
+inline int __all_sync(unsigned, int pred) {
+  return host_vote(pred, [](int a, int b) { return a & b; });
+}
+inline int __any_sync(unsigned, int pred) {
+  return host_vote(pred, [](int a, int b) { return a | b; });
+}
+template <class T>
+T __ldg(const T* p) {
+  return *p;
+}
+inline float __fsqrt_rn(float x) { return std::sqrt(x); }
+inline float __int_as_float(int i) {
+  float f;
+  std::memcpy(&f, &i, sizeof f);
+  return f;
+}
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
 inline void host_cluster_sync() { host_cluster_barrier->arrive_and_wait(); }
 
 // mapa: the same offset in block `rank`'s dynamic shared memory
@@ -184,6 +246,7 @@ void host_run(Kernel kernel, int grid, int threads, size_t smem, int cluster,
       std::vector<float> smem;
       std::unique_ptr<std::barrier<>> bar;
       HostCountBarrier count;
+      std::vector<HostWarp> warps;
     };
     std::vector<Block> blocks(cluster);
     std::vector<float*> smems(cluster);
@@ -192,6 +255,9 @@ void host_run(Kernel kernel, int grid, int threads, size_t smem, int cluster,
       blocks[r].smem.assign(smem / sizeof(float) + 4, std::nanf(""));
       blocks[r].bar = std::make_unique<std::barrier<>>(threads);
       smems[r] = blocks[r].smem.data();
+      blocks[r].warps.resize((threads + 31) / 32);
+      for (int w = 0; w < (threads + 31) / 32; ++w)
+        blocks[r].warps[w].bar = std::make_unique<std::barrier<>>(min(32, threads - 32 * w));
     }
     std::barrier<> cluster_bar(cluster * threads);
     std::vector<std::thread> pool;
@@ -202,6 +268,7 @@ void host_run(Kernel kernel, int grid, int threads, size_t smem, int cluster,
           blockIdx.x = c0 + r;
           blockDim.x = threads;
           gridDim.x = grid;
+          host_warp = &blocks[r].warps[t / 32];
           host_block_barrier = blocks[r].bar.get();
           host_count_barrier = &blocks[r].count;
           host_block_smem = smems[r];
@@ -211,7 +278,8 @@ void host_run(Kernel kernel, int grid, int threads, size_t smem, int cluster,
           // a copy never waited for is never made
           host_copies_open.clear();
           host_copy_groups.clear();
-          // an exited thread is waited for by neither barrier
+          // an exited thread is waited for by no barrier
+          host_warp->bar->arrive_and_drop();
           blocks[r].bar->arrive_and_drop();
           cluster_bar.arrive_and_drop();
         });

@@ -14,6 +14,7 @@ import dataclasses
 import functools
 import inspect
 import os
+import re
 
 import numpy as np
 import jax
@@ -377,7 +378,8 @@ def test_kernel_source_and_flags():
     assert 'extern "C"' in src
     for name in ('fused_riccati_warp_solve', 'fused_riccati_warp_attributes',
                  'fused_riccati_warp_error_string',
-                 'fused_riccati_warp_polish_counts'):
+                 'fused_riccati_warp_polish_counts',
+                 'fused_riccati_warp_polish_steps'):
         assert f'{name}(' in src
 
 
@@ -407,7 +409,9 @@ def test_warp_kernel_source():
     assert 'fused_riccati_warp_kernel<POLISH>' in src
     assert 'launch<true>(' in src and 'launch<false>(' in src
     assert 'attributes<true>(' in src and 'attributes<false>(' in src
-    assert src.count('newton_dir(s, cst, lane);') == 1
+    assert src.count('newton_dir<POLISH>(s, cst, lane, ') == 1
+    # the definition and the one call
+    assert len(re.findall(r'\bnewton_dir[<(]', src)) == 2
     assert not (cuda.CSRC / 'fused_riccati.cu').exists()
     assert sorted(p.name for p in cuda.CSRC.glob('*.cu')) == [
         'chol.cu', 'fused_riccati_warp.cu', 'srb_plant.cu']
