@@ -10,7 +10,16 @@ mass-matrix solve, which keeps Gazebo-level gains stable at dt = 0.25 ms.
 
 Every tensor carries the lane batch as its leading dimension B.  ``step``
 synchronises with no card: its constants are cached on the device, and
-the 16x16 solve is ``torch.linalg.solve_ex``.
+the 16x16 solve is ``torch.linalg.solve_ex``, whose factorisations that
+fail (``info`` non-zero) are counted on the device (``solve_counts``).
+
+Spans (io/profiling.py), inside the rollout's ``period.plant``, split each
+substep: ``wb.dynamics`` (rnea.dynamics: the mass matrix, the bias forces,
+the contact points and Jacobian), ``wb.contact`` (contact_forces),
+``wb.solve`` (the servo and implicit terms on both sides, the solve and
+its count) and ``wb.integrate`` (the backstops, clamps, joint limits and
+the quaternion step); the tick's set-up before its substeps lies in
+``wb.dynamics`` and ``wb.solve``, so the four cover the whole step.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import torch
 from .. import constant, resolve_device
 from ..config import HectorConfig, DEFAULT_CONFIG
 from .. import math as hm
+from ..io.profiling import span
 from . import rnea
 from .model import CONTACT_POINTS_TOE
 from .srb import terrain_height
@@ -143,6 +153,45 @@ def _contact_offsets(ccfg: ContactConfig, like):
                         * cps0[:, 1], cps0[:, 2]], dim=-1)
 
 
+# a device's (2,) int64 count of lane-solves by outcome, [sound, failed];
+# made at the first step on the device, outside a capture (a graph's
+# warm-up makes it), so that a replay adds to it and never resets it
+_SOLVES = {}
+
+
+def _count_solves(info):
+    """Add one lane-solve a lane to its outcome's count, on the device and
+    with no synchronisation: two ops (the outcome, 0 or 1, and the
+    index_add).  A failed factorisation has info > 0; solve_ex gives no
+    negative info on well-formed arguments."""
+    counts = _SOLVES.get(info.device)
+    if counts is None:
+        counts = _SOLVES[info.device] = torch.zeros(
+            2, dtype=torch.int64, device=info.device)
+    ones = constant(('wb_ones', info.shape[0]),
+                    lambda: np.ones(info.shape[0]), info,
+                    dtype=torch.int64)
+    counts.index_add_(0, torch.clamp(info, 0, 1), ones)
+
+
+def solve_counts(device=None) -> tuple[int, int]:
+    """(lane-solves, failed) of ``step``'s 16x16 solves on ``device``
+    (default: the current card, or the CPU without one) since the process
+    began, graph warm-ups and replays alike: a failed one left its lane's
+    accelerations to whatever the factorisation gave.  Synchronises: never
+    call it on a timed path.  (0, 0) where no step has run."""
+    if device is None:
+        device = 'cuda' if torch.cuda.is_available() else 'cpu'
+    dev = torch.device(device)
+    if dev.type == 'cuda' and dev.index is None:
+        dev = torch.device('cuda', torch.cuda.current_device())
+    counts = _SOLVES.get(dev)
+    if counts is None:
+        return 0, 0
+    sound, failed = counts.tolist()
+    return sound + failed, failed
+
+
 def step(state: WholeBodyState, cmd, cfg: HectorConfig = DEFAULT_CONFIG,
          terrain=None, disturbance=None,
          ccfg: ContactConfig = ContactConfig(),
@@ -156,7 +205,8 @@ def step(state: WholeBodyState, cmd, cfg: HectorConfig = DEFAULT_CONFIG,
     """
     pcfg = cfg.plant
     dt = pcfg.dt / n_substeps
-    cps = _contact_offsets(ccfg, state.position)
+    with span('wb.dynamics'):
+        cps = _contact_offsets(ccfg, state.position)
     q_lim = constant(('joint_limit', pcfg.joint_limit), pcfg.joint_limit,
                      state.position)
     bsz = state.position.shape[0]
@@ -165,60 +215,69 @@ def step(state: WholeBodyState, cmd, cfg: HectorConfig = DEFAULT_CONFIG,
     #                             A    = kd + damping + dt kp,
     # the qd+ term folded into the mass matrix's diagonal (the toe joint's
     # ~2e-4 kg m^2 makes an explicit PD at kp ~ 300 diverge)
-    a_imp = (cmd.kd + pcfg.joint_damping + dt * cmd.kp).reshape(bsz, 10)
+    with span('wb.solve'):
+        a_imp = (cmd.kd + pcfg.joint_damping + dt * cmd.kp).reshape(bsz, 10)
     eye16 = constant(('eye', 16), lambda: np.eye(16), state.position)
     s = state
     for _ in range(n_substeps):
-        rot = hm.quat_to_rot(s.quat)
-        tau0 = cmd.kp * (cmd.q_des - s.q) + cmd.kd * cmd.qd_des + cmd.tau
-        tau0 = torch.clamp(tau0, -pcfg.torque_limit, pcfg.torque_limit)
-        qd = s.qd.reshape(bsz, 10)
-        nu = torch.cat([s.v_world, s.omega_world, qd], dim=-1)
-        m, bias, pts, vels, jac = rnea.dynamics(
-            s.position, rot, s.q, nu, pcfg.gravity, cps=cps,
-            include_body=True)
-        f0, d_gain, anchor, sticking = contact_forces(
-            pts, vels, s.anchor, s.sticking, terrain, ccfg)
-        # implicit contact damping: f_c = f0 - D (v + dt J nu_dot)
-        jac = jac.reshape(bsz, -1, 16)
-        q_contact = hm.rmatvec(jac, (f0 - d_gain * vels).reshape(bsz, -1))
-        q_applied = torch.cat([torch.zeros_like(nu[:, 0:6]),
-                               tau0.reshape(bsz, 10) - a_imp * qd],
-                              dim=-1) + q_contact
-        if disturbance is not None:
-            q_applied = torch.cat([q_applied[:, 0:6] + disturbance,
-                                   q_applied[:, 6:]], dim=-1)
-        m = m + torch.diag_embed(torch.cat(
-            [torch.zeros_like(nu[:, 0:6]), dt * a_imp], dim=-1))
-        # dt J^T D J on the left-hand side (unconditionally stable damping)
-        m = m + dt * (jac.transpose(-1, -2)
-                      @ (d_gain.reshape(bsz, -1, 1) * jac))
-        nu_dot = torch.linalg.solve_ex(m + 1e-6 * eye16,
-                                       q_applied - bias)[0]
+        with span('wb.dynamics'):
+            rot = hm.quat_to_rot(s.quat)
+            qd = s.qd.reshape(bsz, 10)
+            nu = torch.cat([s.v_world, s.omega_world, qd], dim=-1)
+            m, bias, pts, vels, jac = rnea.dynamics(
+                s.position, rot, s.q, nu, pcfg.gravity, cps=cps,
+                include_body=True)
+        with span('wb.contact'):
+            f0, d_gain, anchor, sticking = contact_forces(
+                pts, vels, s.anchor, s.sticking, terrain, ccfg)
+        with span('wb.solve'):
+            tau0 = cmd.kp * (cmd.q_des - s.q) + cmd.kd * cmd.qd_des + cmd.tau
+            tau0 = torch.clamp(tau0, -pcfg.torque_limit, pcfg.torque_limit)
+            # implicit contact damping: f_c = f0 - D (v + dt J nu_dot)
+            jac = jac.reshape(bsz, -1, 16)
+            q_contact = hm.rmatvec(jac,
+                                   (f0 - d_gain * vels).reshape(bsz, -1))
+            q_applied = torch.cat([torch.zeros_like(nu[:, 0:6]),
+                                   tau0.reshape(bsz, 10) - a_imp * qd],
+                                  dim=-1) + q_contact
+            if disturbance is not None:
+                q_applied = torch.cat([q_applied[:, 0:6] + disturbance,
+                                       q_applied[:, 6:]], dim=-1)
+            m = m + torch.diag_embed(torch.cat(
+                [torch.zeros_like(nu[:, 0:6]), dt * a_imp], dim=-1))
+            # dt J^T D J on the left-hand side (unconditionally stable
+            # damping)
+            m = m + dt * (jac.transpose(-1, -2)
+                          @ (d_gain.reshape(bsz, -1, 1) * jac))
+            nu_dot, info = torch.linalg.solve_ex(m + 1e-6 * eye16,
+                                                 q_applied - bias)
+            _count_solves(info)
 
-        v_new = s.v_world + dt * nu_dot[:, 0:3]
-        w_new = s.omega_world + dt * nu_dot[:, 3:6]
-        # the base-velocity energy backstop (ContactConfig.v_cap, w_cap)
-        v_new = v_new * torch.clamp(ccfg.v_cap / torch.clamp(
-            torch.linalg.vector_norm(v_new, dim=-1, keepdim=True), min=1e-9),
-            max=1.0)
-        w_new = w_new * torch.clamp(ccfg.w_cap / torch.clamp(
-            torch.linalg.vector_norm(w_new, dim=-1, keepdim=True), min=1e-9),
-            max=1.0)
-        qd_new = torch.clamp(s.qd + dt * nu_dot[:, 6:].reshape(bsz, 2, 5),
-                             -pcfg.joint_vel_limit, pcfg.joint_vel_limit)
-        # the URDF joint limits; a pinned joint also sheds its outward
-        # velocity (an inelastic stop), or a phantom qd would feed RNEA
-        q_raw = s.q + dt * qd_new
-        q_new = torch.clamp(q_raw, -q_lim, q_lim)
-        qd_new = torch.where(((q_raw > q_lim) & (qd_new > 0))
-                             | ((q_raw < -q_lim) & (qd_new < 0)),
-                             torch.zeros_like(qd_new), qd_new)
-        s = WholeBodyState(
-            position=s.position + dt * v_new,
-            quat=hm.quat_integrate(s.quat, w_new, dt),
-            v_world=v_new, omega_world=w_new, q=q_new, qd=qd_new,
-            anchor=anchor, sticking=sticking)
+        with span('wb.integrate'):
+            v_new = s.v_world + dt * nu_dot[:, 0:3]
+            w_new = s.omega_world + dt * nu_dot[:, 3:6]
+            # the base-velocity energy backstop (ContactConfig.v_cap, w_cap)
+            v_new = v_new * torch.clamp(ccfg.v_cap / torch.clamp(
+                torch.linalg.vector_norm(v_new, dim=-1, keepdim=True),
+                min=1e-9), max=1.0)
+            w_new = w_new * torch.clamp(ccfg.w_cap / torch.clamp(
+                torch.linalg.vector_norm(w_new, dim=-1, keepdim=True),
+                min=1e-9), max=1.0)
+            qd_new = torch.clamp(
+                s.qd + dt * nu_dot[:, 6:].reshape(bsz, 2, 5),
+                -pcfg.joint_vel_limit, pcfg.joint_vel_limit)
+            # the URDF joint limits; a pinned joint also sheds its outward
+            # velocity (an inelastic stop), or a phantom qd would feed RNEA
+            q_raw = s.q + dt * qd_new
+            q_new = torch.clamp(q_raw, -q_lim, q_lim)
+            qd_new = torch.where(((q_raw > q_lim) & (qd_new > 0))
+                                 | ((q_raw < -q_lim) & (qd_new < 0)),
+                                 torch.zeros_like(qd_new), qd_new)
+            s = WholeBodyState(
+                position=s.position + dt * v_new,
+                quat=hm.quat_integrate(s.quat, w_new, dt),
+                v_world=v_new, omega_world=w_new, q=q_new, qd=qd_new,
+                anchor=anchor, sticking=sticking)
     return s
 
 
