@@ -106,10 +106,16 @@ Phases, one JSON line each:
               and half walking at 0.3 m/s under the cheater, then every lane
               walking at 0.5 m/s under 'kf': the checks of
               tests/test_whole_body.py:79-96,154-181 that hold at that
-              horizon, one launch a period, the loop's speed; one WB.step
-              timed and run without a synchronisation; the 'kf' rollout for
-              10 periods at 16 lanes on the card and on the CPU
-              (whole_body_card_vs_cpu);
+              horizon, one <false> launch a period and one dynamics
+              launch a substep, the loop's speed; the dynamics kernel
+              (wb_dynamics_kernel, a warp a lane) against
+              rnea.dynamics_plain in float64 and float32 at 1,024 lanes
+              with the bars of tests/test_torch_wb_dynamics_kernel.py, and
+              timed alone at 1,024 and 16,384 lanes from a CUDA graph
+              beside the plain pass and its byte bound (part
+              dynamics_kernel); one WB.step timed and run without a
+              synchronisation; the 'kf' rollout for 10 periods at 16 lanes
+              on the card and on the CPU (whole_body_card_vs_cpu);
   graph       each path the port captures (hector_torch/graph.py) against
               its eager run on the card, the same inputs: the tier-1 loop,
               the robustness rollout, the 'kf' and 'filtered' loops and the
@@ -374,6 +380,10 @@ WB_BATCH = LOOP_BATCH
 WB_PERIODS = 100
 WB_SHORT_BATCH = 16
 WB_SHORT_PERIODS = 10
+# wb_dynamics_kernel against rnea.dynamics_plain at the loop's lanes; timed
+# there and at sixteen times as many, from a graph of WB_GRAPH_LAUNCHES
+WB_KERNEL_BATCHES = (LOOP_BATCH, 16 * LOOP_BATCH)
+WB_GRAPH_LAUNCHES = 100
 # tests/test_whole_body.py's progress bars pro rata to WB_PERIODS: x > 0.15
 # m after 300 periods at 0.3 m/s, x > 0.8 m after 600 periods at 0.5 m/s
 # under 'kf'.  A float32 CPU rehearsal with the plain solver reached 0.083
@@ -628,6 +638,8 @@ KERNEL_NAMES = (('fused_riccati_warp_kernelILb0E', 'fused_riccati'),
                 ('srb_plant_step_kernelIdE', 'srb_plant_f64'),
                 ('tick_legs_kernelIfE', 'tick_legs'),
                 ('tick_legs_kernelIdE', 'tick_legs_f64'),
+                ('wb_dynamics_kernelIfE', 'wb_dynamics'),
+                ('wb_dynamics_kernelIdE', 'wb_dynamics_f64'),
                 ('fused_riccati_warp_kernelILb1E', 'fused_riccati_polish'),
                 ('chol_factor_kernel', 'chol_factor'),
                 ('chol_factor_smem_kernel', 'chol_factor_shared'),
@@ -1403,12 +1415,14 @@ def legs_phase(card, dev, ptxas, attrs):
 
 
 def check_launches(phase, launches, others, periods, plant_steps=0,
-                   ticks=0):
+                   ticks=0, substeps=0):
     """<false> launched once a period, the plant kernel once a tier-1 plant
     step (``plant_steps``), the leg data once a controller tick
-    (``ticks``), and nothing else."""
+    (``ticks``), the articulated plant's dynamics terms once a tier-2
+    substep (``substeps``), and nothing else."""
     want = {name: n for name, n in (('plant_launches', plant_steps),
-                                    ('legs_launches', ticks)) if n}
+                                    ('legs_launches', ticks),
+                                    ('wb_dynamics_launches', substeps)) if n}
     if (launches, others) != (periods, want):
         raise RuntimeError(f'{phase}: <false> launched {launches} times and '
                            f'the other kernels {others}, expected {periods} '
@@ -1545,13 +1559,94 @@ def whole_body_checks(diags, plant, walking, carry=None):
     return res, [k for k, ok in bars.items() if not ok(res[k])]
 
 
-def whole_body_phase(card, dev):
+def wb_dynamics_checks(card, dev, ptxas, attrs, launches):
+    """wb_dynamics_kernel (rnea.dynamics on CUDA tensors) against
+    rnea.dynamics_plain on the same inputs, with the seeded states and the
+    bars of tests/test_torch_wb_dynamics_kernel.py (float64 within 1e-12
+    of each output's size; float32 at the 50th and 90th percentile and the
+    widest lane no wider than twice the plain float32 pass's gap to the
+    plain float64 one; the non-finite masks exact), at the loop's lanes
+    with the body points under the default and the scaled toe box and
+    without them; then the kernel alone at WB_KERNEL_BATCHES from a CUDA
+    graph, beside the plain pass (from a graph and eager) and the bytes a
+    lane reads and writes at the HBM rate.  Emits the record; returns the
+    kernels line's entry, whose ``launches`` are the whole_body run's."""
+    from hector_torch.config import DEFAULT_CONFIG as CFG
+    from hector_torch.plant import rnea
+    from hector_torch.plant import whole_body as WB
+    W = importlib.import_module('tests.test_torch_wb_dynamics_kernel')
+    g = CFG.plant.gravity
+    d = W.mixed(WB_KERNEL_BATCHES[0], seed=101)
+    checks = {}
+    for name, include_body, ccfg in (('body', True, WB.ContactConfig()),
+                                     ('body-scaled', True, W.SCALED),
+                                     ('toes', False, WB.ContactConfig())):
+        x64 = W.tensors(d, torch.float64, dev)
+        x32 = W.tensors(d, torch.float32, dev)
+        c64, c32 = W.cps_of(ccfg, x64[0]), W.cps_of(ccfg, x32[0])
+        got = rnea.dynamics(*x64, g, cps=c64, include_body=include_body)
+        ref = W.plain(*x64, cps=c64, include_body=include_body)
+        kern = rnea.dynamics(*x32, g, cps=c32, include_body=include_body)
+        plain = W.plain(*x32, cps=c32, include_body=include_body)
+        try:
+            for pair in ((got, ref), (kern, ref)):
+                W.nonfinite_masks_agree(*pair)
+            masks = True
+        except AssertionError:
+            masks = False
+        checks[name] = dict(
+            f64_excess=W.f64_excess(got, ref),
+            f32_ratio_to_plain=W.f32_ratios(kern, plain, ref),
+            f32_kernel_gap=max(float((k.double() - r).abs().max())
+                               for k, r in zip(kern, ref)),
+            nonfinite_masks_agree=masks)
+    times = {}
+    for n in WB_KERNEL_BATCHES:
+        x, x64 = (W.tensors(W.mixed(n, seed=5), dt, dev)
+                  for dt in (torch.float32, torch.float64))
+        turns = [graph_ms(lambda: rnea.dynamics_cuda(*x, g,
+                                                     include_body=True),
+                          WB_GRAPH_LAUNCHES) for _ in range(2)]
+        ms = sum(turns) / 2
+        bound = bound_ms(n * rnea.bytes_per_lane(), 0)[0]
+        times[n] = dict(
+            ms=ms, ms_turns=turns,
+            f64_ms=graph_ms(lambda: rnea.dynamics_cuda(*x64, g,
+                                                       include_body=True),
+                            WB_GRAPH_LAUNCHES),
+            plain_graph_ms=graph_ms(lambda: W.plain(*x), 5, 2),
+            plain_eager_ms=cuda_ms(lambda: W.plain(*x), 5),
+            bound_ms=bound, share_of_bound=bound / ms)
+    emit(dict(phase='whole_body', part='dynamics_kernel', checks=checks,
+              times=times, bytes_per_lane=rnea.bytes_per_lane(),
+              launches=launches,
+              ptxas={k: ptxas.get(k, {}) for k in attrs}, attributes=attrs,
+              card=card))
+    for name, c in checks.items():
+        if not (c['nonfinite_masks_agree']
+                and all(e <= 1.0 for e in c['f64_excess'].values())
+                and all(r <= W.F32_FACTOR for rs in
+                        c['f32_ratio_to_plain'].values() for r in rs)):
+            raise RuntimeError(f'dynamics kernel ({name}) against its plain '
+                               f'version: {c}')
+    t = times[WB_KERNEL_BATCHES[0]]
+    return dict(name='wb_dynamics', route='cuda',
+                source='hector_torch/csrc/wb_dynamics.cu', replaces=None,
+                launches=launches,
+                max_abs_err=max(c['f32_kernel_gap'] for c in checks.values()),
+                ms=t['ms'], plain_ms=t['plain_graph_ms'],
+                bound_ms=t['bound_ms'], bound_by='bytes', library_ms=None)
+
+
+def whole_body_phase(card, dev, ptxas, attrs):
     """make_rollout_whole_body on the card: WB_BATCH lanes for WB_PERIODS
     periods, half standing and half walking at 0.3 m/s under the cheater,
     then every lane walking at 0.5 m/s under 'kf'; the checks of
     tests/test_whole_body.py that hold at that horizon, one <false> launch
-    a period; WB.step timed and run without a synchronisation; 'kf' short
-    on the card and the CPU."""
+    a period and one dynamics launch a substep; the dynamics kernel
+    against its plain version and timed (wb_dynamics_checks); WB.step
+    timed and run without a synchronisation; 'kf' short on the card and
+    the CPU.  Returns the kernels line's entry of the dynamics kernel."""
     from hector_torch import prng
     from hector_torch import runtime as RT
     from hector_torch.plant import whole_body as WB
@@ -1580,9 +1675,13 @@ def whole_body_phase(card, dev):
               capture_seconds=capture_seconds(roll.graphed), checks=res,
               failed=failed, card=card))
     check_launches('whole_body (cheater)', launches, others, WB_PERIODS,
-                   ticks=WB_PERIODS * CFG.mpc.mpc_cadence)
+                   ticks=WB_PERIODS * CFG.mpc.mpc_cadence,
+                   substeps=WB_PERIODS * CFG.mpc.mpc_cadence
+                   * roll.n_substeps)
     if failed:
         raise RuntimeError(f'whole_body (cheater): {failed} failed')
+    entry = wb_dynamics_checks(card, dev, ptxas, attrs,
+                               others['wb_dynamics_launches'])
 
     plant = WB.init_whole_body_state(0.545, WB_BATCH, device=dev)
     roll = RT.make_rollout_whole_body(WB_PERIODS, CFG, estimator='kf')
@@ -1599,7 +1698,9 @@ def whole_body_phase(card, dev):
               capture_seconds=capture_seconds(roll.graphed), checks=res,
               failed=failed, card=card))
     check_launches('whole_body (kf)', launches, others, WB_PERIODS,
-                   ticks=WB_PERIODS * CFG.mpc.mpc_cadence)
+                   ticks=WB_PERIODS * CFG.mpc.mpc_cadence,
+                   substeps=WB_PERIODS * CFG.mpc.mpc_cadence
+                   * roll.n_substeps)
     if failed:
         raise RuntimeError(f'whole_body (kf): {failed} failed')
 
@@ -1615,6 +1716,7 @@ def whole_body_phase(card, dev):
         WB_SHORT_PERIODS, WB_SHORT_BATCH, 5,
         lambda b, d: WB.init_whole_body_state(0.545, b, device=d), short_cmd,
         dev, estimator='kf')
+    return entry
 
 
 def run_cli(argv):
@@ -2169,13 +2271,17 @@ def graph_phase(card, dev, work):
     def rollout_case(name, roll, plant, args, key=None, periods=n,
                      launches=None, tier1=True):
         """``launches``: of the solver's kernels (default one <false> a
-        period); every tick adds one launch of the leg data, and a tier-1
-        loop one plant kernel a tick."""
+        period); every tick adds one launch of the leg data, a tier-1 loop
+        one plant kernel a tick, a tier-2 loop one dynamics kernel a
+        substep."""
         carry = roll.init(plant, key)
         want = {'launches': periods} if launches is None else dict(launches)
         want['legs_launches'] = CFG.mpc.mpc_cadence * periods
         if tier1:
             want['plant_launches'] = CFG.mpc.mpc_cadence * periods
+        else:
+            want['wb_dynamics_launches'] = (CFG.mpc.mpc_cadence * periods
+                                            * roll.n_substeps)
         recs.append(graph_case(
             name, roll.graphed, lambda: roll(carry, plant, *args),
             lambda: roll.eager(carry, plant, *args), periods, period_s,
@@ -2343,7 +2449,7 @@ def main():
     from hector_torch import bench, cuda
     from hector_torch import mpc as M
     from hector_torch import runtime as RT
-    from hector_torch.plant import srb
+    from hector_torch.plant import rnea, srb
     from hector_torch.config import DEFAULT_CONFIG as CFG
     from hector_torch.cuda import counts as LC      # the launch counts
     from hector_torch.qp import chol as CH
@@ -2360,14 +2466,14 @@ def main():
 
     # ---- build: one nvcc per source, all started together ----
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for fut in [pool.submit(lib.load)
-                    for lib in (cuda.FUSED, cuda.CHOL, cuda.SRB)]:
+    libs = (cuda.FUSED, cuda.CHOL, cuda.SRB, cuda.WB)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(lib.load) for lib in libs]:
             fut.result()
     build_s = time.perf_counter() - t0
     ptxas = {}
     nvcc_seconds = {}
-    for lib in (cuda.FUSED, cuda.CHOL, cuda.SRB):
+    for lib in libs:
         for name, info in lib.build_info.items():
             ptxas.update(parse_ptxas(info.get('ptxas', '')))
             nvcc_seconds[name] = info.get('seconds')
@@ -2391,12 +2497,15 @@ def main():
     legs_attrs = {
         'tick_legs': srb.kernel_attributes(torch.float32, 'tick_legs'),
         'tick_legs_f64': srb.kernel_attributes(torch.float64, 'tick_legs')}
+    wb_attrs = {'wb_dynamics': rnea.kernel_attributes(torch.float32),
+                'wb_dynamics_f64': rnea.kernel_attributes(torch.float64)}
     emit(dict(phase='build', seconds=build_s, card=card,
               nvcc_seconds=nvcc_seconds, ptxas=ptxas,
-              attributes={**attrs, **plant_attrs, **legs_attrs}))
-    # the plant and leg-data kernels' precise sin/cos/asin/acos keep a
-    # stack frame for their slow argument reduction; nothing may spill
-    for name in (*plant_attrs, *legs_attrs):
+              attributes={**attrs, **plant_attrs, **legs_attrs, **wb_attrs}))
+    # the plant, leg-data and dynamics kernels' precise sin/cos/asin/acos
+    # keep a stack frame for their slow argument reduction; nothing may
+    # spill
+    for name in (*plant_attrs, *legs_attrs, *wb_attrs):
         rep = ptxas.get(name, {})
         if not (rep and rep['spill_store_bytes'] == 0
                 and rep['spill_load_bytes'] == 0):
@@ -2606,7 +2715,7 @@ def main():
 
     # ---- the noisy estimators on the tier-1 loop, and the tier-2 plant ----
     estimators_phase(card, dev)
-    whole_body_phase(card, dev)
+    wb_entry = whole_body_phase(card, dev, ptxas, wb_attrs)
 
     # ---- every captured path against its eager run; a trace of replays ----
     graph_phase(card, dev, Path(__file__).resolve().parent / 'hector_torch'
@@ -3295,6 +3404,7 @@ def main():
     emit({'kernels': [
         plant_entry,
         legs_entry,
+        wb_entry,
         dict(name='fused_riccati', route='cuda',
              source='hector_torch/csrc/fused_riccati_warp.cu',
              replaces='hector/qp/pallas_riccati.py:63',

@@ -6,8 +6,9 @@ nvcc flags, the entry point that turns a return code into CUDA's message,
 and the argument and return types of the entry points the wrappers call.
 The mirrors of the sources' C structs sit beside their declarations, so
 this module holds the whole C interface of ``csrc/``; the wrappers
-(``qp/chol.py``, ``qp/fused_riccati.py``, ``plant/srb.py`` and
-``kinematics.py``) fill in argument values, launch and count.  The kernels
+(``qp/chol.py``, ``qp/fused_riccati.py``, ``plant/srb.py``,
+``plant/rnea.py`` and ``kinematics.py``) fill in argument values, launch
+and count.  The kernels
 have a plain C interface, so a build takes seconds and needs nothing of
 PyTorch's headers.  Nothing here runs at import: a library is built
 (``_native.build``, into ``_native.BUILD_ROOT``) and loaded at its first
@@ -46,10 +47,12 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #     and solve_stream_launches went to the shared-memory and the streaming
 #     kernel
 #   plant_launches: srb_plant_step_kernel; legs_launches: tick_legs_kernel
+#   wb_dynamics_launches: wb_dynamics_kernel
 COUNTERS = ('launches', 'polish_launches', 'factor_launches',
             'factor_shared_launches', 'factor_cluster_launches',
             'solve_launches', 'solve_shared_launches',
-            'solve_stream_launches', 'plant_launches', 'legs_launches')
+            'solve_stream_launches', 'plant_launches', 'legs_launches',
+            'wb_dynamics_launches')
 
 
 class Counts:
@@ -205,6 +208,26 @@ class SrbIn(ctypes.Structure):
     _fields_ = [('p', _P), ('s0', _LL), ('s1', _LL), ('s2', _LL)]
 
 
+def tensor_in(where, name, t, shape, dtype, device):
+    """``t`` broadcast to ``shape`` (a view: strides 0 where it broadcasts,
+    nothing copied) as a kernel's ``SrbIn``; raises, naming the caller
+    ``where``, on a dtype, a device or a shape the kernel does not take."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f'{where}: {name} must be a tensor, got {type(t)}')
+    if t.dtype != dtype:
+        raise TypeError(f'{where}: {name} must be {dtype}, got {t.dtype}')
+    if t.device != device:
+        raise ValueError(f'{where}: {name} on {t.device}, the state on '
+                         f'{device}')
+    try:
+        v = t.expand(shape)
+    except RuntimeError:
+        raise ValueError(f'{where}: {name} has shape {tuple(t.shape)}, the '
+                         f'kernel takes {shape}') from None
+    strides = list(v.stride()) + [0] * (3 - v.dim())
+    return SrbIn(v.data_ptr(), *strides)
+
+
 SRB_INPUTS = ('position', 'quat', 'v_world', 'omega_world', 'q', 'qd',
               'foot_anchor', 'contact', 'kp', 'kd', 'q_des', 'wrench',
               'sched', 'disturbance', 'terrain_h', 'terrain_len')
@@ -237,19 +260,25 @@ SRB_PARAM_FIELDS = (
 
 
 @functools.cache
-def _srb_params_type(ctype):
-    return type(f'SrbParams_{ctype.__name__}', (ctypes.Structure,),
+def _params_type(name, fields, ctype):
+    return type(f'{name}_{ctype.__name__}', (ctypes.Structure,),
                 {'_fields_': [(n, ctype * k if k > 1 else ctype)
-                              for n, k in SRB_PARAM_FIELDS]})
+                              for n, k in fields]})
+
+
+def _make_params(name, fields, dtype, values):
+    """The parameter struct ``name<T>`` of ``fields`` for a state of
+    ``dtype`` (float32 or float64) from ``values``, each field's number or
+    flat list of numbers."""
+    ctype = ctypes.c_double if dtype == torch.float64 else ctypes.c_float
+    return _params_type(name, fields, ctype)(**{
+        n: (ctype * k)(*values[n]) if k > 1 else values[n]
+        for n, k in fields})
 
 
 def make_srb_params(dtype, values):
-    """``SrbParams<T>`` for a state of ``dtype`` (float32 or float64) from
-    ``values``, each field's number or list of numbers."""
-    ctype = ctypes.c_double if dtype == torch.float64 else ctypes.c_float
-    return _srb_params_type(ctype)(**{
-        n: (ctype * k)(*values[n]) if k > 1 else values[n]
-        for n, k in SRB_PARAM_FIELDS})
+    """``SrbParams<T>`` for a state of ``dtype`` from ``values``."""
+    return _make_params('SrbParams', SRB_PARAM_FIELDS, dtype, values)
 
 
 _SRB_ATTRIBUTES = ([_I] + [_IP] * 4, _I)
@@ -260,3 +289,33 @@ SRB = Library('srb_plant.cu', NVCC_FLAGS + ('-fmad=false',),
     'tick_legs': ([_I, _P, _P, _P], _I),
     'srb_plant_attributes': _SRB_ATTRIBUTES,
     'tick_legs_attributes': _SRB_ATTRIBUTES})
+
+# --------------------------------------------------------------------------
+# csrc/wb_dynamics.cu: the articulated plant's dynamics terms (plant/rnea.py)
+
+WB_INPUTS = ('position', 'quat', 'v_world', 'omega_world', 'q', 'qd', 'cps')
+
+
+class WbArgs(ctypes.Structure):
+    """Each input's ``SrbIn`` (its data and strides; the source's ``WbIn``
+    has the same layout), the five outputs, the batch, include_body."""
+
+    _fields_ = ([(name, SrbIn) for name in WB_INPUTS]
+                + [('out', _P * 5), ('batch', _I), ('include_body', _I)])
+
+
+# WbParams<T>: (name, length) in the struct's order
+WB_PARAM_FIELDS = (
+    ('offset', 30), ('pre', 90), ('axis', 30), ('mass', 10), ('com', 30),
+    ('inertia', 90), ('trunk_inertia', 9), ('corners', 24),
+    ('trunk_mass', 1), ('gravity', 1))
+
+
+def make_wb_params(dtype, values):
+    """``WbParams<T>`` for a state of ``dtype`` from ``values``."""
+    return _make_params('WbParams', WB_PARAM_FIELDS, dtype, values)
+
+
+WB = Library('wb_dynamics.cu', NVCC_FLAGS, 'wb_dynamics_error_string', {
+    'wb_dynamics': ([_I, ctypes.POINTER(WbArgs), _P, _P], _I),
+    'wb_dynamics_attributes': ([_I] + [_IP] * 5, _I)})

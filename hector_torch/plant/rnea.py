@@ -18,19 +18,27 @@ motions on one batch dimension K: tensors are (B, K, ...), legs on a
 dimension of their own and the five joints of a leg in a Python loop, so a
 pass costs the same number of launches for one motion or 33.  The
 geometry (link rotations, origins, axes, coms) depends on q alone and is
-computed once.  ``dynamics`` runs the mass matrix, the bias forces and the
-contact Jacobian of one state as a single pass of 33 motions: the plant's
-step makes one call, not three.
+computed once.  ``dynamics_plain`` runs the mass matrix, the bias forces
+and the contact Jacobian of one state as a single pass of 33 motions: the
+plant's step makes one call, not three.  ``dynamics``, what the step calls,
+takes the state itself (the trunk's quaternion, the generalized velocity
+as its parts) and on CUDA tensors runs the same recursion as one launch of
+``wb_dynamics_kernel`` (``csrc/wb_dynamics.cu``, a warp a lane), counted in
+the registry's ``wb_dynamics_launches``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import constant
+from .. import math as hm
+from ..cuda import WB, WB_INPUTS, WbArgs, make_wb_params, tensor_in
 from . import model as mdl
 
 _LEGS = mdl.stacked_leg_models()
@@ -306,8 +314,8 @@ def contact_points(base_pos, base_rot, q, cps=None):
                            False)[0]
 
 
-def dynamics(base_pos, base_rot, q, nu, gravity, cps=None,
-             include_body: bool = False):
+def dynamics_plain(base_pos, base_rot, q, nu, gravity, cps=None,
+                   include_body: bool = False):
     """What one substep of the plant needs, in one pass of 33 motions: the
     mass matrix (B, 16, 16), the bias forces (B, 16), and the contact
     points, their velocities and Jacobian (contact_points_and_jac).
@@ -335,3 +343,112 @@ def dynamics(base_pos, base_rot, q, nu, gravity, cps=None,
                              rc_trunk)
     return (tau[:, :16].transpose(-1, -2), tau[:, 16], pts, vels[:, 0],
             vels[:, 1:].permute(0, 2, 3, 1))
+
+
+def dynamics(base_pos, quat, q, v_world, omega_world, qd, gravity, cps=None,
+             include_body: bool = False):
+    """:func:`dynamics_plain` of a state: trunk position (B, 3), quaternion
+    (B, 4) wxyz, joint angles (B, 2, 5) and the generalized velocity as its
+    parts, v_world and omega_world (B, 3) and qd (B, 2, 5).
+
+    A CUDA tensor goes to :func:`dynamics_cuda`, one launch; a CPU tensor
+    to the batched ops (the rotation from the quaternion, nu by
+    concatenation, then :func:`dynamics_plain`); nothing falls back from
+    one to the other.
+    """
+    if base_pos.device.type == 'cuda':
+        return dynamics_cuda(base_pos, quat, q, v_world, omega_world, qd,
+                             gravity, cps, include_body)
+    nu = torch.cat([v_world, omega_world, qd.reshape(qd.shape[0], 10)],
+                   dim=-1)
+    return dynamics_plain(base_pos, hm.quat_to_rot(quat), q, nu, gravity,
+                          cps=cps, include_body=include_body)
+
+
+@functools.cache
+def wb_params(dtype, gravity):
+    """The ``WbParams`` of the model for a state of ``dtype`` (float32 or
+    float64) under ``gravity``, made once per pair: each value the float64
+    constant that the plain path rounds to the state's dtype."""
+    return make_wb_params(dtype, dict(
+        **{k: _LEGS[k].ravel().tolist()
+           for k in ('offset', 'pre', 'axis', 'mass', 'com', 'inertia')},
+        trunk_inertia=mdl.TRUNK_INERTIA.ravel().tolist(),
+        corners=TRUNK_CORNERS.ravel().tolist(),
+        trunk_mass=mdl.TRUNK_MASS, gravity=float(gravity)))
+
+
+def dynamics_launch_args(base_pos, quat, q, v_world, omega_world, qd,
+                         gravity, cps=None, include_body: bool = False):
+    """The kernel's arguments: (``WbArgs``, the ``WbParams`` of the dtype
+    and gravity, the outputs (m, bias, pts, vels, jac) as new tensors on
+    the state's device).  Takes float32 or float64 tensors of one dtype on
+    one device, of any strides (broadcast inputs too, nothing copied), cps
+    (4, 3) or None (the toe-box corners); raises on anything else."""
+    dtype, dev = base_pos.dtype, base_pos.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f'rnea.dynamics: the kernel takes float32 or '
+                        f'float64, got {dtype}')
+    if base_pos.dim() != 2:
+        raise ValueError(f'rnea.dynamics: position must be (B, 3), got '
+                         f'{tuple(base_pos.shape)}')
+    if cps is None:
+        cps = default_contact_points(base_pos)
+    bsz = base_pos.shape[0]
+    # cps with a lane axis of stride 0: one set for every lane
+    shapes = ((bsz, 3), (bsz, 4), (bsz, 3), (bsz, 3), (bsz, 2, 5),
+              (bsz, 2, 5), (1, len(mdl.CONTACT_POINTS_TOE), 3))
+    xs = (base_pos, quat, v_world, omega_world, q, qd, cps)
+    ins = [tensor_in('rnea.dynamics', name, x, shape, dtype, dev)
+           for name, x, shape in zip(WB_INPUTS, xs, shapes)]
+    n_pts = 2 * len(mdl.CONTACT_POINTS_TOE) + (N_BODY_POINTS if include_body
+                                               else 0)
+    out = (torch.empty((bsz, N_DOF, N_DOF), dtype=dtype, device=dev),
+           torch.empty((bsz, N_DOF), dtype=dtype, device=dev),
+           torch.empty((bsz, n_pts, 3), dtype=dtype, device=dev),
+           torch.empty((bsz, n_pts, 3), dtype=dtype, device=dev),
+           torch.empty((bsz, n_pts, 3, N_DOF), dtype=dtype, device=dev))
+    args = WbArgs(*ins, (ctypes.c_void_p * 5)(*[t.data_ptr() for t in out]),
+                  bsz, int(include_body))
+    return args, wb_params(dtype, gravity), out
+
+
+def bytes_per_lane():
+    """Bytes a float32 lane's launch with the body points reads and writes,
+    each once: the state (33 numbers) in; M, the bias, the 18 points, their
+    velocities and the Jacobian (256 + 16 + 54 + 54 + 864 numbers) out."""
+    n_pts = 2 * len(mdl.CONTACT_POINTS_TOE) + N_BODY_POINTS
+    reads = 3 + 4 + 3 + 3 + 10 + 10
+    writes = N_DOF * N_DOF + N_DOF + 2 * n_pts * 3 + n_pts * 3 * N_DOF
+    return 4 * (reads + writes)
+
+
+def kernel_attributes(dtype=torch.float32):
+    """What cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor report for the kernel of
+    ``dtype``."""
+    vals = [ctypes.c_int() for _ in range(5)]
+    WB.call('wb_dynamics_attributes', int(dtype == torch.float64),
+            *[ctypes.byref(v) for v in vals])
+    regs, local, shared, threads, blocks = [v.value for v in vals]
+    return dict(registers=regs, local_bytes=local, shared_bytes=shared,
+                threads_per_block=threads, blocks_per_sm=blocks)
+
+
+def dynamics_cuda(base_pos, quat, q, v_world, omega_world, qd, gravity,
+                  cps=None, include_body: bool = False):
+    """:func:`dynamics` as one launch of ``wb_dynamics_kernel`` on the
+    current stream, no synchronisation, counted in
+    ``wb_dynamics_launches``; raises on what :func:`dynamics_launch_args`
+    refuses, on a tensor off the card and on a launch error."""
+    dev = base_pos.device
+    if dev.type != 'cuda':
+        raise ValueError(f'rnea.dynamics_cuda: the state is on {dev}, the '
+                         f'kernel runs on a CUDA device')
+    args, prm, out = dynamics_launch_args(base_pos, quat, q, v_world,
+                                          omega_world, qd, gravity, cps,
+                                          include_body)
+    WB.launch('wb_dynamics', dev, int(base_pos.dtype == torch.float64),
+              ctypes.byref(args), ctypes.byref(prm),
+              counted=('wb_dynamics_launches',))
+    return out

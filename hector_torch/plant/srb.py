@@ -27,7 +27,7 @@ import torch
 
 from .. import constant, resolve_device
 from ..config import HectorConfig, DEFAULT_CONFIG
-from ..cuda import SRB, SrbArgs, SrbIn
+from ..cuda import SRB, SrbArgs, SrbIn, tensor_in
 from .. import math as hm
 from ..kinematics import (foot_position, leg_jacobians, leg_ik,
                           apply_joint_offsets, hip_yaw_locations, srb_params)
@@ -243,26 +243,6 @@ def kernel_attributes(dtype=torch.float32, kernel='srb_plant'):
                 blocks_per_sm=blocks)
 
 
-def _view(name, t, shape, dtype, dev):
-    """``t`` broadcast to ``shape`` (a view: strides 0 where it broadcasts,
-    nothing copied) as the kernel's ``SrbIn``; raises on a dtype, a device or
-    a shape the kernel does not take."""
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f'srb.step: {name} must be a tensor, got {type(t)}')
-    if t.dtype != dtype:
-        raise TypeError(f'srb.step: {name} must be {dtype}, got {t.dtype}')
-    if t.device != dev:
-        raise ValueError(f'srb.step: {name} on {t.device}, the state on '
-                         f'{dev}')
-    try:
-        v = t.expand(shape)
-    except RuntimeError:
-        raise ValueError(f'srb.step: {name} has shape {tuple(t.shape)}, the '
-                         f'kernel takes {shape}') from None
-    strides = list(v.stride()) + [0] * (3 - v.dim())
-    return SrbIn(v.data_ptr(), *strides)
-
-
 def launch_args(state: PlantState, cmd, wrench_world, contact_sched,
                 disturbance=None, terrain=None,
                 cfg: HectorConfig = DEFAULT_CONFIG):
@@ -283,27 +263,26 @@ def launch_args(state: PlantState, cmd, wrench_world, contact_sched,
     bsz = pos.shape[0]
     if contact_sched.dtype != torch.bool:
         contact_sched = contact_sched > 0
-    v = [
-        _view('position', pos, (bsz, 3), dtype, dev),
-        _view('quat', state.quat, (bsz, 4), dtype, dev),
-        _view('v_world', state.v_world, (bsz, 3), dtype, dev),
-        _view('omega_world', state.omega_world, (bsz, 3), dtype, dev),
-        _view('q', state.q, (bsz, 2, 5), dtype, dev),
-        _view('qd', state.qd, (bsz, 2, 5), dtype, dev),
-        _view('foot_anchor', state.foot_anchor, (bsz, 2, 3), dtype, dev),
-        _view('contact', state.contact, (bsz, 2), torch.bool, dev),
-        _view('kp', cmd.kp, (bsz, 2, 5), dtype, dev),
-        _view('kd', cmd.kd, (bsz, 2, 5), dtype, dev),
-        _view('q_des', cmd.q_des, (bsz, 2, 5), dtype, dev),
-        _view('wrench_world', wrench_world, (bsz, 2, 6), dtype, dev),
-        _view('contact_sched', contact_sched, (bsz, 2), torch.bool, dev)]
-    v.append(SrbIn() if disturbance is None else
-             _view('disturbance', disturbance, (bsz, 6), dtype, dev))
-    if terrain is None:
-        v += [SrbIn(), SrbIn()]
-    else:
-        v += [_view('terrain step height', terrain[0], (bsz,), dtype, dev),
-              _view('terrain step length', terrain[1], (bsz,), dtype, dev)]
+    # (name, tensor or None, shape after the lane axis): a None goes as an
+    # empty SrbIn (no push, no terrain)
+    named = (('position', pos, (3,)), ('quat', state.quat, (4,)),
+             ('v_world', state.v_world, (3,)),
+             ('omega_world', state.omega_world, (3,)),
+             ('q', state.q, (2, 5)), ('qd', state.qd, (2, 5)),
+             ('foot_anchor', state.foot_anchor, (2, 3)),
+             ('contact', state.contact, (2,)), ('kp', cmd.kp, (2, 5)),
+             ('kd', cmd.kd, (2, 5)), ('q_des', cmd.q_des, (2, 5)),
+             ('wrench_world', wrench_world, (2, 6)),
+             ('contact_sched', contact_sched, (2,)),
+             ('disturbance', disturbance, (6,)),
+             ('terrain step height', None if terrain is None else terrain[0],
+              ()),
+             ('terrain step length', None if terrain is None else terrain[1],
+              ()))
+    v = [SrbIn() if t is None else tensor_in(
+        'srb.step', name, t, (bsz,) + shape,
+        torch.bool if name in ('contact', 'contact_sched') else dtype, dev)
+        for name, t, shape in named]
     out = PlantState(
         position=torch.empty((bsz, 3), dtype=dtype, device=dev),
         quat=torch.empty((bsz, 4), dtype=dtype, device=dev),

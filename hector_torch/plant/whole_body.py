@@ -15,7 +15,8 @@ fail (``info`` non-zero) are counted on the device (``solve_counts``).
 
 Spans (io/profiling.py), inside the rollout's ``period.plant``, split each
 substep: ``wb.dynamics`` (rnea.dynamics: the mass matrix, the bias forces,
-the contact points and Jacobian), ``wb.contact`` (contact_forces),
+the contact points and Jacobian; on the card one kernel launch),
+``wb.contact`` (contact_forces),
 ``wb.solve`` (the servo and implicit terms on both sides, the solve and
 its count) and ``wb.integrate`` (the backstops, clamps, joint limits and
 the quaternion step); the tick's set-up before its substeps lies in
@@ -217,34 +218,33 @@ def step(state: WholeBodyState, cmd, cfg: HectorConfig = DEFAULT_CONFIG,
     # ~2e-4 kg m^2 makes an explicit PD at kp ~ 300 diverge)
     with span('wb.solve'):
         a_imp = (cmd.kd + pcfg.joint_damping + dt * cmd.kp).reshape(bsz, 10)
+        zeros6 = torch.zeros_like(a_imp[:, 0:6])   # the base's rows
     eye16 = constant(('eye', 16), lambda: np.eye(16), state.position)
     s = state
     for _ in range(n_substeps):
         with span('wb.dynamics'):
-            rot = hm.quat_to_rot(s.quat)
-            qd = s.qd.reshape(bsz, 10)
-            nu = torch.cat([s.v_world, s.omega_world, qd], dim=-1)
             m, bias, pts, vels, jac = rnea.dynamics(
-                s.position, rot, s.q, nu, pcfg.gravity, cps=cps,
-                include_body=True)
+                s.position, s.quat, s.q, s.v_world, s.omega_world, s.qd,
+                pcfg.gravity, cps=cps, include_body=True)
         with span('wb.contact'):
             f0, d_gain, anchor, sticking = contact_forces(
                 pts, vels, s.anchor, s.sticking, terrain, ccfg)
         with span('wb.solve'):
             tau0 = cmd.kp * (cmd.q_des - s.q) + cmd.kd * cmd.qd_des + cmd.tau
             tau0 = torch.clamp(tau0, -pcfg.torque_limit, pcfg.torque_limit)
+            qd = s.qd.reshape(bsz, 10)
             # implicit contact damping: f_c = f0 - D (v + dt J nu_dot)
             jac = jac.reshape(bsz, -1, 16)
             q_contact = hm.rmatvec(jac,
                                    (f0 - d_gain * vels).reshape(bsz, -1))
-            q_applied = torch.cat([torch.zeros_like(nu[:, 0:6]),
+            q_applied = torch.cat([zeros6,
                                    tau0.reshape(bsz, 10) - a_imp * qd],
                                   dim=-1) + q_contact
             if disturbance is not None:
                 q_applied = torch.cat([q_applied[:, 0:6] + disturbance,
                                        q_applied[:, 6:]], dim=-1)
-            m = m + torch.diag_embed(torch.cat(
-                [torch.zeros_like(nu[:, 0:6]), dt * a_imp], dim=-1))
+            m = m + torch.diag_embed(torch.cat([zeros6, dt * a_imp],
+                                               dim=-1))
             # dt J^T D J on the left-hand side (unconditionally stable
             # damping)
             m = m + dt * (jac.transpose(-1, -2)

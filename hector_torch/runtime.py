@@ -518,7 +518,7 @@ def make_rollout_whole_body(n_periods: int,
 
     ccfg / n_substeps: the contact model (WB.ContactConfig, default the
     production model) and the integrator's substeps a tick, passed to
-    WB.step.
+    WB.step; the rollout keeps the latter as ``.n_substeps``.
     """
     from .plant import whole_body as WB
     if ccfg is None:
@@ -528,6 +528,8 @@ def make_rollout_whole_body(n_periods: int,
         return WB.step(p, motor_cmd, cfg=cfg, terrain=terrain,
                        disturbance=dist, ccfg=ccfg, n_substeps=n_substeps)
 
-    return _rollout(n_periods, cfg, with_disturbance, estimator,
-                    with_schedule, noise, whole_body_observation, plant_step,
-                    WB.FK_FOOT_CLEARANCE)
+    fn = _rollout(n_periods, cfg, with_disturbance, estimator,
+                  with_schedule, noise, whole_body_observation, plant_step,
+                  WB.FK_FOOT_CLEARANCE)
+    fn.n_substeps = n_substeps
+    return fn

@@ -414,7 +414,7 @@ def test_warp_kernel_source():
     assert len(re.findall(r'\bnewton_dir[<(]', src)) == 2
     assert not (cuda.CSRC / 'fused_riccati.cu').exists()
     assert sorted(p.name for p in cuda.CSRC.glob('*.cu')) == [
-        'chol.cu', 'fused_riccati_warp.cu', 'srb_plant.cu']
+        'chol.cu', 'fused_riccati_warp.cu', 'srb_plant.cu', 'wb_dynamics.cu']
     assert not [n for n in vars(FR) if 'thread' in n.lower()]
     for gone in ('SOURCE', 'SCRATCH_PER_SCENARIO', '_lib'):
         assert not hasattr(FR, gone), gone

@@ -339,13 +339,13 @@ def test_e_launches_are_counted_per_replay():
 def test_kernel_counters_keep_their_names():
     """``kernel_counters()`` is what the benchmark reads around its traced
     units (a getattr of each pair) and what its trace keys kernels on:
-    these ten names, in this order, each an int."""
+    these eleven names, in this order, each an int."""
     pairs = graph.kernel_counters()
     assert [name for _, name in pairs] == [
         'launches', 'polish_launches', 'factor_launches',
         'factor_shared_launches', 'factor_cluster_launches',
         'solve_launches', 'solve_shared_launches', 'solve_stream_launches',
-        'plant_launches', 'legs_launches']
+        'plant_launches', 'legs_launches', 'wb_dynamics_launches']
     for obj, name in pairs:
         assert isinstance(getattr(obj, name), int), name
 

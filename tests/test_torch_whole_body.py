@@ -149,11 +149,12 @@ def test_contact_points_and_jac_match_jax(include_body, custom):
 
 
 def test_dynamics_is_the_three_passes_in_one():
-    """rnea.dynamics (what the plant's step calls) computes exactly what
-    mass_matrix, bias_forces and contact_points_and_jac compute."""
+    """rnea.dynamics_plain (what the plant's step runs on CPU tensors)
+    computes exactly what mass_matrix, bias_forces and
+    contact_points_and_jac compute."""
     x, _, t_rot = _poses(5)
     args = (tt(x['pos']), t_rot, tt(x['q']))
-    got = TR.dynamics(*args, tt(x['nu']), 9.81, include_body=True)
+    got = TR.dynamics_plain(*args, tt(x['nu']), 9.81, include_body=True)
     want = (TR.mass_matrix(*args), TR.bias_forces(*args, tt(x['nu']), 9.81),
             *TR.contact_points_and_jac(*args, tt(x['nu']),
                                        include_body=True))
